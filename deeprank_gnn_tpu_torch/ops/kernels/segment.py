@@ -1,0 +1,102 @@
+"""K1: segment sum over row-sorted edges (CUDA kernel, plain version, wrapper).
+
+Replaces ``deeprank_gnn_tpu/ops/pallas/segment.py:sorted_segment_sum``. The
+rows arrive as CSR row pointers (``GraphBatch.edge_rowptr`` / ``pe_rowptr``,
+built on the host by ``collate``): ``row_ptr[n]`` is the first edge of row
+``n``, ``row_ptr[N]`` the end of the valid edges; padding edges lie past it
+and drop out, and an empty row gives 0.
+
+The kernel (``ops/csrc/sorted_segment_sum.cu``) is bound by bytes: one warp
+per output row sums its contiguous run of edges, so it moves each valid
+input row once and each output row once. On the serving path that is ~10.4
+MB per conv1 call (~3.1 us at 3.35 TB/s) and at most ~17.3 MB per conv2
+call (<= 5.2 us); launch latency likely dominates at these sizes, and
+making the kernel fast is a later change.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+from deeprank_gnn_tpu_torch.ops.kernels import build
+
+NAME = "sorted_segment_sum"
+
+
+def rows_from_row_ptr(row_ptr: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """Row id of every edge from CSR pointers; edges outside
+    ``[row_ptr[0], row_ptr[N])`` get an id outside ``[0, N)``."""
+    edges = torch.arange(num_edges, dtype=row_ptr.dtype, device=row_ptr.device)
+    return torch.searchsorted(row_ptr, edges, right=True) - 1
+
+
+def sorted_segment_sum_plain(
+    data: torch.Tensor,
+    row_ptr: torch.Tensor,
+    rows: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version: the dump-row ``index_add_`` form of
+    ``ops.segment.segment_sum``, with the rows taken from ``rows`` when
+    given, else from ``row_ptr``."""
+    n = row_ptr.shape[0] - 1
+    if rows is None:
+        rows = rows_from_row_ptr(row_ptr, data.shape[0])
+    ids = torch.where((rows >= 0) & (rows < n), rows, n)
+    out = data.new_zeros((n + 1, data.shape[1]))
+    out.index_add_(0, ids, data)
+    return out[:n]
+
+
+def _check(data: torch.Tensor, row_ptr: torch.Tensor) -> None:
+    if data.dim() != 2 or row_ptr.dim() != 1 or row_ptr.shape[0] < 1:
+        raise ValueError(
+            f"want data [E, F] and row_ptr [N+1]; got {tuple(data.shape)} "
+            f"and {tuple(row_ptr.shape)}"
+        )
+    if data.device != row_ptr.device:
+        raise ValueError(
+            f"data on {data.device} but row_ptr on {row_ptr.device}"
+        )
+
+
+def sorted_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """``out[n] = data[row_ptr[n]:row_ptr[n+1]].sum(0)``. [E, F] -> [N, F].
+
+    On a CPU tensor this is :func:`sorted_segment_sum_plain`. On a CUDA
+    tensor it launches the kernel (building it at first use) or raises:
+    ``data`` must be contiguous float32 and ``row_ptr`` contiguous int32,
+    nondecreasing, with ``row_ptr[N] <= E``. A tensor on any other device
+    raises too, after the same checks.
+    """
+    _check(data, row_ptr)
+    if data.device.type == "cpu":
+        return sorted_segment_sum_plain(data, row_ptr)
+    if data.dtype != torch.float32 or row_ptr.dtype != torch.int32:
+        raise TypeError(
+            f"want float32 data and int32 row_ptr; got {data.dtype} and "
+            f"{row_ptr.dtype}"
+        )
+    if not (data.is_contiguous() and row_ptr.is_contiguous()):
+        raise ValueError("data and row_ptr must be contiguous")
+    e, f = data.shape
+    n = row_ptr.shape[0] - 1
+    if max(e, n, f) >= 2**31:
+        raise ValueError("sizes must fit in int32")
+    if data.device.type != "cuda":
+        raise ValueError(f"sorted_segment_sum runs on cpu or cuda, not {data.device}")
+    out = torch.empty((n, f), dtype=torch.float32, device=data.device)
+    if n == 0 or f == 0:
+        return out
+    lib = build.load(NAME)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = lib.sorted_segment_sum_f32(
+            data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n, f, e, stream
+        )
+    if err != 0:
+        raise RuntimeError(f"sorted_segment_sum launch failed: CUDA error {err}")
+    LAUNCHES[NAME] += 1
+    return out
