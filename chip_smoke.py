@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--seed N] [--graphs N]
 
@@ -11,32 +12,47 @@ Phases, each of which raises on failure:
    numerics with TF32 off; the cuBLAS workspace setting that
    deterministic mode needs;
 2. build: every CUDA kernel of the port, from ``ops/csrc`` in this
-   checkout, with ``nvcc``;
+   checkout, one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it and at edge cases (empty rows, a
-   run of thousands of edges, trailing padding, odd widths), at rtol 1e-5
-   and atol 1e-5 (the summation order differs from ``index_add_``; the
-   edge cases use values whose sums are exact in fp32, so the long run
-   compares which edges were summed rather than rounding); two
-   launches must be bitwise equal; then its device time with the L2
-   cache flushed before each call, beside the plain version's, one
-   PyTorch library call's (timed the same way) and the least time the
-   card could take; also its time with the inputs L2-resident (CUDA-graph
-   replay) and its eager per-call time, the host's launch cost included;
+   rtol 1e-5 and atol 1e-5 (the summation order differs from
+   ``index_add_``; the edge cases use values whose sums are exact in fp32,
+   so long runs compare which edges were summed rather than rounding); two
+   launches must be bitwise equal. K1 (sorted segment sum) at the sparse
+   serving path's shapes and at edge cases (empty rows, a run of thousands
+   of edges, trailing padding, odd widths), and its gradient against the
+   plain version's. K3 (per-graph GIN aggregation) forward and backward
+   at the dense path's first-batch shapes of both conv levels, and at edge
+   cases: unsorted rows, duplicate edges, empty rows, sentinel and negative
+   indices, F = 1, 17 and 100, more edges than one shared-memory tile, and
+   a graph whose [S, F] slab does not fit in shared memory. Each is timed
+   at the main shapes with the L2 cache flushed before each call, beside
+   its plain version, a PyTorch library yardstick and the least time the
+   card could take (K1 also L2-resident and eagerly);
 4. serve: a GINet at the paper's width (48 node features, the ``fold6``
    feature set, 1 edge feature, target ``fnat``, batch 128) with seeded
    random weights, written as a reference-format torch checkpoint, scores
    synthetic fixture-scale graphs through ``NeuralNet(...,
-   pretrained_model=ckpt, device="cuda")``. The graphs are in memory
-   (``GraphListDataSet``, which row-sorts their edges): the HDF5 front
-   end is held against the JAX package by the CPU tests. The kernel
-   launch counters are cleared just before the pass and read just after:
-   the sorted segment sum must have run twice per batch. The predictions
-   must be finite and match the same port run with ``device="cpu"`` (the
-   plain versions) at rtol 2e-4 and atol 1e-5. A further pass under
-   ``torch.profiler`` shows where the time goes (host collation, device
-   busy and idle time, top kernels, and the sorted segment sum's device
-   time per served batch beside its bound for those batches).
+   pretrained_model=ckpt, device="cuda")`` in the sparse and the dense
+   layout. The graphs are in memory (``GraphListDataSet``, which row-sorts
+   their edges): the HDF5 front end is held against the JAX package by the
+   CPU tests. The launch counters are cleared just before each pass and
+   read just after: K1 must run twice per sparse batch, K3 twice per
+   dense batch. Predictions must be finite and match the same port run
+   with ``device="cpu"`` (the plain versions), and the two layouts each
+   other, at rtol 2e-4 and atol 1e-5. A pass of each layout under
+   ``torch.profiler`` shows where the time goes;
+5. train, per layout: ``NeuralNet(graphs, GINet, ..., batch_size=128,
+   percent=[0.8, 0.2], layout=...)`` with the epoch passes that ``train()``
+   runs (``_run_pass`` for training, then for validation) and
+   ``save_model``: ``train()`` itself also writes its epoch HDF5, and the
+   card's machine has no ``h5py`` (the CPU tests run ``train()`` whole).
+   With dropout off, the first 4 Adam steps' losses on the card match the
+   port's ``device="cpu"`` run from the same weights at rtol 2e-4, atol
+   1e-5. With dropout on, two card runs from one seed give bitwise-equal
+   losses and parameters after 2 epochs. Per training batch K1 launches 2
+   times (sparse) and K3 4 times (dense: 2 forward, 2 backward). Losses are
+   finite. It prints graphs/s per epoch (the first one cold), a profile of
+   one warm epoch, and the saved checkpoint reloads and trains on.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -51,25 +67,34 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
-L2_FLUSH_BYTES = 256 << 20  # written before a cold call: 5x the 50 MB L2
+L2_FLUSH_BYTES = 256 << 20  # read before a cold call: 5x the 50 MB L2
 SPIN_CYCLES = 1_000_000  # ~0.5 ms of device spin that hides the host's launch
+TOL = dict(rtol=2e-4, atol=1e-5)
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 
 FOLD6_FEATURES = ["type", "polarity", "bsa", "charge", "cons", "ic", "pssm"]
 NODES_PER_GRAPH = 130
 EDGES_PER_GRAPH = 250  # stored undirected; 500 directed after doubling
 BATCH = 128
+PARITY_STEPS = 4
 
 KERNELS = {
     "sorted_segment_sum": {
         "route": "cuda",
         "source": "deeprank_gnn_tpu_torch/ops/csrc/sorted_segment_sum.cu",
         "replaces": "deeprank_gnn_tpu/ops/pallas/segment.py:408",
+    },
+    "fused_gin_conv": {
+        "route": "cuda",
+        "source": "deeprank_gnn_tpu_torch/ops/csrc/fused_gin_conv.cu",
+        "replaces": "deeprank_gnn_tpu/ops/pallas/__init__.py:203",
     },
 }
 
@@ -222,6 +247,18 @@ def l2_warm_ms(fn, calls: int = 50, replays: int = 20) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
+def errors(got, want) -> dict:
+    err = (got - want).abs()
+    if not err.numel():
+        return {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float((err / want.abs().clamp_min(1e-30)).max())}
+
+
+# ---------------------------------------------------------------------------
+# K1: sorted segment sum
+
+
 def k1_case(name, data, row_ptr, rows, timed: bool):
     """Check the sorted segment sum kernel against its plain version on
     the card; time it when ``timed``. Returns a dict of numbers."""
@@ -238,14 +275,11 @@ def k1_case(name, data, row_ptr, rows, timed: bool):
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError(f"K1 {name}: two launches differ")
-    err = (a - want).abs()
-    max_abs = float(err.max()) if err.numel() else 0.0
-    max_rel = float((err / want.abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
-    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5, msg=f"K1 {name}")
+    torch.testing.assert_close(a, want, **KERNEL_TOL, msg=f"K1 {name}")
     n, f = row_ptr.shape[0] - 1, data.shape[1]
     e_valid = int(row_ptr[-1])
     res = {"case": name, "E": int(data.shape[0]), "E_valid": e_valid, "N": n, "F": f,
-           "max_abs_err": max_abs, "max_rel_err": max_rel}
+           **errors(a, want)}
     if timed:
         lengths = row_ptr.diff().to(torch.int64)
         valid = data[:e_valid]
@@ -272,9 +306,33 @@ def k1_bound_ms(e_valid: int, n: int, f: int) -> float:
     return 1e3 * max(moved / HBM_BYTES_PER_S, e_valid * f / FP32_FLOPS)
 
 
-def kernel_phase(first_batch, seed: int):
-    """K1 at the serving path's two shapes (from the first collated
-    batch) and at edge cases."""
+def k1_backward_case(name, data, row_ptr, rows, gen) -> dict:
+    """K1's gradient (``segment_sum(..., row_ptr=)`` through its autograd
+    Function: the kernel forward, ``grad[rows]`` backward) against the
+    gradient of the plain version (``index_add_``, whose backward is an
+    ``index_select``), on the card."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import sorted_segment_sum_plain
+    from deeprank_gnn_tpu_torch.ops.segment import segment_sum
+
+    n = row_ptr.shape[0] - 1
+    cot = torch.randn((n, data.shape[1]), generator=gen, device=data.device)
+    x = data.clone().requires_grad_(True)
+    segment_sum(x, rows, n, row_ptr=row_ptr).backward(cot)
+    xp = data.clone().requires_grad_(True)
+    sorted_segment_sum_plain(xp, row_ptr, rows).backward(cot)
+    torch.cuda.synchronize()
+    if not torch.equal(x.grad, xp.grad):
+        raise AssertionError(f"K1 backward {name}: differs from the plain gradient")
+    if x.grad[int(row_ptr[-1]):].any():
+        raise AssertionError(f"K1 backward {name}: padding edges got a gradient")
+    return {"case": name + "-backward", **errors(x.grad, xp.grad)}
+
+
+def k1_phase(first_batch, seed: int):
+    """K1 at the sparse serving path's two shapes (from the first collated
+    batch) and at edge cases, forward and backward."""
     import torch
 
     dev = torch.device("cuda")
@@ -313,22 +371,191 @@ def kernel_phase(first_batch, seed: int):
     ptr0, r0 = from_rows(np.full(300, 50), 50)  # every row empty, all padding
     edge_cases.append(("all-empty-F32", exact(300, 32), ptr0, r0))
     results += [k1_case(name, d, p, rr, timed=False) for name, d, p, rr in edge_cases]
+    results += [k1_backward_case(name, d, p, rr, gen)
+                for name, d, p, rr in main + edge_cases[:1]]
     for res in results:
         log("K1 " + json.dumps(res))
     return results
 
 
-def serve(dataset, ckpt: str, device: str, outdir: str, passes: int):
+# ---------------------------------------------------------------------------
+# K3: per-graph GIN aggregation
+
+
+def k3_bound_ms(s: int, f: int, row, col) -> float:
+    """Least time of one K3 call ``out = fused_gin_conv(xw [G,S,F], row,
+    col)`` on these indices: its bytes over the HBM rate, or one add per
+    valid edge and column over the fp32 rate, whichever is longer. The
+    bytes are the ``xw`` rows that a valid edge reads (each distinct
+    (graph, ``col``) pair once: run padding and sentinel slots are never
+    read), ``out`` written whole (G*S*F) and ``row`` and ``col`` read once.
+    For the backward pass ``col, row`` swapped: it reads the gradient rows
+    that a valid ``row`` names."""
+    import torch
+
+    g, e = row.shape
+    valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    goff = torch.arange(g, device=col.device)[:, None] * s
+    sources = int(torch.unique((col.long() + goff)[valid]).numel())
+    moved = 4 * (sources * f + g * s * f + 2 * g * e)
+    return 1e3 * max(moved / HBM_BYTES_PER_S, int(valid.sum()) * f / FP32_FLOPS)
+
+
+def k3_library_pair(xw, row, col):
+    """The PyTorch yardstick for K3: no single call computes it, so two
+    library calls on prepared flat indices, ``index_select`` of the source
+    rows and ``index_add_`` into a zero-filled output (nondeterministic
+    atomics; timed only, never used by the port)."""
+    import torch
+
+    g, s, f = xw.shape
+    valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    goff = torch.arange(g, device=row.device)[:, None] * s
+    src = torch.where(valid, col.long() + goff, g * s).reshape(-1)
+    dst = torch.where(valid, row.long() + goff, g * s).reshape(-1)
+    rows = torch.cat([xw.reshape(g * s, f), xw.new_zeros((1, f))])
+    out = xw.new_zeros((g * s + 1, f))
+
+    def run():
+        out.zero_()
+        out.index_add_(0, dst, rows.index_select(0, src))
+        return out
+
+    return run
+
+
+def k3_case(name, xw, row, col, gen, timed: bool) -> dict:
+    """K3 against its plain version on the card, forward and backward
+    (the gradient through its autograd Function against the gradient
+    through the plain version); two launches bitwise equal; timed when
+    ``timed``."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import (
+        fused_gin_conv,
+        fused_gin_conv_forward,
+        fused_gin_conv_plain,
+        uses_slab,
+    )
+
+    g, s, f = xw.shape
+    e = row.shape[1]
+    cot = torch.randn(xw.shape, generator=gen, device=xw.device)
+    if name != "conv1" and name != "conv2":
+        cot = torch.round(cot * 64) / 64  # exact sums, as for the values
+    x = xw.clone().requires_grad_(True)
+    fwd = fused_gin_conv(x, row, col)
+    fwd.backward(cot)
+    xp = xw.clone().requires_grad_(True)
+    want = fused_gin_conv_plain(xp, row, col)
+    want.backward(cot)
+    again = fused_gin_conv_forward(xw, row, col)
+    bwd_again = fused_gin_conv_forward(cot, col, row)
+    torch.cuda.synchronize()
+    if not (torch.equal(fwd, again) and torch.equal(x.grad, bwd_again)):
+        raise AssertionError(f"K3 {name}: two launches differ")
+    torch.testing.assert_close(fwd.detach(), want.detach(), **KERNEL_TOL, msg=f"K3 {name}")
+    torch.testing.assert_close(x.grad, xp.grad, **KERNEL_TOL, msg=f"K3 {name} backward")
+    e_valid = int(((row >= 0) & (row < s) & (col >= 0) & (col < s)).sum())
+    fe, be = errors(fwd.detach(), want.detach()), errors(x.grad, xp.grad)
+    res = {"case": name, "G": g, "S": s, "F": f, "E": e, "E_valid": e_valid,
+           "slab": uses_slab(xw.device, s, f, e),
+           "max_abs_err": max(fe["max_abs_err"], be["max_abs_err"]),
+           "max_rel_err": max(fe["max_rel_err"], be["max_rel_err"])}
+    if timed:
+        lib_fwd, lib_bwd = k3_library_pair(xw, row, col), k3_library_pair(cot, col, row)
+        res.update(
+            ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xw, row, col)),
+            ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cot, col, row)),
+            plain_ms_fwd=cold_ms(lambda: fused_gin_conv_plain(xw, row, col)),
+            plain_ms_bwd=cold_ms(lambda: fused_gin_conv_plain(cot, col, row)),
+            library_ms_fwd=cold_ms(lib_fwd),
+            library_ms_bwd=cold_ms(lib_bwd),
+            l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xw, row, col)),
+            call_ms_fwd=call_ms(lambda: fused_gin_conv_forward(xw, row, col)),
+            library_max_abs_err=float(
+                (lib_fwd()[: g * s].reshape(g, s, f) - want.detach()).abs().max()),
+            bound_ms_fwd=k3_bound_ms(s, f, row, col),
+            bound_ms_bwd=k3_bound_ms(s, f, col, row),
+        )
+    return res
+
+
+def k3_phase(first_dense_batch, seed: int):
+    """K3 at the dense path's first-batch shapes of both conv levels
+    (random values) and at edge cases (exactly summable values)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rng = np.random.default_rng(seed + 1)
+
+    def exact(shape):
+        return torch.randint(-512, 512, shape, generator=gen, device=dev).float() / 64
+
+    def indices(g, s, e):
+        """Unsorted rows with a long run of duplicates on one row, sentinel
+        (== S) and negative indices, and rows without edges."""
+        row = rng.integers(0, s, (g, e))
+        col = rng.integers(0, s, (g, e))
+        row[:, : e // 4] = s // 3  # duplicates of one row
+        row[:, ::7] = s
+        col[:, 3::11] = s
+        row[:, 5::13] = -1
+        row[row == s // 2] = s // 2 + 1  # slot s//2 receives nothing
+        rng.shuffle(row, axis=1)
+        return (torch.from_numpy(row.astype(np.int32)).to(dev),
+                torch.from_numpy(col.astype(np.int32)).to(dev))
+
+    b = first_dense_batch.to(dev)
+    g, ng = b.x.shape[0], b.x.shape[1]
+    c0g = b.pool0_mask.shape[1]
+    main = [
+        ("conv1", torch.randn((g, ng, 32), generator=gen, device=dev), b.row, b.col),
+        ("conv2", torch.randn((g, c0g, 64), generator=gen, device=dev), b.pe_row, b.pe_col),
+    ]
+    results = [k3_case(name, x, r, c, gen, timed=True) for name, x, r, c in main]
+    edge = []
+    for f in (1, 17, 100):
+        edge.append((f"edges-F{f}", exact((6, 50, f)), *indices(6, 50, 400)))
+    edge.append(("tiles-F32", exact((4, 300, 32)), *indices(4, 300, 10000)))
+    edge.append(("no-slab-F64", exact((2, 4000, 64)), *indices(2, 4000, 9000)))
+    results += [k3_case(name, x, r, c, gen, timed=False) for name, x, r, c in edge]
+    for res in results:
+        log("K3 " + json.dumps(res))
+    by_case = {r["case"]: r for r in results}
+    if not (by_case["conv1"]["slab"] and by_case["conv2"]["slab"]):
+        raise AssertionError("K3: the main shapes should stage their slab in shared memory")
+    if by_case["no-slab-F64"]["slab"]:
+        raise AssertionError("K3: the 4,000 x 64 slab should not fit in shared memory")
+    return results
+
+
+def k2_bound_ms(n: int = 81920, e: int = 983040, f: int = 16) -> float:
+    """Least time of K2 (``sorted_scatter_gather``, not ported yet) at the
+    shapes of the JAX package's ``bench.py`` ``bench_spmm_kernel``: read
+    ``data [E,F]`` and ``rows [E]``, write the segment sums ``[N,F]`` and
+    their gather back ``[E,F]``, each once, over the HBM rate."""
+    moved = 4 * (2 * e * f + e + n * f)
+    return 1e3 * moved / HBM_BYTES_PER_S
+
+
+# ---------------------------------------------------------------------------
+# the engine's passes
+
+
+def serve(dataset, ckpt: str, device: str, outdir: str, passes: int, layout: str):
     """Score every graph ``passes`` times through the port's engine on
-    ``device``; returns the last pass's outputs and per-pass wall times
-    and K1 launch counts."""
+    ``device``; returns the engine, the last pass's outputs and loss, and
+    per-pass wall times and launch counts."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    nn = NeuralNet(dataset, GINet, pretrained_model=ckpt, device=device, outdir=outdir)
+    nn = NeuralNet(dataset, GINet, pretrained_model=ckpt, device=device, outdir=outdir,
+                   layout=layout)
     walls, launches = [], []
     for _ in range(passes):
         LAUNCHES.clear()
@@ -341,49 +568,232 @@ def serve(dataset, ckpt: str, device: str, outdir: str, passes: int):
     return nn, np.asarray(out, dtype=np.float64), loss, walls, launches
 
 
-def breakdown(nn) -> dict:
-    """Where one warm scoring pass spends its time: the host's collation
-    alone (the loader iterated without the model), then a pass under
-    ``torch.profiler``: wall time, the device's busy time (every kernel
-    and copy it ran), its idle share, the kernels that took most, and the
-    sorted segment sum's device time per batch beside its bound for the
-    batches served (conv1 at 2 x 16 columns over the interface edges,
-    conv2 at 2 x 32 over the pooled edges)."""
+def profile_pass(run, loader, kernel_bounds) -> dict:
+    """Where one warm pass spends its time: the host's collation alone
+    (``loader`` iterated without the model), then ``run()`` under
+    ``torch.profiler``: wall time, the device's busy time (every kernel and
+    copy it ran; the profiler's annotation ranges, such as
+    ``Optimizer.step``, span kernels already counted and are left out),
+    its idle share, the kernels that took most, and each named kernel's
+    device time per batch beside ``kernel_bounds[name]``, its bound per
+    batch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    batches = sum(1 for _ in nn.test_loader)
+    batches = sum(1 for _ in loader)
     collate_ms = 1e3 * (time.perf_counter() - t0)
-    bound_ms = sum(
-        k1_bound_ms(int(b.edge_rowptr[-1]), b.num_nodes, 32)
-        + k1_bound_ms(int(b.pe_rowptr[-1]), b.num_clusters0, 64)
-        for b, _ in nn.test_loader
-    )
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        nn.eval(nn.test_loader)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    annotations = [e for e in on_card if e.is_user_annotation]
+    on_card = [e for e in on_card if not e.is_user_annotation]
     busy_ms = sum(e.device_time for e in on_card) / 1e3
     by_name: dict = {}
     for e in on_card:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.device_time / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    k1_ms = sum(ms for name, ms in by_name.items() if "sorted_segment_sum" in name)
-    return {
+    res = {
         "batches": batches,
         "host_collate_ms": collate_ms,
         "profiled_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "k1_device_ms": k1_ms,
-        "k1_ms_per_batch": k1_ms / batches,
-        "k1_bound_ms_per_batch": bound_ms / batches,
         "device_ops": len(on_card),
-        "top_device_ms": top,
+        "annotation_ms_not_counted": sum(e.device_time for e in annotations) / 1e3,
+        "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
     }
+    for name, bound in kernel_bounds.items():
+        ms = sum(v for k, v in by_name.items() if name in k)
+        res[f"{name}_device_ms"] = ms
+        res[f"{name}_ms_per_batch"] = ms / batches
+        res[f"{name}_share_of_busy"] = ms / busy_ms
+        res[f"{name}_bound_ms_per_batch"] = bound
+    return res
+
+
+def sparse_bound_per_batch(loader) -> float:
+    """K1's bound per batch of ``loader``, averaged over its batches
+    (conv1 at 32 columns over the interface edges, conv2 at 64 over the
+    pooled edges)."""
+    bounds = [k1_bound_ms(int(b.edge_rowptr[-1]), b.num_nodes, 32)
+              + k1_bound_ms(int(b.pe_rowptr[-1]), b.num_clusters0, 64) for b, _ in loader]
+    return float(np.mean(bounds))
+
+
+def dense_bound_per_batch(loader, backward: bool) -> float:
+    """K3's bound per batch of ``loader``: conv1 at 32 columns, conv2 at 64,
+    forward, and backward too when ``backward``."""
+    bounds = []
+    for b, _ in loader:
+        total = 0.0
+        for s, f, row, col in ((b.x.shape[1], 32, b.row, b.col),
+                               (b.pool0_mask.shape[1], 64, b.pe_row, b.pe_col)):
+            total += k3_bound_ms(s, f, row, col)
+            if backward:
+                total += k3_bound_ms(s, f, col, row)
+        bounds.append(total)
+    return float(np.mean(bounds))
+
+
+def serve_phase(dataset, tmp: str, seed: int):
+    """Score through both layouts on the card and on the CPU."""
+    ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
+    write_checkpoint(ckpt, seed)
+    out = {}
+    for layout, kernel in (("sparse", "sorted_segment_sum"), ("dense", "fused_gin_conv")):
+        nn, pred, loss, walls, launches = serve(
+            dataset, ckpt, "cuda", os.path.join(tmp, f"serve_{layout}"), passes=2, layout=layout)
+        batches = len(nn.test_loader)
+        if layout == "sparse":
+            bound = sparse_bound_per_batch(nn.test_loader)
+        else:
+            bound = dense_bound_per_batch(nn.test_loader, backward=False)
+        where = profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader, {kernel: bound})
+        _, pred_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
+            dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{layout}_cpu"), passes=1,
+            layout=layout)
+        log(f"serve {layout}: {len(pred)} models in {batches} batches; pass walls (s) {walls} "
+            f"-> models/s {[len(pred) / w for w in walls]}; loss {loss}")
+        log(f"serve {layout}: launches per pass {launches}; cpu pass {walls_cpu[0]} s, "
+            f"launches {launches_cpu[0]}")
+        log(f"serve {layout} breakdown " + json.dumps(where))
+        for i, count in enumerate(launches):
+            if count != {kernel: 2 * batches}:
+                raise AssertionError(f"{layout} pass {i}: launched {count}, "
+                                     f"want {{{kernel!r}: {2 * batches}}}")
+        if launches_cpu[0]:
+            raise AssertionError(f"the cpu pass launched kernels: {launches_cpu[0]}")
+        if pred.shape != (len(dataset),) or not np.isfinite(pred).all():
+            raise AssertionError(f"predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
+        diff = np.abs(pred - pred_cpu)
+        log(f"serve {layout}: card vs cpu max abs {diff.max()}, max rel "
+            f"{(diff / np.maximum(np.abs(pred_cpu), 1e-30)).max()}, loss {loss} vs {loss_cpu}; "
+            f"prediction std {pred.std()}")
+        np.testing.assert_allclose(pred, pred_cpu, **TOL)
+        np.testing.assert_allclose(loss, loss_cpu, **TOL)
+        out[layout] = {"pred": pred, "launches": launches[0][kernel], "where": where,
+                       "walls": walls}
+    diff = np.abs(out["dense"]["pred"] - out["sparse"]["pred"])
+    log(f"serve: dense vs sparse on the card, max abs {diff.max()}")
+    np.testing.assert_allclose(out["dense"]["pred"], out["sparse"]["pred"], **TOL)
+    return out
+
+
+def first_steps(nn, steps: int):
+    """The losses of the first ``steps`` Adam steps of ``nn``'s training
+    loader, as ``_run_pass(training=True)`` takes them."""
+    from deeprank_gnn_tpu_torch.device import deterministic
+
+    losses = []
+    nn.model.train()
+    with deterministic():
+        for i, (batch, _mols) in enumerate(nn.train_loader):
+            if i == steps:
+                break
+            loss, _pred = nn._train_step(nn._map_targets_host(batch).to(nn.device))
+            losses.append(float(loss))
+    nn.model.eval()
+    return losses
+
+
+def train_phase(dataset, layout: str, seed: int, tmp: str) -> dict:
+    """Train at the paper's width, batch 128, percent [0.8, 0.2]: parity
+    with the CPU, the epoch passes with launch counts and times, run-to-run
+    determinism, a profiled warm epoch, and save, reload and resume."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    kw = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat",
+              batch_size=BATCH, percent=[0.8, 0.2], layout=layout, seed=seed)
+    kernel, per_batch = ({"sparse": ("sorted_segment_sum", 2),
+                          "dense": ("fused_gin_conv", 4)})[layout]
+
+    def engine(device, name, **extra):
+        return NeuralNet(dataset, GINet, device=device,
+                         outdir=os.path.join(tmp, f"{layout}_{name}"), **kw, **extra)
+
+    # parity with the CPU from the same weights, dropout off
+    rate = GINet.dropout_rate
+    GINet.dropout_rate = 0.0
+    try:
+        card = first_steps(engine("cuda", "parity_cuda"), PARITY_STEPS)
+        cpu = first_steps(engine("cpu", "parity_cpu"), PARITY_STEPS)
+    finally:
+        GINet.dropout_rate = rate
+    diff = np.abs(np.asarray(card) - np.asarray(cpu))
+    log(f"train {layout}: first {PARITY_STEPS} losses card {card} cpu {cpu}; max abs {diff.max()}, "
+        f"max rel {(diff / np.abs(cpu)).max()}")
+    np.testing.assert_allclose(card, cpu, **TOL)
+
+    # the main path: the epoch passes of train(), dropout on
+    def epochs(nn, count):
+        walls, launches, losses, valid = [], [], [], []
+        for _ in range(count):
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            _o, _om, _y, loss, _d = nn._run_pass(nn.train_loader, training=True)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(dict(LAUNCHES))
+            losses.append(loss)
+            valid.append(nn._run_pass(nn.valid_loader, training=False)[3])
+        return walls, launches, losses, valid
+
+    a = engine("cuda", "a")
+    walls, launches, losses, valid = epochs(a, 2)
+    batches = len(a.train_loader)
+    graphs = len(a.train_loader.dataset)
+    log(f"train {layout}: {graphs} graphs in {batches} batches per epoch; epoch walls (s) {walls} "
+        f"-> graphs/s {[graphs / w for w in walls]} (the first cold); losses {losses}, "
+        f"valid {valid}; launches {launches}")
+    for i, count in enumerate(launches):
+        if count != {kernel: per_batch * batches}:
+            raise AssertionError(f"train {layout} epoch {i}: launched {count}, "
+                                 f"want {{{kernel!r}: {per_batch * batches}}}")
+    if not np.isfinite(losses + valid).all():
+        raise AssertionError(f"train {layout}: losses {losses}, valid {valid}")
+
+    # determinism: a second run from the same seed
+    params = {k: v.clone() for k, v in a.model.state_dict().items()}
+    b = engine("cuda", "b")
+    _w, _l, losses_b, valid_b = epochs(b, 2)
+    same = all(torch.equal(v, b.model.state_dict()[k]) for k, v in params.items())
+    log(f"train {layout}: second run losses {losses_b} valid {valid_b}; parameters equal {same}")
+    if losses_b != losses or valid_b != valid or not same:
+        raise AssertionError(f"train {layout}: two runs from one seed differ")
+
+    # a profiled warm epoch
+    bound = (sparse_bound_per_batch(a.train_loader) if layout == "sparse"
+             else dense_bound_per_batch(a.train_loader, backward=True))
+    where = profile_pass(lambda: a._run_pass(a.train_loader, training=True), a.train_loader,
+                         {kernel: bound})
+    log(f"train {layout} breakdown " + json.dumps(where))
+
+    # save, reload, resume
+    path = os.path.join(tmp, f"{layout}_a", "resume.pth.tar")
+    a.save_model(path)
+    r = NeuralNet(dataset, GINet, pretrained_model=path, layout=layout, device="cuda",
+                  outdir=os.path.join(tmp, f"{layout}_r"))
+    if not all(torch.equal(v, r.model.state_dict()[k]) for k, v in a.model.state_dict().items()):
+        raise AssertionError(f"train {layout}: the reloaded weights differ")
+    steps = {float(s["step"]) for s in r.optimizer.state_dict()["state"].values()}
+    if len(r.optimizer.state_dict()["state"]) != 16 or steps != {3.0 * batches}:
+        raise AssertionError(f"train {layout}: reloaded Adam steps {steps}")
+    resumed = r._run_pass(r.train_loader, training=True)[3]
+    log(f"train {layout}: reloaded {path}, Adam step {steps}; resumed epoch loss {resumed}")
+    if not np.isfinite(resumed):
+        raise AssertionError(f"train {layout}: resumed loss {resumed}")
+    return {"walls": walls, "launches": launches[0][kernel], "where": where,
+            "graphs": graphs, "parity_max_abs": float(diff.max())}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -408,7 +818,7 @@ def main(argv=None) -> int:
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
     from deeprank_gnn_tpu_torch.device import set_fp32_numerics
-    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES, build
+    from deeprank_gnn_tpu_torch.ops.kernels import build
 
     t_start = time.perf_counter()
     # 1. device
@@ -422,78 +832,106 @@ def main(argv=None) -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"capability {torch.cuda.get_device_capability(0)}")
 
-    # 2. build
-    for name in KERNELS:
-        t0 = time.perf_counter()
-        text = build.build(name)
+    # 2. build, one nvcc per source, all at once
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        texts = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    for name, text in texts.items():
         build.load(name)
-        log(f"build: {build.library_path(name).name} in {time.perf_counter() - t0:.2f} s "
-            f"with {' '.join(build.NVCC_FLAGS)}")
+        log(f"build: {build.library_path(name).name} with {' '.join(build.NVCC_FLAGS)}")
         for line in text.strip().splitlines():
             log(f"  nvcc {name}: {line.strip()}")
+    log(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.2f} s")
 
-    # 3. kernels, at the shapes of the serving path's first batch
+    # 3. kernels, at the shapes of the paths' first batches
     graphs = build_graphs(args.seed, args.graphs)
     dataset = GraphListDataSet(graphs)
     first_batch, _ = next(iter(GraphLoader(dataset, batch_size=BATCH)))
-    k1 = kernel_phase(first_batch, args.seed)
+    first_dense, _ = next(iter(GraphLoader(dataset, batch_size=BATCH, layout="dense")))
+    k1 = k1_phase(first_batch, args.seed)
+    k3 = k3_phase(first_dense, args.seed)
+    log(f"K2 (not ported) byte bound at bench.py's spmm shapes: {k2_bound_ms()} ms")
 
-    # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
-        write_checkpoint(ckpt, args.seed)
-        nn, out, loss, walls, launches = serve(
-            dataset, ckpt, "cuda", os.path.join(tmp, "cuda"), passes=2
-        )
-        batches = len(nn.test_loader)
-        where = breakdown(nn)
-        _, out_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
-            dataset, ckpt, "cpu", os.path.join(tmp, "cpu"), passes=1
-        )
-    served = launches[0].get("sorted_segment_sum", 0)
-    log(f"serve: {len(out)} models in {batches} batches; pass walls (s) {walls} "
-        f"-> models/s {[len(out) / w for w in walls]}; loss {loss}")
-    log(f"serve: K1 launches per pass {launches}; cpu pass {walls_cpu[0]} s, "
-        f"launches {launches_cpu[0]}")
-    log("serve breakdown " + json.dumps(where))
-    for i, count in enumerate(launches):
-        if count.get("sorted_segment_sum", 0) != 2 * batches:
-            raise AssertionError(f"pass {i}: K1 launched {count}, want {2 * batches}")
-    if launches_cpu[0]:
-        raise AssertionError(f"the cpu pass launched kernels: {launches_cpu[0]}")
-    if out.shape != (args.graphs,) or not np.isfinite(out).all():
-        raise AssertionError(f"predictions: shape {out.shape}, finite {np.isfinite(out).all()}")
-    diff = np.abs(out - out_cpu)
-    log(f"serve: card vs cpu max abs {diff.max()}, max rel "
-        f"{(diff / np.maximum(np.abs(out_cpu), 1e-30)).max()}, loss {loss} vs {loss_cpu}; "
-        f"prediction std {out.std()}")
-    np.testing.assert_allclose(out, out_cpu, rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(loss, loss_cpu, rtol=2e-4, atol=1e-5)
+        # 4. serve, both layouts
+        served = serve_phase(dataset, tmp, args.seed)
+        # 5. train, both layouts
+        trained = {layout: train_phase(dataset, layout, args.seed, tmp)
+                   for layout in ("sparse", "dense")}
 
-    main_cases = [r for r in k1 if "ms" in r]
-    line = {"kernels": [{
-        "name": "sorted_segment_sum",
-        **KERNELS["sorted_segment_sum"],
-        "launches": served,
-        "max_abs_err": max(r["max_abs_err"] for r in k1),
-        # one call at each conv level's shape of the first served batch,
-        # L2 flushed before each call
-        "ms": sum(r["ms"] for r in main_cases),
-        "plain_ms": sum(r["plain_ms"] for r in main_cases),
-        "bound_ms": sum(r["bound_ms"] for r in main_cases),
-        "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in main_cases),
-        # the profiled serving pass: device time per batch and its bound
-        "served_ms_per_batch": where["k1_ms_per_batch"],
-        "served_bound_ms_per_batch": where["k1_bound_ms_per_batch"],
-        # the same two calls with their inputs L2-resident (graph replay)
-        "l2_warm_ms": sum(r["l2_warm_ms"] for r in main_cases),
-        # eager per-call time, the host's launch cost included
-        "call_ms": sum(r["call_ms"] for r in main_cases),
-        "shapes": [{k: r[k] for k in ("case", "E", "E_valid", "N", "F", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "l2_warm_ms", "call_ms")}
-                   for r in main_cases],
-    }]}
+    k1_main = [r for r in k1 if "ms" in r]
+    k3_main = [r for r in k3 if "ms_fwd" in r]
+    s_where, d_where = served["sparse"]["where"], served["dense"]["where"]
+    t_sparse, t_dense = trained["sparse"]["where"], trained["dense"]["where"]
+    line = {"kernels": [
+        {
+            "name": "sorted_segment_sum",
+            **KERNELS["sorted_segment_sum"],
+            # the sparse serving pass (slice 1's main path)
+            "launches": served["sparse"]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in k1),
+            # one call at each conv level's shape of the first served batch,
+            # L2 flushed before each call
+            "ms": sum(r["ms"] for r in k1_main),
+            "plain_ms": sum(r["plain_ms"] for r in k1_main),
+            "bound_ms": sum(r["bound_ms"] for r in k1_main),
+            "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in k1_main),
+            # the profiled passes: device time per batch and its bound
+            "served_ms_per_batch": s_where["sorted_segment_sum_ms_per_batch"],
+            "served_bound_ms_per_batch": s_where["sorted_segment_sum_bound_ms_per_batch"],
+            "train_launches": trained["sparse"]["launches"],
+            "train_ms_per_batch": t_sparse["sorted_segment_sum_ms_per_batch"],
+            "train_bound_ms_per_batch": t_sparse["sorted_segment_sum_bound_ms_per_batch"],
+            # the same two calls with their inputs L2-resident (graph replay)
+            "l2_warm_ms": sum(r["l2_warm_ms"] for r in k1_main),
+            # eager per-call time, the host's launch cost included
+            "call_ms": sum(r["call_ms"] for r in k1_main),
+            "shapes": [{k: r[k] for k in ("case", "E", "E_valid", "N", "F", "ms", "plain_ms",
+                                          "library_ms", "bound_ms", "l2_warm_ms", "call_ms")}
+                       for r in k1_main],
+        },
+        {
+            "name": "fused_gin_conv",
+            **KERNELS["fused_gin_conv"],
+            # the dense training epoch (this slice's main path): 2 forward
+            # and 2 backward launches per batch
+            "launches": trained["dense"]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in k3),
+            # the 4 calls of one training batch at the first dense batch's
+            # shapes (conv1 and conv2, forward and backward), L2 flushed
+            # before each call
+            "ms": sum(r["ms_fwd"] + r["ms_bwd"] for r in k3_main),
+            "plain_ms": sum(r["plain_ms_fwd"] + r["plain_ms_bwd"] for r in k3_main),
+            "bound_ms": sum(r["bound_ms_fwd"] + r["bound_ms_bwd"] for r in k3_main),
+            "bound_by": "bytes",
+            # no one PyTorch call computes K3: index_select + index_add_
+            # on prepared flat indices, into a zero-filled output
+            "library_ms": sum(r["library_ms_fwd"] + r["library_ms_bwd"] for r in k3_main),
+            "library_call": "index_select + index_add_ (two calls, zero-filled output)",
+            "train_ms_per_batch": t_dense["fused_gin_conv_ms_per_batch"],
+            "train_bound_ms_per_batch": t_dense["fused_gin_conv_bound_ms_per_batch"],
+            "serve_launches": served["dense"]["launches"],
+            "served_ms_per_batch": d_where["fused_gin_conv_ms_per_batch"],
+            "served_bound_ms_per_batch": d_where["fused_gin_conv_bound_ms_per_batch"],
+            "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
+                                          "ms_bwd", "plain_ms_fwd", "plain_ms_bwd",
+                                          "library_ms_fwd", "library_ms_bwd", "bound_ms_fwd",
+                                          "bound_ms_bwd", "l2_warm_ms_fwd", "call_ms_fwd")}
+                       for r in k3_main],
+        },
+    ]}
+    summary = {
+        f"{kind_}_{layout}": {
+            "graphs_per_s": [len(dataset) / w for w in served[layout]["walls"]]
+            if kind_ == "serve" else
+            [trained[layout]["graphs"] / w for w in trained[layout]["walls"]],
+            "device_idle_share": (served if kind_ == "serve" else trained)[layout]["where"][
+                "device_idle_share"],
+        }
+        for kind_ in ("serve", "train") for layout in ("sparse", "dense")
+    }
+    log("summary " + json.dumps(summary))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

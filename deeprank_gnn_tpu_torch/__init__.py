@@ -11,7 +11,9 @@ nothing of JAX or of ``deeprank_gnn_tpu``; ``h5py`` and ``scikit-learn``
 are imported only where files are read or metrics computed.
 
 Ported so far: scoring with a pretrained GINet,
-``NeuralNet(db, GINet, pretrained_model=ckpt).test()`` (ROADMAP.md).
+``NeuralNet(db, GINet, pretrained_model=ckpt).test()``, and training it,
+``NeuralNet(db, GINet, ...).train()``, in the sparse and the dense layout
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Padded graph batching with host-precomputed pooling plans (sparse layout).
+"""Padded graph batching with host-precomputed pooling plans (sparse layout),
+and the loader of both layouts (the dense collate is ``data/dense_batch.py``).
 
 The port's counterpart of ``deeprank_gnn_tpu/data/batch.py``. The host
 does the integers: graph offsets, consecutive cluster renumbering, the
@@ -35,11 +36,36 @@ import torch
 
 from deeprank_gnn_tpu_torch.data.dataset import GraphSample
 
-_DEFERRED = "see ROADMAP.md, queue 1 (the dense layout and the device store)"
+_DEFERRED = "see ROADMAP.md, queue 1 (the device store)"
+
+
+class TensorFields:
+    """Moves every tensor field of a frozen batch dataclass at once."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def _map(self, fn):
+        changes = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                changes[f.name] = fn(v)
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device, non_blocking: bool = False):
+        """Every tensor moved to ``device``."""
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self):
+        """Every tensor in page-locked host memory, so that a
+        ``non_blocking`` copy to the card is asynchronous."""
+        return self._map(lambda t: t.pin_memory())
 
 
 @dataclass(frozen=True)
-class GraphBatch:
+class GraphBatch(TensorFields):
     """A padded batch of residue interface graphs (all tensors padded)."""
 
     # level-0 graph
@@ -100,27 +126,6 @@ class GraphBatch:
     @property
     def num_clusters1(self) -> int:
         return self.pool1_graph.shape[0]
-
-    @property
-    def device(self) -> torch.device:
-        return self.x.device
-
-    def _map(self, fn) -> "GraphBatch":
-        changes = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            if isinstance(v, torch.Tensor):
-                changes[f.name] = fn(v)
-        return dataclasses.replace(self, **changes)
-
-    def to(self, device, non_blocking: bool = False) -> "GraphBatch":
-        """Every tensor moved to ``device``."""
-        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
-
-    def pin_memory(self) -> "GraphBatch":
-        """Every tensor in page-locked host memory, so that a
-        ``non_blocking`` copy to the card is asynchronous."""
-        return self._map(lambda t: t.pin_memory())
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -402,18 +407,24 @@ def _caps_from_sizes(sizes, bs: int, node_mult: int, edge_mult: int) -> dict:
 
 
 class GraphLoader:
-    """Size-bucketed batch iterator over a dataset (sparse layout).
+    """Size-bucketed batch iterator over a dataset.
 
-    Pads every batch to `batch_size` graphs and to node/edge bucket
-    multiples. With ``num_buckets > 1`` graphs are partitioned into
-    size-quantile buckets (by node count), each with its own static
-    capacity. Bucket membership and capacities are computed once at
-    construction and are stable across epochs; batches never mix
-    buckets. Batches come out as CPU tensors; the engine moves them to
-    its device (`data/prefetch.py`).
+    ``layout="sparse"`` pads every batch to `batch_size` graphs and to
+    node/edge bucket multiples. With ``num_buckets > 1`` graphs are
+    partitioned into size-quantile buckets (by node count), each with its
+    own static capacity. Bucket membership and capacities are computed
+    once at construction and are stable across epochs; batches never mix
+    buckets. ``padding_stats`` reports the realized efficiency
+    (valid/padded entries) of the last completed epoch.
 
-    ``padding_stats`` reports the realized efficiency (valid/padded
-    entries) of the last completed epoch.
+    ``layout="dense"`` yields :class:`~deeprank_gnn_tpu_torch.data.
+    dense_batch.DenseGraphBatch` batches (``collate_dense``) with
+    per-graph capacities fixed over the dataset at construction, in the
+    same shuffle order; it has no buckets and keeps no padding statistics,
+    as in the JAX package.
+
+    Batches come out as CPU tensors; the engine moves them to its device
+    (`data/prefetch.py`).
     """
 
     def __init__(
@@ -431,11 +442,14 @@ class GraphLoader:
         num_buckets: int = 1,
         host_batch_slice: Optional[slice] = None,
         device_cache: bool = False,
+        precompute_ops: Optional[bool] = None,
     ):
-        if layout != "sparse":
-            raise NotImplementedError(f"layout={layout!r}: {_DEFERRED}")
+        if layout not in ("sparse", "dense"):
+            raise ValueError(f"unknown layout {layout!r}")
         if device_cache:
             raise NotImplementedError(f"device_cache: {_DEFERRED}")
+        if precompute_ops:
+            raise NotImplementedError(f"precompute_ops: {_DEFERRED}")
         if host_batch_slice is not None:
             raise NotImplementedError(
                 "host_batch_slice: see ROADMAP.md, queue 1 (multi-device)"
@@ -455,10 +469,11 @@ class GraphLoader:
         self._plan_cache: dict = {}
         self._rng = np.random.RandomState(seed)
         self._caps = None
+        self._dense_caps = None
         self._buckets = None  # list of (indices ndarray, caps dict)
         self.padding_stats: dict = {}
 
-        if static_shapes and len(dataset) > 0:
+        def _scan_sizes():
             sizes, idx = [], []
             for i in range(len(dataset)):
                 try:
@@ -469,7 +484,21 @@ class GraphLoader:
                     # skip it too (robustness parity with the reference's
                     # skip-and-continue handling)
                     pass
-            idx = np.asarray(idx)
+            return sizes, np.asarray(idx)
+
+        if layout == "dense" and len(dataset) > 0:
+            sizes, _ = _scan_sizes()
+            self._dense_caps = {
+                # the node capacity covers the run-padded cluster layout
+                "ng": max(8, -(-max(s["np8"] for s in sizes) // 8) * 8),
+                "eg": max(128, -(-max(s["e"] for s in sizes) // 128) * 128),
+                "c0g": max(8, -(-max(s["c0"] for s in sizes) // 8) * 8),
+                "c1g": max(8, -(-max(s["c1"] for s in sizes) // 8) * 8),
+            }
+            # the pooled-edge capacity is bounded by the edge capacity
+            self._dense_caps["pg"] = self._dense_caps["eg"]
+        if static_shapes and layout == "sparse" and len(dataset) > 0:
+            sizes, idx = _scan_sizes()
             # one bucket needs at least batch_size graphs to be worth a
             # separate shape
             nb = max(1, min(num_buckets, len(sizes) // max(1, batch_size)))
@@ -547,6 +576,27 @@ class GraphLoader:
         st["num_batches"] += 1
         return out
 
+    def _iter_dense(self):
+        from deeprank_gnn_tpu_torch.data.dense_batch import collate_dense
+
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start : start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                return
+            pairs = [(int(i), self._get_sample(int(i))) for i in idx]
+            pairs = [(i, s) for i, s in pairs if s is not None]
+            if not pairs:
+                continue
+            yield collate_dense(
+                [s for _, s in pairs],
+                g_pad=self.batch_size,
+                plans=[self._get_plan(i, s) for i, s in pairs],
+                **(self._dense_caps or {}),
+            )
+
     def _finish_epoch_stats(self) -> None:
         st = self._epoch_stats
         if st["padded_edges"]:
@@ -562,6 +612,9 @@ class GraphLoader:
             "padded_nodes": 0,
             "num_batches": 0,
         }
+        if self.layout == "dense":
+            yield from self._iter_dense()
+            return
         # per-bucket static shapes
         if self._buckets is not None:
             chunks = []

@@ -63,9 +63,14 @@ class GraphSample:
 
 def _sizes(n, e, ie, cluster0, cluster1) -> Dict[str, int]:
     """Padding-cap inputs of one graph: node and edge counts, cluster
-    counts and the largest cluster of each level (the member-table
-    capacities)."""
-    c0 = c1 = m0 = m1 = 0
+    counts, the largest cluster of each level (the member-table
+    capacities), and for the dense layout's run-padded node slots
+    (``collate_dense``) the node count with every level-0 cluster padded
+    to a multiple of 8 (``np8``) and the most 8-row tiles of one cluster
+    (``mt0``: no port code reads it until the tiled cluster pool is
+    ported; it keeps the probe's fields those of the JAX package)."""
+    c0 = c1 = m0 = m1 = mt0 = 0
+    np8 = n
     if cluster0 is not None and cluster1 is not None:
         inv0 = np.unique(cluster0, return_inverse=True)[1]
         inv1 = np.unique(cluster1, return_inverse=True)[1]
@@ -73,7 +78,12 @@ def _sizes(n, e, ie, cluster0, cluster1) -> Dict[str, int]:
         c1 = int(inv1.max()) + 1 if inv1.size else 0
         m0 = int(np.bincount(inv0).max()) if inv0.size else 0
         m1 = int(np.bincount(inv1).max()) if inv1.size else 0
-    return {"n": n, "e": e, "ie": ie, "c0": c0, "c1": c1, "m0": m0, "m1": m1}
+        if inv0.size:
+            tiles = -(-np.bincount(inv0) // 8)
+            np8 = int((tiles * 8).sum())
+            mt0 = int(tiles.max())
+    return {"n": n, "e": e, "ie": ie, "c0": c0, "c1": c1, "m0": m0, "m1": m1,
+            "np8": np8, "mt0": mt0}
 
 
 def _row_sort(index: np.ndarray, attr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -106,6 +116,14 @@ class GraphListDataSet:
     def __init__(self, graphs: Sequence[GraphSample]):
         self.graphs = [row_sorted(g) for g in graphs]
         self.index_complexes = [("<memory>", g.mol) for g in self.graphs]
+
+    def subset(self, index: Sequence[int]) -> "GraphListDataSet":
+        """The graphs at positions ``index``, in that order (already
+        sorted, so they are not sorted again)."""
+        out = GraphListDataSet([])
+        out.graphs = [self.graphs[int(i)] for i in index]
+        out.index_complexes = [self.index_complexes[int(i)] for i in index]
+        return out
 
     def __len__(self) -> int:
         return len(self.graphs)
@@ -454,7 +472,8 @@ def DivideDataSet(
 
     Unlike the reference (which shuffles with the *global* numpy RNG and
     is therefore unreproducible run-to-run), pass ``seed`` for a
-    deterministic split.
+    deterministic split. A :class:`GraphListDataSet` splits into two of
+    its subsets.
     """
     size = len(dataset)
     index = np.arange(size)
@@ -462,6 +481,8 @@ def DivideDataSet(
         np.random.default_rng(seed).shuffle(index)
     size1 = int(percent[0] * size)
     index1, index2 = index[:size1], index[size1:]
+    if isinstance(dataset, GraphListDataSet):
+        return dataset.subset(index1), dataset.subset(index2)
 
     dataset1 = copy.copy(dataset)
     dataset1.index_complexes = [dataset.index_complexes[i] for i in index1]

@@ -2,7 +2,9 @@
 
 The port's counterpart of ``deeprank_gnn_tpu/data/prefetch.py``. A worker
 thread iterates the loader (HDF5 reads and numpy collation) and, for a
-CUDA target, pins each batch in page-locked memory; the consuming thread
+CUDA target, pins each batch in page-locked memory (a sparse ``GraphBatch``
+or a ``DenseGraphBatch``: both move all their tensors with ``pin_memory``
+and ``to``); the consuming thread
 starts the ``non_blocking`` copy on its current stream and yields the
 batch. The copy and the kernels that read the batch are ordered on that
 one stream, so no event is needed; PyTorch's pinned-memory allocator keeps

@@ -12,9 +12,12 @@ layout, paper mode), with the reference's behavioral quirks:
 - **Q2** (reference `ginet.py:101,118-130`): BOTH towers run on the
   *interface* edges, not the internal edges.
 
-The edge aggregations always run as the sorted segment sum kernel, from
-the batch's CSR row pointers (``collate`` only builds row-sorted
-batches): two launches per batch on the fused path.
+On a sparse ``GraphBatch`` the edge aggregations always run as the sorted
+segment sum kernel (K1), from the batch's CSR row pointers (``collate``
+only builds row-sorted batches): two launches per batch on the fused path.
+On a ``DenseGraphBatch`` they run as the per-graph GIN aggregation kernel
+(K3), also twice per batch fused, and pooling is a max by assignment per
+graph (``ops/dense.py``). Both layouts give the same numbers.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from deeprank_gnn_tpu_torch.data.batch import GraphBatch
+from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 from deeprank_gnn_tpu_torch.device import resolve_device, set_fp32_numerics
 from deeprank_gnn_tpu_torch.models.common import (
     dropout,
@@ -32,6 +36,8 @@ from deeprank_gnn_tpu_torch.models.common import (
     linear_init,
     uniform_init,
 )
+from deeprank_gnn_tpu_torch.ops.dense import masked_mean, slot_max_pool
+from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv
 from deeprank_gnn_tpu_torch.ops.pooling import (
     community_pooling_x,
     graph_mean_pool,
@@ -173,14 +179,57 @@ class GINet(nn.Module):
         hq = max_pool_x(h2, batch.assign1, c1, batch.mem1_idx)
         return graph_mean_pool(hq, batch.pool1_graph, batch.num_graphs)
 
-    def forward(
-        self, batch: GraphBatch, generator: Optional[torch.Generator] = None
+    def _towers_dense_fused(self, batch: DenseGraphBatch) -> torch.Tensor:
+        """Dense-layout analog of :meth:`_towers_fused`: one K3 launch per
+        conv level at double width (the JAX package's branch without
+        precomputed operators). Returns [G, 64]."""
+        c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
+        xw = torch.cat(
+            [linear(batch.x, self.conv1.fc.weight),
+             linear(batch.x, self.conv1_ext.fc.weight)],
+            dim=-1,
+        )
+        h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
+        hp = slot_max_pool(h, batch.assign0, c0g)
+        hw = torch.cat(
+            [linear(hp[..., :16], self.conv2.fc.weight),
+             linear(hp[..., 16:], self.conv2_ext.fc.weight)],
+            dim=-1,
+        )
+        h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
+        hq = slot_max_pool(h2, batch.assign1, c1g)
+        return masked_mean(hq, batch.pool1_mask)
+
+    def _tower_dense(
+        self, conv1: GINetConvLayer, conv2: GINetConvLayer, batch: DenseGraphBatch
     ) -> torch.Tensor:
-        """[G, output_shape] scores of a padded batch (moved to the
-        model's device first). Dropout follows ``self.training`` and draws
-        from ``generator``."""
+        """One dense tower (the JAX package's non-attention branch): the
+        same numbers as :meth:`_tower`."""
+        c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
+        xw = linear(batch.x, conv1.fc.weight)
+        h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
+        hp = slot_max_pool(h, batch.assign0, c0g)
+        hw = linear(hp, conv2.fc.weight)
+        h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
+        hq = slot_max_pool(h2, batch.assign1, c1g)
+        return masked_mean(hq, batch.pool1_mask)
+
+    def forward(
+        self, batch, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """[G, output_shape] scores of a padded batch, a sparse
+        ``GraphBatch`` or a ``DenseGraphBatch`` (moved to the model's device
+        first). Dropout follows ``self.training`` and draws from
+        ``generator``."""
         batch = batch.to(self.device)
-        if self.fuse:
+        if isinstance(batch, DenseGraphBatch):
+            if self.fuse:
+                h = self._towers_dense_fused(batch)
+            else:
+                t1 = self._tower_dense(self.conv1, self.conv2, batch)
+                t2 = self._tower_dense(self.conv1_ext, self.conv2_ext, batch)
+                h = torch.cat([t1, t2], dim=1)
+        elif self.fuse:
             h = self._towers_fused(batch)
         else:
             t1 = self._tower(self.conv1, self.conv2, batch)

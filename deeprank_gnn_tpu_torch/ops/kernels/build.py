@@ -43,6 +43,16 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
     },
+    "fused_gin_conv": {
+        "fused_gin_conv_f32": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ),
+        "fused_gin_conv_uses_slab": (
+            ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+        ),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -75,7 +85,8 @@ def library_path(name: str) -> Path:
 def build(name: str) -> str:
     """Compile ``ops/csrc/<name>.cu`` unless its library is current;
     returns ``nvcc``'s output ("" when nothing was built). Raises with
-    that output when the build fails."""
+    that output when the build fails. Builds of different sources may run
+    at the same time (each ``nvcc`` is its own process)."""
     lib = library_path(name)
     if lib.is_file():
         return ""

@@ -100,3 +100,16 @@ def sorted_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tenso
         raise RuntimeError(f"sorted_segment_sum launch failed: CUDA error {err}")
     LAUNCHES[NAME] += 1
     return out
+
+
+def sorted_segment_sum_backward(grad: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The gradient of :func:`sorted_segment_sum` with respect to ``data``:
+    ``grad[rows]``, 0 for an edge whose row lies outside ``[0, N)``
+    (padding). Plain torch on every device, as the JAX package leaves its
+    ``_bwd`` (``ops/pallas/segment.py:432-436``) to XLA."""
+    n = grad.shape[0]
+    valid = (rows >= 0) & (rows < n)
+    if n == 0:
+        return grad.new_zeros((rows.shape[0], grad.shape[1]))
+    g = grad.index_select(0, torch.clamp(rows, 0, n - 1))
+    return torch.where(valid[:, None], g, torch.zeros((), dtype=g.dtype, device=g.device))

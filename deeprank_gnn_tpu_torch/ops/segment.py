@@ -13,9 +13,10 @@ per-cluster, or per-graph) buffers with torch_scatter's `scatter_sum` /
 - ``segment_max`` returns 0 for empty segments, not -inf.
 
 ``segment_sum(..., row_ptr=...)`` runs as the sorted segment sum kernel
-(:mod:`deeprank_gnn_tpu_torch.ops.kernels.segment`); everything else is
-plain torch (``index_add_``, ``index_select``, ``scatter_reduce_``), as XLA
-compiled it for the JAX package.
+(:mod:`deeprank_gnn_tpu_torch.ops.kernels.segment`), with its gradient
+``grad[rows]``; everything else is plain torch (``index_add_``,
+``index_select``, ``scatter_reduce_``), as XLA compiled it for the JAX
+package.
 """
 
 from __future__ import annotations
@@ -24,7 +25,30 @@ from typing import Optional
 
 import torch
 
-from deeprank_gnn_tpu_torch.ops.kernels.segment import sorted_segment_sum
+from deeprank_gnn_tpu_torch.ops.kernels.segment import (
+    rows_from_row_ptr,
+    sorted_segment_sum,
+    sorted_segment_sum_backward,
+)
+
+
+class SortedSegmentSum(torch.autograd.Function):
+    """K1 with its gradient. The forward is the kernel (the plain version
+    on a CPU tensor); the backward gathers the output gradient at each
+    edge's row, 0 at padding. When a gradient is needed, the edges' rows
+    are taken from ``row_ptr`` once, in the forward, and kept for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, data, row_ptr):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(rows_from_row_ptr(row_ptr, data.shape[0]))
+        return sorted_segment_sum(data, row_ptr)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rows,) = ctx.saved_tensors
+        return sorted_segment_sum_backward(grad, rows), None
 
 
 def _dump_row(index: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -46,7 +70,7 @@ def segment_sum(
     (reference `ginet.py:69-71`). ``row_ptr [S+1]`` gives the CSR pointers
     of nondecreasing ids with padding at the end (``GraphBatch.edge_rowptr``
     / ``pe_rowptr``); the sum then runs as the sorted segment sum kernel,
-    which reads only ``row_ptr``.
+    which reads only ``row_ptr``; its gradient is ``grad[rows]``.
     """
     if row_ptr is not None:
         if row_ptr.shape != (num_segments + 1,):
@@ -54,7 +78,7 @@ def segment_sum(
                 f"row_ptr has shape {tuple(row_ptr.shape)}, want "
                 f"({num_segments + 1},)"
             )
-        return sorted_segment_sum(data, row_ptr)
+        return SortedSegmentSum.apply(data, row_ptr)
     ids = _dump_row(segment_ids, num_segments)
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
     out.index_add_(0, ids, data)

@@ -1,4 +1,5 @@
-"""Checkpoint loading for both flavours, and weights carried across from JAX.
+"""Checkpoints of both flavours, and weights and Adam moments carried
+across from JAX.
 
 The port's counterpart of ``deeprank_gnn_tpu/train/checkpoint.py``. A
 checkpoint is one dict with the model's weights and the data/config
@@ -6,16 +7,17 @@ context (reference `NeuralNet.py:768-792`). Two flavours exist:
 
 1. reference torch files (``.pt``, ``.pth.tar``): ``model`` is a torch
    state dict with the reference's names (``conv1.fc.weight``, …,
-   ``fc2.bias``);
+   ``fc2.bias``) and ``optimizer`` a torch Adam ``state_dict()``;
 2. pickles written by the JAX package (``__format__`` == ``MAGIC``):
    ``model`` is its parameter tree (``GINetParams``), the optimizer an
    optax Adam state.
 
-A JAX pickle names classes of the JAX package and of optax, and a plain
-``pickle.load`` would import both. :func:`load_state` reads it with an
-unpickler that maps exactly those classes to local stand-ins and refuses
-any other global except numpy's array reconstructors, so loading needs
-neither JAX nor optax. Saving checkpoints comes with training.
+The port writes the first flavour (:func:`save_state`), which the reference
+and the JAX package both read. A JAX pickle names classes of the JAX
+package and of optax, and a plain ``pickle.load`` would import both.
+:func:`load_state` reads it with an unpickler that maps exactly those
+classes to local stand-ins and refuses any other global except numpy's
+array reconstructors, so loading needs neither JAX nor optax.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import collections
 import pickle
 import zipfile
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -124,3 +126,81 @@ def state_dict_from_checkpoint(net_name: str, payload: Dict[str, Any]):
     if payload.get("__format__") == MAGIC:
         return state_dict_from_jax_params(net_name, payload["model"])
     return payload["model"]
+
+
+def _on_cpu(obj):
+    """``obj`` with every tensor in it detached and moved to the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _on_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_on_cpu(v) for v in obj)
+    return obj
+
+
+def save_state(filename: str, state: Dict[str, Any]) -> None:
+    """Write a reference-format torch checkpoint: ``state`` with its
+    tensors on the CPU (so it loads on any device), ``model`` a state
+    dict and ``optimizer`` a torch Adam ``state_dict()``."""
+    torch.save(_on_cpu(state), filename)
+
+
+def _split_flat(vector, shapes):
+    """A flat optax moment vector (``optax.flatten``, the JAX engine's
+    optimizer) cut into one array per parameter shape, in order; None
+    when the sizes disagree."""
+    flat = np.asarray(vector, dtype=np.float32).reshape(-1)
+    sizes = [int(np.prod(s)) for s in shapes]
+    if flat.size != sum(sizes):
+        return None
+    return [a.reshape(s) for a, s in zip(np.split(flat, np.cumsum(sizes)[:-1]), shapes)]
+
+
+def adam_state_from_jax(opt_state, params) -> Optional[Dict[str, Any]]:
+    """A torch Adam ``state_dict()['state']`` from the optax Adam state of a
+    JAX checkpoint, ``(ScaleByAdamState(count, mu, nu), EmptyState())``
+    with ``mu`` and ``nu`` flat vectors in leaf order, for ``params`` (the
+    model's parameters in order, which is the JAX package's leaf order:
+    moments map by index). The inverse of the JAX package's
+    ``adam_state_from_torch``. None when the state does not fit the
+    parameters (the caller keeps fresh moments)."""
+    try:
+        adam = opt_state[0]
+        count, mu, nu = adam.count, adam.mu, adam.nu
+    except (TypeError, IndexError, AttributeError):
+        return None
+    shapes = [tuple(p.shape) for p in params]
+    try:
+        mu, nu = _split_flat(mu, shapes), _split_flat(nu, shapes)
+    except (TypeError, ValueError):
+        return None  # not a flat vector (a per-leaf moment tree)
+    if mu is None or nu is None:
+        return None
+    step = float(np.asarray(count))
+    return {
+        i: {
+            "step": torch.tensor(step),
+            "exp_avg": torch.from_numpy(np.array(m, dtype=np.float32)),
+            "exp_avg_sq": torch.from_numpy(np.array(v, dtype=np.float32)),
+        }
+        for i, (m, v) in enumerate(zip(mu, nu))
+    }
+
+
+def adam_state_from_checkpoint(payload: Dict[str, Any], params) -> Optional[Dict[str, Any]]:
+    """The Adam moments of either checkpoint flavour as a torch Adam
+    ``state_dict()['state']`` for ``params``, or None when the checkpoint
+    holds none that fit (an empty ``optimizer``, another optimizer, other
+    shapes)."""
+    opt = payload.get("optimizer")
+    if payload.get("__format__") == MAGIC:
+        return adam_state_from_jax(opt, params)
+    state = opt.get("state") if isinstance(opt, Mapping) else None
+    if not state or len(state) != len(params):
+        return None
+    for i, p in enumerate(params):
+        s = state.get(i)
+        if s is None or "exp_avg" not in s or tuple(s["exp_avg"].shape) != tuple(p.shape):
+            return None
+    return state

@@ -1,39 +1,54 @@
-"""NeuralNet: the scoring engine (serving subset).
+"""NeuralNet: the training, evaluation and scoring engine.
 
-The port's counterpart of ``deeprank_gnn_tpu/train/neuralnet.py``, with
-the reference engine's API (reference `NeuralNet.py:18-26`) for scoring
-docking models with a pretrained network::
+The port's counterpart of ``deeprank_gnn_tpu/train/neuralnet.py``, with the
+reference engine's API (reference `NeuralNet.py:18-26`)::
+
+    nn = NeuralNet("graphs.hdf5", GINet, target="fnat", percent=[0.8, 0.2])
+    nn.train(nepoch=10, validate=True, save_model="best")
 
     nn = NeuralNet("graphs.hdf5", GINet, pretrained_model="model.pth.tar")
     nn.test()
 
-- the configuration (features, target, task, classes, threshold, …) is
-  restored from the checkpoint, of either flavour (`train/checkpoint.py`);
+- task inference from the target, threshold defaults, the train/valid split
+  (``DivideDataSet``) or an independent eval set (reference
+  `NeuralNet.py:64-85, 148-178`);
+- MSE / class-weighted cross-entropy; regression outputs may pass a
+  sigmoid; class outputs are softmax probabilities (`:239-263`);
+- ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, the counterpart of
+  the JAX package's ``optax.flatten(optax.adam(...))``. Every parameter
+  gets a gradient each step, the dead attention parameters of quirk Q1 a
+  zero one, so Adam keeps moments for all of them as the reference does;
+- best/last checkpoints with the reference's file names and format
+  (`:326-355`, ``train/checkpoint.py``), epoch-data HDF5 export
+  (`:827-872`); a pretrained load restores the configuration and the Adam
+  moments of either checkpoint flavour and can resume training;
 - clusters are computed into the file when it lacks them (quirk Q8,
-  ``precluster_mode``);
-- MSE / class-weighted cross-entropy give ``test_loss``; regression
-  outputs may pass a sigmoid; class outputs are softmax probabilities;
-- predictions, metrics and the epoch-data HDF5 export follow the
-  reference (`NeuralNet.py:414-475, 827-872`).
+  ``precluster_mode``).
 
-The engine runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs the
-kernels' plain versions) in fp32 with TF32 off, and the scoring pass runs
-under ``torch.use_deterministic_algorithms(True)``. Training (``train()``
-and the constructor without ``pretrained_model``) comes with slice 2 of
-the port (ROADMAP.md).
+``layout="sparse"`` (default) runs the conv aggregations as kernel K1,
+``layout="dense"`` as kernel K3 (``models/ginet.py``). The engine runs on
+``device`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain versions)
+in fp32 with TF32 off, every pass under
+``torch.use_deterministic_algorithms(True)``, dropout drawing from a
+generator on the engine's device seeded from ``seed``: the same seed gives
+the same run. Options of the JAX engine that are not ported raise
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-from typing import Optional
+from time import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from deeprank_gnn_tpu_torch.data.batch import GraphBatch, GraphLoader
+from deeprank_gnn_tpu_torch.data.batch import GraphLoader
 from deeprank_gnn_tpu_torch.data.dataset import (
+    DivideDataSet,
     GraphListDataSet,
     HDF5DataSet,
     PreCluster,
@@ -48,10 +63,12 @@ from deeprank_gnn_tpu_torch.train import checkpoint as ckpt
 from deeprank_gnn_tpu_torch.train.losses import cross_entropy_loss, mse_loss
 from deeprank_gnn_tpu_torch.train.metrics import Metrics
 
-_TRAINING = (
-    "training is not ported yet; the port scores with a pretrained model "
-    "(pass pretrained_model=...). See ROADMAP.md, queue 1, slice 2"
-)
+REG_TARGETS = ("irmsd", "lrmsd", "fnat", "dockQ")
+CLASS_TARGETS = ("bin_class", "capri_classes")
+
+
+def _unported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({where})")
 
 
 def _clusters_present(dataset: HDF5DataSet, method: str) -> bool:
@@ -68,41 +85,127 @@ class NeuralNet:
         self,
         database=None,
         Net=None,
-        *,
+        node_feature: Sequence[str] = ("type", "polarity", "bsa"),
+        edge_feature: Sequence[str] = ("dist",),
+        target: Optional[str] = "irmsd",
+        lr: float = 0.01,
+        batch_size: int = 32,
+        percent=(1.0, 0.0),
+        database_eval=None,
+        index=None,
+        class_weights=None,
+        task: Optional[str] = None,
+        classes=(0, 1),
+        threshold: Optional[float] = None,
         pretrained_model: Optional[str] = None,
+        shuffle: bool = True,
         outdir: str = "./",
+        cluster_nodes: Optional[str] = "mcl",
+        transform_sigmoid: bool = False,
         precluster_mode: str = "auto",
+        seed: int = 0,
+        layout: str = "sparse",
+        mesh=None,
         num_buckets: int = 1,
+        executable_cache_dir: Optional[str] = None,
+        device_cache: bool = False,
+        scan_epochs=False,
+        scan_unroll: int = 1,
+        store_pack: str = "lossless",
+        device_cache_bytes: Optional[int] = None,
+        *,
         device="cuda",
     ):
-        """``database``: HDF5 file path(s), or a
+        """The JAX engine's constructor (same arguments and defaults).
+
+        ``database``: HDF5 file path(s), or a
         :class:`~deeprank_gnn_tpu_torch.data.dataset.GraphListDataSet` of
         graphs already in memory (which carry their clusters).
 
-        ``pretrained_model``: the checkpoint to score with; the features,
-        target, task, classes, threshold, batch size and clustering method
-        come from it. Without it the constructor would prepare training,
-        which is not ported yet, and raises ``NotImplementedError``.
+        Without ``pretrained_model`` the constructor prepares training: the
+        dataset is split by ``percent`` (seeded by ``seed``), the model is
+        drawn from ``seed``. With it, the configuration (features, target,
+        task, classes, threshold, batch size, clustering method, …), the
+        weights and the Adam moments come from the checkpoint, and the
+        engine can ``test()`` or go on training (``train_loader`` is a
+        shuffled loader over the same data).
 
+        ``layout``: ``"sparse"`` (default) or ``"dense"``.
         ``precluster_mode``: 'auto' computes clusters into the file only
-        when the checkpoint's method is missing there (quirk Q8); 'force'
-        always does; 'never' skips. ``num_buckets > 1`` batches graphs of
-        similar size together (see ``GraphLoader``).
+        when the method is missing there (quirk Q8); 'force' always does;
+        'never' skips. ``num_buckets > 1`` batches graphs of similar size
+        together in the sparse layout (see ``GraphLoader``).
 
         ``device``: ``"cuda"`` (default) or ``"cpu"``. With no CUDA device
-        and no ``device="cpu"`` the constructor raises."""
+        and no ``device="cpu"`` the constructor raises.
+
+        ``mesh``, ``layout="halo"``, ``executable_cache_dir``,
+        ``device_cache``, ``scan_epochs`` (and ``scan_unroll``), a
+        ``store_pack`` other than "lossless" and ``device_cache_bytes`` are
+        not ported yet and raise ``NotImplementedError``."""
+        if layout not in ("sparse", "dense", "halo"):
+            raise ValueError(f"unknown layout {layout!r}")
+        if mesh is not None or layout == "halo":
+            raise _unported("mesh and layout='halo'", "multi-device")
+        if executable_cache_dir is not None:
+            raise _unported("executable_cache_dir", "the device store and scanned epochs")
+        if device_cache or store_pack != "lossless" or device_cache_bytes is not None:
+            raise _unported(
+                "device_cache, store_pack and device_cache_bytes",
+                "the device store and scanned epochs",
+            )
+        if scan_epochs or scan_unroll != 1:
+            raise _unported("scan_epochs and scan_unroll", "the device store and scanned epochs")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_fp32_numerics()
-        if pretrained_model is None:
-            raise NotImplementedError(_TRAINING)
         self.Net = Net
         self.outdir = outdir
         os.makedirs(outdir, exist_ok=True)
         self.precluster_mode = precluster_mode
+        self.seed = seed
+        self.layout = layout
         self.num_buckets = num_buckets
-        self.load_params(pretrained_model)
-        self.load_pretrained_model(database, Net)
+        self._pending_model_state = None
+
+        if pretrained_model is None:
+            self.node_feature = list(node_feature)
+            self.edge_feature = list(edge_feature)
+            self.target = target
+            self.lr = lr
+            self.batch_size = batch_size
+            self.percent = list(percent)
+            self.index = index
+            self.class_weights = class_weights
+            self.task = task
+            self.classes = list(classes)
+            self.threshold = threshold
+            self.shuffle = shuffle
+            self.cluster_nodes = cluster_nodes
+            self.transform_sigmoid = transform_sigmoid
+            if self.task is None:
+                if self.target in REG_TARGETS:
+                    self.task = "reg"
+                elif self.target in CLASS_TARGETS:
+                    self.task = "class"
+                else:
+                    raise ValueError(
+                        "User target detected -> The task argument is "
+                        "required ('class' or 'reg')."
+                    )
+            if self.task == "class" and self.threshold is None:
+                print(
+                    "the threshold for accuracy computation is set to "
+                    f"{self.classes[1]}"
+                )
+                self.threshold = self.classes[1]
+            if self.task == "reg" and self.threshold is None:
+                print("the threshold for accuracy computation is set to 0.3")
+                self.threshold = 0.3
+            self.load_model(database, Net, database_eval)
+        else:
+            self.load_params(pretrained_model)
+            self.load_pretrained_model(database, Net)
 
     # ------------------------------------------------------------------
     # setup
@@ -114,8 +217,8 @@ class NeuralNet:
             return
         if self.cluster_nodes not in ("mcl", "louvain"):
             raise ValueError(
-                f"Invalid node clustering method {self.cluster_nodes!r} in the "
-                "checkpoint; cluster_nodes must be 'mcl', 'louvain' or None."
+                f"Invalid node clustering method {self.cluster_nodes!r}; "
+                "cluster_nodes must be 'mcl', 'louvain' or None."
             )
         if self.precluster_mode == "force" or not _clusters_present(
             dataset, self.cluster_nodes
@@ -123,12 +226,13 @@ class NeuralNet:
             print("Loading clusters")
             PreCluster(dataset, method=self.cluster_nodes)
 
-    def _make_dataset(self, database):
+    def _make_dataset(self, database, index=None):
         if isinstance(database, GraphListDataSet):
-            return database
+            return database if index is None else database.subset(index)
         return HDF5DataSet(
             root="./",
             database=database,
+            index=index,
             node_feature=self.node_feature,
             edge_feature=self.edge_feature,
             target=self.target,
@@ -136,41 +240,87 @@ class NeuralNet:
             tqdm=False,
         )
 
+    def _loader(self, dataset, **kw) -> GraphLoader:
+        return GraphLoader(dataset, batch_size=self.batch_size, layout=self.layout, **kw)
+
+    def load_model(self, database, Net, database_eval) -> None:
+        """Datasets, loaders, model and loss for training (reference
+        `NeuralNet.py:148-193`)."""
+        dataset = self._make_dataset(database, self.index)
+        self._maybe_precluster(dataset)
+        train_dataset, valid_dataset = DivideDataSet(
+            dataset, percent=self.percent, seed=self.seed
+        )
+        kw = dict(shuffle=self.shuffle, seed=self.seed, num_buckets=self.num_buckets)
+        self.train_loader = self._loader(train_dataset, **kw)
+        print("Training set loaded")
+        self.valid_loader = None
+        if self.percent[1] > 0.0:
+            self.valid_loader = self._loader(valid_dataset, **kw)
+            print("Evaluation set loaded")
+        if database_eval is not None:
+            eval_dataset = self._make_dataset(database_eval, self.index)
+            self._maybe_precluster(eval_dataset)
+            self.valid_loader = self._loader(eval_dataset, **kw)
+            print("Independent validation set loaded !")
+        self.build_model(dataset, Net)
+        self.set_loss()
+        self.train_acc = []
+        self.train_loss = []
+        self.valid_acc = []
+        self.valid_loss = []
+
     def load_pretrained_model(self, database, Net) -> None:
+        """Test loader, and a shuffled train loader over the same data so
+        that a reloaded checkpoint can go on training (the reference can
+        only test after a reload)."""
         test_dataset = self._make_dataset(database)
         self._maybe_precluster(test_dataset)
-        self.test_loader = GraphLoader(
-            test_dataset, batch_size=self.batch_size, num_buckets=self.num_buckets,
-        )
+        self.test_loader = self._loader(test_dataset, num_buckets=self.num_buckets)
+        self.train_loader = self._loader(test_dataset, shuffle=True, seed=self.seed)
         self.valid_loader = None
         print("Test set loaded")
         self.build_model(test_dataset, Net)
         self.set_loss()
 
     def build_model(self, dataset, Net) -> None:
-        """Instantiate the network on the engine's device and load the
-        checkpoint's weights into it (reference `put_model_to_device`,
-        `NeuralNet.py:195-237`)."""
+        """The network on the engine's device (reference
+        `put_model_to_device`, `NeuralNet.py:195-237`), drawn from ``seed``
+        or loaded from the pending checkpoint, and its Adam optimizer
+        (with the checkpoint's moments, when it has some that fit)."""
         self.num_edge_features = len(self.edge_feature)
-        first = dataset.get(0)
-        num_features = first.num_features
+        num_features = dataset.get(0).num_features
         if self.task == "reg":
             output_shape = 1
         else:
             self.classes_to_idx = {c: i for i, c in enumerate(self.classes)}
             self.idx_to_classes = {i: c for i, c in enumerate(self.classes)}
             self.output_shape = output_shape = len(self.classes)
-        # the draws are overwritten by the checkpoint; a private generator
-        # leaves the global RNG alone
+        # a private generator leaves the global RNG alone
         self.model = Net(
             num_features, output_shape, self.num_edge_features,
-            device=self.device, generator=torch.Generator(),
+            device=self.device, generator=torch.Generator().manual_seed(self.seed),
         )
-        state_dict = ckpt.state_dict_from_checkpoint(
-            type(self.model).__name__, self._pending_model_state
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8
         )
-        self.model.load_state_dict(state_dict)
-        self.model.eval()
+        self._dropout_generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        payload = self._pending_model_state
+        if payload is None:
+            return
+        self.model.load_state_dict(
+            ckpt.state_dict_from_checkpoint(type(self.model).__name__, payload)
+        )
+        moments = ckpt.adam_state_from_checkpoint(payload, list(self.model.parameters()))
+        if moments is not None:
+            state = self.optimizer.state_dict()
+            state["state"] = moments
+            self.optimizer.load_state_dict(state)
+        elif payload.get("optimizer"):
+            print(
+                "optimizer state in checkpoint does not match the current "
+                "optimizer; starting moments fresh"
+            )
 
     def set_loss(self) -> None:
         """Select loss; compute inverse-frequency class weights if asked
@@ -178,16 +328,17 @@ class NeuralNet:
         self.weights = None
         if self.task == "class":
             if self.class_weights is True:
-                w = self.compute_class_weights(self.test_loader.dataset)
+                w = self.compute_class_weights()
             elif self.class_weights not in (None, False):
                 w = np.array(self.class_weights, dtype=np.float32)
             else:
                 return
             self.weights = torch.as_tensor(w, dtype=torch.float32, device=self.device)
 
-    def compute_class_weights(self, ds) -> np.ndarray:
-        """Normalized inverse-frequency class weights over a dataset
-        (reference `NeuralNet.py:581-594`)."""
+    def compute_class_weights(self) -> np.ndarray:
+        """Normalized inverse-frequency class weights over the training
+        set (reference `NeuralNet.py:581-594`)."""
+        ds = self.train_loader.dataset
         targets_all = np.array(
             [
                 t
@@ -206,8 +357,8 @@ class NeuralNet:
         print(f"class weights: {w}")
         return w
 
-    def _loss_and_pred(self, batch: GraphBatch):
-        pred = self.model(batch)
+    def _loss_and_pred(self, batch, generator: Optional[torch.Generator] = None):
+        pred = self.model(batch, generator)
         if self.task == "class":
             loss = cross_entropy_loss(pred, batch.y.long(), batch.y_mask, self.weights)
         else:
@@ -218,10 +369,24 @@ class NeuralNet:
             loss = mse_loss(p, batch.y, batch.y_mask)
         return loss, pred
 
+    def _train_step(self, batch):
+        """One Adam step on ``batch``; returns the loss and predictions
+        before the update (as the JAX package's jitted step does)."""
+        self.optimizer.zero_grad(set_to_none=False)
+        loss, pred = self._loss_and_pred(batch, self._dropout_generator)
+        loss.backward()
+        for p in self.model.parameters():
+            # Q1's dead parameters get no gradient from autograd; a zero
+            # one keeps them in Adam's state, as in the reference
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.optimizer.step()
+        return loss.detach(), pred.detach()
+
     # ------------------------------------------------------------------
     # target/output mapping
 
-    def _map_targets_host(self, batch: GraphBatch) -> GraphBatch:
+    def _map_targets_host(self, batch):
         """classes_to_idx remap for class tasks (reference
         `format_output`, `NeuralNet.py:616-631`), on the host."""
         if self.task != "class":
@@ -233,7 +398,7 @@ class NeuralNet:
         return dataclasses.replace(batch, y=torch.from_numpy(mapped))
 
     # ------------------------------------------------------------------
-    # the scoring pass
+    # passes
 
     def _collect_batch(self, acc, pred, mols, y_host, mask_host) -> None:
         """Per-batch host bookkeeping: predictions, aligned (pred, target)
@@ -267,11 +432,10 @@ class NeuralNet:
 
     def _run_pass(self, loader: GraphLoader, training: bool = False):
         """One pass over ``loader``: host collation on a worker thread,
-        asynchronous copies to the device, the forward pass under
-        deterministic algorithms. Returns ``(out, out_m, ys, loss,
-        data)``."""
-        if training:
-            raise NotImplementedError(_TRAINING)
+        asynchronous copies to the device, and per batch an Adam step
+        (``training``) or a forward pass, under deterministic algorithms.
+        Returns ``(out, out_m, ys, loss, data)``; ``loss`` sums the
+        batches' losses."""
         out, out_m, raw_outputs, ys = [], [], [], []
         data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
         running_loss = 0.0
@@ -281,20 +445,99 @@ class NeuralNet:
                 hb = self._map_targets_host(batch)
                 yield hb, (mols, hb.y.numpy(), hb.y_mask.numpy())
 
-        self.model.eval()
-        with torch.inference_mode(), deterministic():
+        self.model.train(training)
+        grad_mode = contextlib.nullcontext() if training else torch.inference_mode()
+        with grad_mode, deterministic():
             for batch, (mols, y_host, mask_host) in prefetch(_prepared(), self.device):
-                loss, pred = self._loss_and_pred(batch)
+                if training:
+                    loss, pred = self._train_step(batch)
+                else:
+                    loss, pred = self._loss_and_pred(batch)
                 running_loss += float(loss)
                 self._collect_batch(
                     (out, out_m, raw_outputs, ys, data),
                     pred.cpu().numpy(), mols, y_host, mask_host,
                 )
+        self.model.eval()
         self._finish_pass_data(data, out, raw_outputs, ys)
         return out, out_m, ys, running_loss, data
 
-    def train(self, *args, **kwargs) -> None:
-        raise NotImplementedError(_TRAINING)
+    def train(
+        self,
+        nepoch: int = 1,
+        validate: bool = False,
+        save_model: str = "last",
+        hdf5: str = "train_data.hdf5",
+        save_epoch: str = "intermediate",
+        save_every: int = 5,
+        profile: Optional[str] = None,
+    ) -> None:
+        """Train for ``nepoch`` epochs (reference `NeuralNet.py:265-355`
+        semantics): per epoch a training pass, a validation pass when
+        ``validate``, checkpoints (``save_model`` "last" or "best") and the
+        epoch-data export to ``hdf5`` in ``outdir`` (every epoch with
+        ``save_epoch="all"``, every ``save_every`` with "intermediate", and
+        the last). ``profile`` is not ported yet and raises."""
+        if profile is not None:
+            raise _unported("train(profile=...)", "the CLI, the plots and train(profile=)")
+        import h5py
+
+        fname = self.update_name(hdf5, self.outdir)
+        with h5py.File(fname, "w") as self.f5:
+            self.nepoch = nepoch
+            self.data = {}
+            for epoch in range(1, nepoch + 1):
+                t0 = time()
+                _out, _out_m, _y, _loss, self.data["train"] = self._run_pass(
+                    self.train_loader, training=True
+                )
+                t = time() - t0
+                self.train_loss.append(_loss)
+                self.train_out = _out
+                self._train_out_m = _out_m
+                self.train_y = _y
+                _acc = self.get_metrics("train", self.threshold).accuracy
+                self.train_acc.append(_acc)
+                self.print_epoch_data("train", epoch, _loss, _acc, t)
+
+                if validate:
+                    t0 = time()
+                    _out, _out_m, _y, _val_loss, self.data["eval"] = self._run_pass(
+                        self.valid_loader, training=False
+                    )
+                    t = time() - t0
+                    self.valid_loss.append(_val_loss)
+                    self.valid_out = _out
+                    self._valid_out_m = _out_m
+                    self.valid_y = _y
+                    _val_acc = self.get_metrics("eval", self.threshold).accuracy
+                    self.valid_acc.append(_val_acc)
+                    self.print_epoch_data("valid", epoch, _val_loss, _val_acc, t)
+                    if save_model == "best" and min(self.valid_loss) == _val_loss:
+                        self.save_model(filename=self._ckpt_name(nepoch, epoch))
+                elif save_model == "best" and min(self.train_loss) == _loss:
+                    print(
+                        "WARNING: The training set is used both for "
+                        "learning and model selection."
+                    )
+                    self.save_model(filename=self._ckpt_name(nepoch, epoch))
+
+                if (save_epoch == "all") or (epoch == nepoch):
+                    self._export_epoch_hdf5(epoch, self.data)
+                elif save_epoch == "intermediate" and epoch % save_every == 0:
+                    self._export_epoch_hdf5(epoch, self.data)
+
+            if save_model == "last":
+                self.save_model(filename=self._ckpt_name(nepoch))
+
+    def _ckpt_name(self, nepoch: int, epoch: Optional[int] = None) -> str:
+        base = (
+            f"t{self.task}_y{self.target}_b{self.batch_size}"
+            f"_e{nepoch}_lr{self.lr}"
+        )
+        if epoch is not None:
+            base += f"_{epoch}"
+        return base + ".pth.tar"
 
     def test(
         self,
@@ -312,10 +555,7 @@ class NeuralNet:
             if database_test is not None:
                 test_dataset = self._make_dataset(database_test)
                 self._maybe_precluster(test_dataset)
-                self.test_loader = GraphLoader(
-                    test_dataset, batch_size=self.batch_size,
-                    num_buckets=self.num_buckets,
-                )
+                self.test_loader = self._loader(test_dataset, num_buckets=self.num_buckets)
                 print("Test set loaded")
             self.data = {}
             _out, _out_m, _y, _test_loss, self.data["test"] = self._run_pass(
@@ -353,6 +593,14 @@ class NeuralNet:
         return Metrics(pred, y, self.target, threshold, binary)
 
     @staticmethod
+    def print_epoch_data(stage, epoch, loss, acc, t):
+        acc_str = "None" if acc is None else f"{acc:1.4e}"
+        print(
+            f"Epoch [{epoch:04d}] : {stage} loss {loss:e} | "
+            f"accuracy {acc_str} | time {t:1.2e} sec."
+        )
+
+    @staticmethod
     def update_name(hdf5: str, outdir: str) -> str:
         fname = os.path.join(outdir, hdf5)
         count = 0
@@ -362,6 +610,39 @@ class NeuralNet:
             hdf5 = f"{hdf5_name}_{count:03d}.hdf5"
             fname = os.path.join(outdir, hdf5)
         return fname
+
+    def save_model(self, filename: str = "model.pth.tar") -> None:
+        """Write a reference-format torch checkpoint (``model`` a state
+        dict, ``optimizer`` the torch Adam state), with the JAX package's
+        resume keys (loss and accuracy history). Lands in ``outdir``
+        unless ``filename`` has a directory. It holds no ``rng`` entry: the
+        JAX package would read one as its PRNG key."""
+        if not os.path.dirname(filename):
+            filename = os.path.join(self.outdir, filename)
+        state = {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "net": type(self.model).__name__,
+            "node": self.node_feature,
+            "edge": self.edge_feature,
+            "target": self.target,
+            "task": self.task,
+            "classes": self.classes,
+            "class_weight": self.class_weights,
+            "batch_size": self.batch_size,
+            "percent": self.percent,
+            "lr": self.lr,
+            "index": self.index,
+            "shuffle": self.shuffle,
+            "threshold": self.threshold,
+            "cluster_nodes": self.cluster_nodes,
+            "transform_sigmoid": self.transform_sigmoid,
+            "train_loss": list(getattr(self, "train_loss", [])),
+            "valid_loss": list(getattr(self, "valid_loss", [])),
+            "train_acc": list(getattr(self, "train_acc", [])),
+            "valid_acc": list(getattr(self, "valid_acc", [])),
+        }
+        ckpt.save_state(filename, state)
 
     def load_params(self, filename: str) -> None:
         state = ckpt.load_state(filename)
@@ -384,6 +665,19 @@ class NeuralNet:
         self.train_acc = list(state.get("train_acc", []))
         self.valid_acc = list(state.get("valid_acc", []))
         self._pending_model_state = state
+
+    def plot_loss(self, name: str = "") -> None:
+        raise _unported("plot_loss", "the CLI, the plots and train(profile=)")
+
+    def plot_acc(self, name: str = "") -> None:
+        raise _unported("plot_acc", "the CLI, the plots and train(profile=)")
+
+    def plot_hit_rate(self, data: str = "eval", threshold: float = 4,
+                      mode: str = "percentage", name: str = "") -> None:
+        raise _unported("plot_hit_rate", "the CLI, the plots and train(profile=)")
+
+    def plot_scatter(self) -> None:
+        raise _unported("plot_scatter", "the CLI, the plots and train(profile=)")
 
     def _export_epoch_hdf5(self, epoch: int, data: dict) -> None:
         """Epoch data export (reference `NeuralNet.py:827-872`)."""

@@ -121,13 +121,20 @@ def test_loader_batches_match(h5_path, shuffle, num_buckets, drop_last):
 
 
 def test_loader_rejects_unported_options(h5_path):
+    """The dense layout is ported; the device store, precomputed dense
+    operators and multi-host slices are not and raise."""
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 
     _, tds = datasets(h5_path)
-    for kw in ({"layout": "dense"}, {"device_cache": True},
-               {"host_batch_slice": slice(0, 2)}):
+    for kw in ({"device_cache": True}, {"host_batch_slice": slice(0, 2)},
+               {"layout": "dense", "precompute_ops": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GraphLoader(tds, **kw)
+    with pytest.raises(ValueError, match="unknown layout"):
+        GraphLoader(tds, layout="halo")
+    batch, mols = next(iter(GraphLoader(tds, batch_size=4, layout="dense")))
+    assert isinstance(batch, DenseGraphBatch) and batch.num_graphs == 4 and len(mols) == 4
 
 
 def test_batch_to_keeps_static_fields(h5_path):

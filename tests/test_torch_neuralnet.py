@@ -6,7 +6,7 @@ pretrained_model=ckpt).test()`` on the same HDF5 file, for both
 checkpoint flavours (a pickle saved by the JAX package and a torch file
 written with ``torch.save``): outputs, loss, metrics and the exported
 ``test_data.hdf5`` at rtol 2e-4, atol 1e-5. Also the guards: no JAX in
-the port's imports, no silent CPU fallback, training not yet ported.
+the port's imports, no silent CPU fallback, unported options raise.
 """
 
 import os
@@ -157,14 +157,22 @@ def test_in_memory_graphs_score_like_the_file(db, tmp_path):
 
 
 def test_no_silent_cpu_fallback_and_no_training(db, tmp_path):
+    """Training is ported: the constructor without a checkpoint prepares
+    it, and a pretrained engine trains on. What is not ported yet still
+    raises, and ``cuda`` without a card is refused."""
     from deeprank_gnn_tpu_torch import GINet, NeuralNet
 
     ckpt = torch_checkpoint(str(tmp_path / "model.pt"), "fnat", "reg", 1, 0.3)
+    fresh = NeuralNet(db, GINet, node_feature=FEATURE_NAMES, target="fnat", batch_size=4,
+                      outdir=str(tmp_path / "fresh"), device="cpu")
+    assert fresh.task == "reg" and len(fresh.train_loader.dataset) == 10
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeuralNet(db, GINet, device="cpu")
+        NeuralNet(db, GINet, target="fnat", layout="halo", device="cpu")
     nn = NeuralNet(db, GINet, pretrained_model=ckpt, outdir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nn.train(nepoch=1)
+        nn.train(nepoch=1, profile=str(tmp_path / "trace"))
+    nn.train(nepoch=1, save_model=None)
+    assert len(nn.train_loss) == 1 and np.isfinite(nn.train_loss).all()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
