@@ -24,14 +24,20 @@ Phases, each of which raises on failure:
    at the dense path's first-batch shapes of both conv levels, and at edge
    cases: unsorted rows, duplicate edges, empty rows, sentinel and negative
    indices, F = 1, 17 and 100, more edges than one shared-memory tile, and
-   a graph whose [S, F] slab does not fit in shared memory. Each is timed
-   at the main shapes with the L2 cache flushed before each call, beside
-   its plain version, a PyTorch library yardstick and the least time the
-   card could take (K1 also L2-resident and eagerly);
+   a graph whose [S, F] slab does not fit in shared memory. K2 (sorted
+   scatter-gather, the attention softmax's denominator) forward and
+   backward at the attention path's two softmax shapes of the first batch
+   (F = 1), at the JAX package's ``bench.py`` SpMM shapes, and at edge
+   cases (empty rows, a run of 8,000 edges, leading and trailing padding,
+   F = 1, 17 and 100, no row at all); its ``d2`` must be bitwise
+   ``out[rows]`` and 0 at padding, its ``out`` bitwise K1's sums. Each is
+   timed at the main shapes with the L2 cache flushed before each call,
+   beside its plain version, a PyTorch library yardstick and the least
+   time the card could take (K1 and K2 also L2-resident and eagerly);
 4. serve: a GINet at the paper's width (48 node features, the ``fold6``
    feature set, 1 edge feature, target ``fnat``, batch 128) with seeded
    random weights, written as a reference-format torch checkpoint, scores
-   synthetic fixture-scale graphs through ``NeuralNet(...,
+   synthetic fixture-scale graphs (2,048 by default) through ``NeuralNet(...,
    pretrained_model=ckpt, device="cuda")`` in the sparse and the dense
    layout. The graphs are in memory (``GraphListDataSet``, which row-sorts
    their edges): the HDF5 front end is held against the JAX package by the
@@ -52,7 +58,18 @@ Phases, each of which raises on failure:
    losses and parameters after 2 epochs. Per training batch K1 launches 2
    times (sparse) and K3 4 times (dense: 2 forward, 2 backward). Losses are
    finite. It prints graphs/s per epoch (the first one cold), a profile of
-   one warm epoch, and the saved checkpoint reloads and trains on.
+   one warm epoch, and the saved checkpoint reloads and trains on;
+6. attention, the main path of the model zoo's slice:
+   ``functools.partial(GINet, attention=True)``, sparse, at the paper's
+   width on 2,048 graphs: served from a reference-format checkpoint as in
+   4 (K1 4 and K2 4 launches per batch) and trained as in 5 (K1 8 and K2 4
+   per training batch: K2's backward runs K1), with every check of both;
+7. the other new paths on 768 graphs (4 or more training batches): the dense attention GINet (also
+   against the sparse one), the internal-tower GINet (sparse only, K1 4
+   per batch), FoutNet and sGAT in both layouts (K1 2 per sparse batch;
+   their dense aggregations are plain torch), each served against its CPU
+   run (one of two passes profiled) and trained 4 Adam steps against the
+   CPU and one epoch.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -61,6 +78,7 @@ The last two lines are a JSON object of per-kernel numbers and then
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -95,6 +113,11 @@ KERNELS = {
         "route": "cuda",
         "source": "deeprank_gnn_tpu_torch/ops/csrc/fused_gin_conv.cu",
         "replaces": "deeprank_gnn_tpu/ops/pallas/__init__.py:203",
+    },
+    "sorted_scatter_gather": {
+        "route": "cuda",
+        "source": "deeprank_gnn_tpu_torch/ops/csrc/sorted_scatter_gather.cu",
+        "replaces": "deeprank_gnn_tpu/ops/pallas/segment.py:326",
     },
 }
 
@@ -146,18 +169,19 @@ def build_graphs(seed: int, num_graphs: int):
     return graphs
 
 
-def write_checkpoint(path: str, seed: int) -> None:
-    """A reference-format torch checkpoint of a seeded random GINet."""
+def write_checkpoint(path: str, seed: int, Net=None) -> None:
+    """A reference-format torch checkpoint of a seeded random ``Net``
+    (default GINet) at the paper's width."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
 
-    model = GINet(48, 1, 1, device="cpu", generator=torch.Generator().manual_seed(seed))
+    model = (Net or GINet)(48, 1, 1, device="cpu", generator=torch.Generator().manual_seed(seed))
     torch.save(
         {
             "model": model.state_dict(),
             "optimizer": {},
-            "net": "GINet",
+            "net": type(model).__name__,
             "node": FOLD6_FEATURES,
             "edge": ["dist"],
             "target": "fnat",
@@ -531,30 +555,168 @@ def k3_phase(first_dense_batch, seed: int):
     return results
 
 
-def k2_bound_ms(n: int = 81920, e: int = 983040, f: int = 16) -> float:
-    """Least time of K2 (``sorted_scatter_gather``, not ported yet) at the
-    shapes of the JAX package's ``bench.py`` ``bench_spmm_kernel``: read
-    ``data [E,F]`` and ``rows [E]``, write the segment sums ``[N,F]`` and
-    their gather back ``[E,F]``, each once, over the HBM rate."""
-    moved = 4 * (2 * e * f + e + n * f)
-    return 1e3 * moved / HBM_BYTES_PER_S
+# ---------------------------------------------------------------------------
+# K2: sorted scatter-gather
+
+
+def k2_bound_ms(e_valid: int, e: int, n: int, f: int) -> float:
+    """Least time of one sorted scatter-gather: its bytes (valid input rows
+    and row pointers read once, ``out [N,F]`` and ``d2 [E,F]`` written
+    whole once) over the HBM rate, or its adds over the fp32 rate,
+    whichever is longer."""
+    moved = (e_valid * f + n + 1 + n * f + e * f) * 4
+    return 1e3 * max(moved / HBM_BYTES_PER_S, e_valid * f / FP32_FLOPS)
+
+
+def k2_library(data, row_ptr, rows):
+    """The PyTorch yardstick for K2: no one call computes it, so
+    ``torch.segment_reduce`` over the valid rows, then ``index_select`` of
+    the sums at the valid edges' rows (indices prepared beforehand; the
+    padding of ``d2`` is not written). Timed only, never used by the
+    port."""
+    import torch
+
+    lengths = row_ptr.diff().to(torch.int64)
+    lo, hi = int(row_ptr[0]), int(row_ptr[-1])
+    valid, idx = data[lo:hi], rows[lo:hi].long()
+
+    def run():
+        out = torch.segment_reduce(valid, "sum", lengths=lengths, unsafe=True)
+        return out, out.index_select(0, idx)
+
+    return run
+
+
+def k2_case(name, data, row_ptr, rows, gen, timed: bool) -> dict:
+    """K2 against its plain version on the card: ``out`` and ``d2`` within
+    ``KERNEL_TOL``, ``d2`` bitwise ``out[rows]`` and 0 outside every run,
+    ``out`` bitwise K1's sums, two launches bitwise equal, and the gradient
+    through its autograd Function (with both cotangents, and with the
+    ``out`` one absent as on the softmax path) against the gradient through
+    the plain version. Timed when ``timed``."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.kernels.scatter_gather import (
+        sorted_scatter_gather,
+        sorted_scatter_gather_plain,
+    )
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import sorted_segment_sum
+    from deeprank_gnn_tpu_torch.ops.segment import SortedScatterGather
+
+    n, (e, f) = row_ptr.shape[0] - 1, data.shape
+    out, d2 = sorted_scatter_gather(data, row_ptr)
+    out_b, d2_b = sorted_scatter_gather(data, row_ptr)
+    want_out, want_d2 = sorted_scatter_gather_plain(data, row_ptr, rows)
+    k1 = sorted_segment_sum(data, row_ptr)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, out_b) and torch.equal(d2, d2_b)):
+        raise AssertionError(f"K2 {name}: two launches differ")
+    torch.testing.assert_close(out, want_out, **KERNEL_TOL, msg=f"K2 {name} out")
+    torch.testing.assert_close(d2, want_d2, **KERNEL_TOL, msg=f"K2 {name} d2")
+    valid = (rows >= 0) & (rows < n)
+    if not (torch.equal(d2[valid], out[rows[valid].long()]) and not d2[~valid].any()):
+        raise AssertionError(f"K2 {name}: d2 is not bitwise out[rows], 0 at padding")
+    if not torch.equal(out, k1):
+        raise AssertionError(f"K2 {name}: out differs from K1's sums")
+    errs = [errors(out, want_out), errors(d2, want_d2)]
+    cot_out = torch.randn((n, f), generator=gen, device=data.device)
+    cot_d2 = torch.randn((e, f), generator=gen, device=data.device)
+    if name not in ("conv1", "conv2", "bench"):
+        cot_out, cot_d2 = torch.round(cot_out * 64) / 64, torch.round(cot_d2 * 64) / 64
+    for use_out in (True, False):
+        x = data.clone().requires_grad_(True)
+        o, g = SortedScatterGather.apply(x, row_ptr)
+        ((g * cot_d2).sum() + ((o * cot_out).sum() if use_out else 0)).backward()
+        xp = data.clone().requires_grad_(True)
+        o, g = sorted_scatter_gather_plain(xp, row_ptr, rows)
+        ((g * cot_d2).sum() + ((o * cot_out).sum() if use_out else 0)).backward()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(x.grad, xp.grad, **KERNEL_TOL, msg=f"K2 {name} backward")
+        if x.grad[~valid].any():
+            raise AssertionError(f"K2 {name}: padding edges got a gradient")
+        errs.append(errors(x.grad, xp.grad))
+    e_valid = int(valid.sum())
+    res = {"case": name, "E": e, "E_valid": e_valid, "N": n, "F": f,
+           "max_abs_err": max(r["max_abs_err"] for r in errs),
+           "max_rel_err": max(r["max_rel_err"] for r in errs)}
+    if timed:
+        lib = k2_library(data, row_ptr, rows)
+        lib_out, lib_d2 = lib()
+        res.update(
+            ms=cold_ms(lambda: sorted_scatter_gather(data, row_ptr)),
+            plain_ms=cold_ms(lambda: sorted_scatter_gather_plain(data, row_ptr)),
+            library_ms=cold_ms(lib),
+            l2_warm_ms=l2_warm_ms(lambda: sorted_scatter_gather(data, row_ptr)),
+            call_ms=call_ms(lambda: sorted_scatter_gather(data, row_ptr)),
+            library_max_abs_err=max(float((lib_out - want_out).abs().max()),
+                                    float((lib_d2 - want_d2[valid]).abs().max())),
+            bound_ms=k2_bound_ms(e_valid, e, n, f),
+        )
+    return res
+
+
+def k2_phase(first_batch, seed: int):
+    """K2 at the attention softmax's two shapes of the first served batch
+    (F = 1, positive values as ``exp`` gives), at the JAX package's
+    ``bench.py`` SpMM shapes, and at edge cases (exactly summable values)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    rng = np.random.default_rng(seed + 2)
+
+    def exact(e, f):
+        return torch.randint(-512, 512, (e, f), generator=gen, device=dev).float() / 64
+
+    def from_rows(rows_np, n):
+        rows = torch.from_numpy(rows_np.astype(np.int32)).to(dev)
+        ptr = np.searchsorted(rows_np, np.arange(n + 1)).astype(np.int32)
+        return torch.from_numpy(ptr).to(dev), rows
+
+    b = first_batch.to(dev)
+    cases = [
+        ("conv1", torch.rand((b.edge_index.shape[1], 1), generator=gen, device=dev) * 3,
+         b.edge_rowptr, b.edge_index[0]),
+        ("conv2", torch.rand((b.pe_index.shape[1], 1), generator=gen, device=dev) * 3,
+         b.pe_rowptr, b.pe_index[0]),
+    ]
+    # bench.py's bench_spmm_kernel: N 81,920, E 983,040, F 16, no padding
+    n_b, e_b = 81920, 983040
+    ptr_b, rows_b = from_rows(np.sort(rng.integers(0, n_b, e_b)), n_b)
+    cases.append(("bench", torch.randn((e_b, 16), generator=gen, device=dev), ptr_b, rows_b))
+    results = [k2_case(name, d, p, r, gen, timed=True) for name, d, p, r in cases]
+
+    n = 4000
+    rows = np.sort(rng.choice(np.arange(0, n, 3), 20000))  # 2 of 3 rows empty
+    rows[:8000] = n // 2 - 2  # one run of 8,000 edges
+    # leading padding (edges before row_ptr[0]) and trailing padding
+    rows = np.concatenate([np.full(300, -1), np.sort(rows), np.full(777, n)])
+    ptr, r = from_rows(rows, n)
+    edge = [(f"edges-F{f}", exact(len(rows), f), ptr, r) for f in (1, 17, 100)]
+    ptr0, r0 = from_rows(np.full(300, 50), 50)  # every row empty, all padding
+    edge.append(("all-empty-F32", exact(300, 32), ptr0, r0))
+    results += [k2_case(name, d, p, rr, gen, timed=False) for name, d, p, rr in edge]
+    for res in results:
+        log("K2 " + json.dumps(res))
+    if int(ptr[0]) != 300:
+        raise AssertionError("K2: the edge cases should carry leading padding")
+    return results
 
 
 # ---------------------------------------------------------------------------
 # the engine's passes
 
 
-def serve(dataset, ckpt: str, device: str, outdir: str, passes: int, layout: str):
+def serve(dataset, ckpt: str, device: str, outdir: str, passes: int, layout: str, Net):
     """Score every graph ``passes`` times through the port's engine on
     ``device``; returns the engine, the last pass's outputs and loss, and
     per-pass wall times and launch counts."""
     import torch
 
-    from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    nn = NeuralNet(dataset, GINet, pretrained_model=ckpt, device=device, outdir=outdir,
+    nn = NeuralNet(dataset, Net, pretrained_model=ckpt, device=device, outdir=outdir,
                    layout=layout)
     walls, launches = [], []
     for _ in range(passes):
@@ -566,6 +728,11 @@ def serve(dataset, ckpt: str, device: str, outdir: str, passes: int, layout: str
         walls.append(time.perf_counter() - t0)
         launches.append(dict(LAUNCHES))
     return nn, np.asarray(out, dtype=np.float64), loss, walls, launches
+
+
+def per_pass(per_batch: dict, batches: int) -> dict:
+    """The launch counts a pass of ``batches`` batches must show."""
+    return {k: v * batches for k, v in per_batch.items() if v}
 
 
 def profile_pass(run, loader, kernel_bounds) -> dict:
@@ -623,6 +790,21 @@ def sparse_bound_per_batch(loader) -> float:
     return float(np.mean(bounds))
 
 
+def attention_bounds_per_batch(loader, training: bool) -> dict:
+    """K1's and K2's bounds per batch of ``loader`` on the attention path,
+    averaged over its batches: per tower K1 sums the weighted messages
+    (conv1 at 16 columns, conv2 at 32) and K2 the softmax denominators
+    (F = 1); training adds K2's backward, one K1 call at F = 1 each."""
+    k1, k2 = [], []
+    for b, _ in loader:
+        levels = ((int(b.edge_rowptr[-1]), b.edge_index.shape[1], b.num_nodes, 16),
+                  (int(b.pe_rowptr[-1]), b.pe_index.shape[1], b.num_clusters0, 32))
+        k1.append(2 * sum(k1_bound_ms(ev, n, f) + (k1_bound_ms(ev, n, 1) if training else 0.0)
+                          for ev, _e, n, f in levels))
+        k2.append(2 * sum(k2_bound_ms(ev, e, n, 1) for ev, e, n, _f in levels))
+    return {"sorted_segment_sum": float(np.mean(k1)), "sorted_scatter_gather": float(np.mean(k2))}
+
+
 def dense_bound_per_batch(loader, backward: bool) -> float:
     """K3's bound per batch of ``loader``: conv1 at 32 columns, conv2 at 64,
     forward, and backward too when ``backward``."""
@@ -638,44 +820,61 @@ def dense_bound_per_batch(loader, backward: bool) -> float:
     return float(np.mean(bounds))
 
 
+def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_batch: dict,
+                bounds=None, passes: int = 2) -> dict:
+    """Score ``dataset`` with ``Net`` from ``ckpt`` on the card (``passes``
+    passes, launch counts cleared before each and read after: ``per_batch``
+    launches per batch, nothing else) and once on the CPU: finite
+    predictions that match the CPU's at ``TOL``. With ``bounds`` (a function
+    of the test loader giving each kernel's bound per batch) one more pass
+    runs under ``torch.profiler``."""
+    nn, pred, loss, walls, launches = serve(
+        dataset, ckpt, "cuda", os.path.join(tmp, f"serve_{label}"), passes, layout, Net)
+    batches = len(nn.test_loader)
+    where = None
+    if bounds is not None:
+        where = profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader,
+                             bounds(nn.test_loader))
+    _, pred_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
+        dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{label}_cpu"), 1, layout, Net)
+    log(f"serve {label}: {len(pred)} models in {batches} batches; pass walls (s) {walls} "
+        f"-> models/s {[len(pred) / w for w in walls]}; loss {loss}")
+    log(f"serve {label}: launches per pass {launches}; cpu pass {walls_cpu[0]} s, "
+        f"launches {launches_cpu[0]}")
+    if where is not None:
+        log(f"serve {label} breakdown " + json.dumps(where))
+    want = per_pass(per_batch, batches)
+    for i, count in enumerate(launches):
+        if count != want:
+            raise AssertionError(f"serve {label} pass {i}: launched {count}, want {want}")
+    if launches_cpu[0]:
+        raise AssertionError(f"the cpu pass launched kernels: {launches_cpu[0]}")
+    if pred.shape != (len(dataset),) or not np.isfinite(pred).all():
+        raise AssertionError(f"predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
+    diff = np.abs(pred - pred_cpu)
+    log(f"serve {label}: card vs cpu max abs {diff.max()}, max rel "
+        f"{(diff / np.maximum(np.abs(pred_cpu), 1e-30)).max()}, loss {loss} vs {loss_cpu}; "
+        f"prediction std {pred.std()}")
+    np.testing.assert_allclose(pred, pred_cpu, **TOL)
+    np.testing.assert_allclose(loss, loss_cpu, **TOL)
+    return {"pred": pred, "launches": launches[0], "where": where, "walls": walls,
+            "cpu_max_abs": float(diff.max())}
+
+
 def serve_phase(dataset, tmp: str, seed: int):
-    """Score through both layouts on the card and on the CPU."""
+    """Paper-mode GINet: score through both layouts on the card and on the
+    CPU, profiled, and the layouts against each other."""
+    from deeprank_gnn_tpu_torch.models import GINet
+
     ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
     write_checkpoint(ckpt, seed)
-    out = {}
-    for layout, kernel in (("sparse", "sorted_segment_sum"), ("dense", "fused_gin_conv")):
-        nn, pred, loss, walls, launches = serve(
-            dataset, ckpt, "cuda", os.path.join(tmp, f"serve_{layout}"), passes=2, layout=layout)
-        batches = len(nn.test_loader)
-        if layout == "sparse":
-            bound = sparse_bound_per_batch(nn.test_loader)
-        else:
-            bound = dense_bound_per_batch(nn.test_loader, backward=False)
-        where = profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader, {kernel: bound})
-        _, pred_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
-            dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{layout}_cpu"), passes=1,
-            layout=layout)
-        log(f"serve {layout}: {len(pred)} models in {batches} batches; pass walls (s) {walls} "
-            f"-> models/s {[len(pred) / w for w in walls]}; loss {loss}")
-        log(f"serve {layout}: launches per pass {launches}; cpu pass {walls_cpu[0]} s, "
-            f"launches {launches_cpu[0]}")
-        log(f"serve {layout} breakdown " + json.dumps(where))
-        for i, count in enumerate(launches):
-            if count != {kernel: 2 * batches}:
-                raise AssertionError(f"{layout} pass {i}: launched {count}, "
-                                     f"want {{{kernel!r}: {2 * batches}}}")
-        if launches_cpu[0]:
-            raise AssertionError(f"the cpu pass launched kernels: {launches_cpu[0]}")
-        if pred.shape != (len(dataset),) or not np.isfinite(pred).all():
-            raise AssertionError(f"predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
-        diff = np.abs(pred - pred_cpu)
-        log(f"serve {layout}: card vs cpu max abs {diff.max()}, max rel "
-            f"{(diff / np.maximum(np.abs(pred_cpu), 1e-30)).max()}, loss {loss} vs {loss_cpu}; "
-            f"prediction std {pred.std()}")
-        np.testing.assert_allclose(pred, pred_cpu, **TOL)
-        np.testing.assert_allclose(loss, loss_cpu, **TOL)
-        out[layout] = {"pred": pred, "launches": launches[0][kernel], "where": where,
-                       "walls": walls}
+    out = {
+        "sparse": serve_check("sparse", GINet, dataset, ckpt, tmp, "sparse",
+                              {"sorted_segment_sum": 2},
+                              lambda ld: {"sorted_segment_sum": sparse_bound_per_batch(ld)}),
+        "dense": serve_check("dense", GINet, dataset, ckpt, tmp, "dense", {"fused_gin_conv": 2},
+                             lambda ld: {"fused_gin_conv": dense_bound_per_batch(ld, False)}),
+    }
     diff = np.abs(out["dense"]["pred"] - out["sparse"]["pred"])
     log(f"serve: dense vs sparse on the card, max abs {diff.max()}")
     np.testing.assert_allclose(out["dense"]["pred"], out["sparse"]["pred"], **TOL)
@@ -699,10 +898,16 @@ def first_steps(nn, steps: int):
     return losses
 
 
-def train_phase(dataset, layout: str, seed: int, tmp: str) -> dict:
-    """Train at the paper's width, batch 128, percent [0.8, 0.2]: parity
-    with the CPU, the epoch passes with launch counts and times, run-to-run
-    determinism, a profiled warm epoch, and save, reload and resume."""
+def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_batch: dict,
+                bounds=None) -> dict:
+    """Train ``Net`` at the paper's width, batch 128, percent [0.8, 0.2]:
+    the first 4 Adam steps (dropout off) against the CPU's at ``TOL``; the
+    epoch passes of ``train()`` with ``per_batch`` launches per training
+    batch (counts cleared before each epoch and read after) and finite
+    losses. With ``bounds`` (a function of the training loader giving each
+    kernel's bound per batch) the whole check: two epochs, a second run
+    from the same seed bitwise equal, a profiled warm epoch, and save,
+    reload and resume."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
@@ -711,14 +916,14 @@ def train_phase(dataset, layout: str, seed: int, tmp: str) -> dict:
 
     kw = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat",
               batch_size=BATCH, percent=[0.8, 0.2], layout=layout, seed=seed)
-    kernel, per_batch = ({"sparse": ("sorted_segment_sum", 2),
-                          "dense": ("fused_gin_conv", 4)})[layout]
+    full = bounds is not None
 
     def engine(device, name, **extra):
-        return NeuralNet(dataset, GINet, device=device,
-                         outdir=os.path.join(tmp, f"{layout}_{name}"), **kw, **extra)
+        return NeuralNet(dataset, Net, device=device,
+                         outdir=os.path.join(tmp, f"{label}_{name}"), **kw, **extra)
 
-    # parity with the CPU from the same weights, dropout off
+    # parity with the CPU from the same weights, dropout off (FoutNet and
+    # sGAT have none)
     rate = GINet.dropout_rate
     GINet.dropout_rate = 0.0
     try:
@@ -727,7 +932,7 @@ def train_phase(dataset, layout: str, seed: int, tmp: str) -> dict:
     finally:
         GINet.dropout_rate = rate
     diff = np.abs(np.asarray(card) - np.asarray(cpu))
-    log(f"train {layout}: first {PARITY_STEPS} losses card {card} cpu {cpu}; max abs {diff.max()}, "
+    log(f"train {label}: first {PARITY_STEPS} losses card {card} cpu {cpu}; max abs {diff.max()}, "
         f"max rel {(diff / np.abs(cpu)).max()}")
     np.testing.assert_allclose(card, cpu, **TOL)
 
@@ -746,51 +951,116 @@ def train_phase(dataset, layout: str, seed: int, tmp: str) -> dict:
         return walls, launches, losses, valid
 
     a = engine("cuda", "a")
-    walls, launches, losses, valid = epochs(a, 2)
+    walls, launches, losses, valid = epochs(a, 2 if full else 1)
     batches = len(a.train_loader)
     graphs = len(a.train_loader.dataset)
-    log(f"train {layout}: {graphs} graphs in {batches} batches per epoch; epoch walls (s) {walls} "
+    log(f"train {label}: {graphs} graphs in {batches} batches per epoch; epoch walls (s) {walls} "
         f"-> graphs/s {[graphs / w for w in walls]} (the first cold); losses {losses}, "
         f"valid {valid}; launches {launches}")
+    want = per_pass(per_batch, batches)
     for i, count in enumerate(launches):
-        if count != {kernel: per_batch * batches}:
-            raise AssertionError(f"train {layout} epoch {i}: launched {count}, "
-                                 f"want {{{kernel!r}: {per_batch * batches}}}")
+        if count != want:
+            raise AssertionError(f"train {label} epoch {i}: launched {count}, want {want}")
     if not np.isfinite(losses + valid).all():
-        raise AssertionError(f"train {layout}: losses {losses}, valid {valid}")
+        raise AssertionError(f"train {label}: losses {losses}, valid {valid}")
+    res = {"walls": walls, "launches": launches[0], "where": None, "graphs": graphs,
+           "parity_max_abs": float(diff.max())}
+    if not full:
+        return res
 
     # determinism: a second run from the same seed
     params = {k: v.clone() for k, v in a.model.state_dict().items()}
     b = engine("cuda", "b")
     _w, _l, losses_b, valid_b = epochs(b, 2)
     same = all(torch.equal(v, b.model.state_dict()[k]) for k, v in params.items())
-    log(f"train {layout}: second run losses {losses_b} valid {valid_b}; parameters equal {same}")
+    log(f"train {label}: second run losses {losses_b} valid {valid_b}; parameters equal {same}")
     if losses_b != losses or valid_b != valid or not same:
-        raise AssertionError(f"train {layout}: two runs from one seed differ")
+        raise AssertionError(f"train {label}: two runs from one seed differ")
 
     # a profiled warm epoch
-    bound = (sparse_bound_per_batch(a.train_loader) if layout == "sparse"
-             else dense_bound_per_batch(a.train_loader, backward=True))
-    where = profile_pass(lambda: a._run_pass(a.train_loader, training=True), a.train_loader,
-                         {kernel: bound})
-    log(f"train {layout} breakdown " + json.dumps(where))
+    res["where"] = profile_pass(lambda: a._run_pass(a.train_loader, training=True),
+                                a.train_loader, bounds(a.train_loader))
+    log(f"train {label} breakdown " + json.dumps(res["where"]))
 
     # save, reload, resume
-    path = os.path.join(tmp, f"{layout}_a", "resume.pth.tar")
+    path = os.path.join(tmp, f"{label}_a", "resume.pth.tar")
     a.save_model(path)
-    r = NeuralNet(dataset, GINet, pretrained_model=path, layout=layout, device="cuda",
-                  outdir=os.path.join(tmp, f"{layout}_r"))
+    r = NeuralNet(dataset, Net, pretrained_model=path, layout=layout, device="cuda",
+                  outdir=os.path.join(tmp, f"{label}_r"))
     if not all(torch.equal(v, r.model.state_dict()[k]) for k, v in a.model.state_dict().items()):
-        raise AssertionError(f"train {layout}: the reloaded weights differ")
-    steps = {float(s["step"]) for s in r.optimizer.state_dict()["state"].values()}
-    if len(r.optimizer.state_dict()["state"]) != 16 or steps != {3.0 * batches}:
-        raise AssertionError(f"train {layout}: reloaded Adam steps {steps}")
+        raise AssertionError(f"train {label}: the reloaded weights differ")
+    state = r.optimizer.state_dict()["state"]
+    steps = {float(s["step"]) for s in state.values()}
+    if len(state) != len(list(r.model.parameters())) or steps != {3.0 * batches}:
+        raise AssertionError(f"train {label}: reloaded Adam steps {steps}")
     resumed = r._run_pass(r.train_loader, training=True)[3]
-    log(f"train {layout}: reloaded {path}, Adam step {steps}; resumed epoch loss {resumed}")
+    log(f"train {label}: reloaded {path}, Adam step {steps}; resumed epoch loss {resumed}")
     if not np.isfinite(resumed):
-        raise AssertionError(f"train {layout}: resumed loss {resumed}")
-    return {"walls": walls, "launches": launches[0][kernel], "where": where,
-            "graphs": graphs, "parity_max_abs": float(diff.max())}
+        raise AssertionError(f"train {label}: resumed loss {resumed}")
+    return res
+
+
+def attention_phase(dataset, tmp: str, seed: int) -> dict:
+    """``functools.partial(GINet, attention=True)``, sparse, at full width:
+    served from a reference-format checkpoint (4 K1 and 4 K2 launches per
+    batch) and trained (8 K1 and 4 K2 per batch: K2's backward launches K1),
+    both profiled, with every check of the training phase."""
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    net = functools.partial(GINet, attention=True)
+    ckpt = os.path.join(tmp, "ginet_attention_fold6_fnat.pth.tar")
+    write_checkpoint(ckpt, seed, net)
+    t0 = time.perf_counter()
+    served = serve_check("attention", net, dataset, ckpt, tmp, "sparse",
+                         {"sorted_segment_sum": 4, "sorted_scatter_gather": 4},
+                         lambda ld: attention_bounds_per_batch(ld, False))
+    log(f"phase serve attention: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trained = train_phase("attention", net, dataset, "sparse", seed, tmp,
+                          {"sorted_segment_sum": 8, "sorted_scatter_gather": 4},
+                          lambda ld: attention_bounds_per_batch(ld, True))
+    log(f"phase train attention: {time.perf_counter() - t0:.1f} s")
+    return {"serve": served, "train": trained}
+
+
+def zoo_phase(dataset, tmp: str, seed: int) -> dict:
+    """The other new paths at a smaller count: each served against its CPU
+    run (two passes, then one profiled) and trained 4 Adam steps against
+    the CPU and one epoch, with its launches per batch; the dense attention
+    GINet also against the sparse one. The dense edge-to-slot paths run no
+    hand kernel."""
+    from deeprank_gnn_tpu_torch.models import FoutNet, GINet, sGAT
+
+    attention = functools.partial(GINet, attention=True)
+    paths = [
+        ("attention_dense", attention, "dense", {}, {}),
+        ("attention_sparse_small", attention, "sparse",
+         {"sorted_segment_sum": 4, "sorted_scatter_gather": 4},
+         {"sorted_segment_sum": 8, "sorted_scatter_gather": 4}),
+        ("internal_tower", functools.partial(GINet, internal_tower=True), "sparse",
+         {"sorted_segment_sum": 4}, {"sorted_segment_sum": 4}),
+        ("foutnet_sparse", FoutNet, "sparse", {"sorted_segment_sum": 2},
+         {"sorted_segment_sum": 2}),
+        ("foutnet_dense", FoutNet, "dense", {}, {}),
+        ("sgat_sparse", sGAT, "sparse", {"sorted_segment_sum": 2}, {"sorted_segment_sum": 2}),
+        ("sgat_dense", sGAT, "dense", {}, {}),
+    ]
+    out = {}
+    for label, net, layout, serve_per_batch, train_per_batch in paths:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, f"{label}.pth.tar")
+        write_checkpoint(ckpt, seed, net)
+        served = serve_check(label, net, dataset, ckpt, tmp, layout, serve_per_batch,
+                             lambda ld: {})
+        trained = train_phase(label, net, dataset, layout, seed, tmp, train_per_batch)
+        out[label] = {"serve": served, "train": trained}
+        log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    diff = np.abs(out["attention_dense"]["serve"]["pred"]
+                  - out["attention_sparse_small"]["serve"]["pred"])
+    log(f"serve attention: dense vs sparse on the card, max abs {diff.max()}")
+    np.testing.assert_allclose(out["attention_dense"]["serve"]["pred"],
+                               out["attention_sparse_small"]["serve"]["pred"], **TOL)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -799,7 +1069,11 @@ def train_phase(dataset, layout: str, seed: int, tmp: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--graphs", type=int, default=2048)
+    ap.add_argument("--graphs", type=int, default=2048,
+                    help="graphs of the paper-mode and attention GINet phases")
+    ap.add_argument("--zoo-graphs", type=int, default=768,
+                    help="graphs of the other new paths (at least 5 batches of 128 "
+                         "give 4 training steps)")
     args = ap.parse_args(argv)
 
     import torch
@@ -818,6 +1092,7 @@ def main(argv=None) -> int:
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
     from deeprank_gnn_tpu_torch.device import set_fp32_numerics
+    from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.ops.kernels import build
 
     t_start = time.perf_counter()
@@ -844,31 +1119,52 @@ def main(argv=None) -> int:
     log(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernels, at the shapes of the paths' first batches
-    graphs = build_graphs(args.seed, args.graphs)
-    dataset = GraphListDataSet(graphs)
+    graphs = build_graphs(args.seed, max(args.graphs, args.zoo_graphs))
+    dataset = GraphListDataSet(graphs[: args.graphs])
+    zoo = GraphListDataSet(graphs[: args.zoo_graphs])
     first_batch, _ = next(iter(GraphLoader(dataset, batch_size=BATCH)))
     first_dense, _ = next(iter(GraphLoader(dataset, batch_size=BATCH, layout="dense")))
+    t0 = time.perf_counter()
     k1 = k1_phase(first_batch, args.seed)
     k3 = k3_phase(first_dense, args.seed)
-    log(f"K2 (not ported) byte bound at bench.py's spmm shapes: {k2_bound_ms()} ms")
+    k2 = k2_phase(first_batch, args.seed)
+    log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        # 4. serve, both layouts
+        # 4. serve paper-mode GINet, both layouts
+        t0 = time.perf_counter()
         served = serve_phase(dataset, tmp, args.seed)
-        # 5. train, both layouts
-        trained = {layout: train_phase(dataset, layout, args.seed, tmp)
-                   for layout in ("sparse", "dense")}
+        log(f"phase serve paper: {time.perf_counter() - t0:.1f} s")
+        # 5. train paper-mode GINet, both layouts
+        trained = {}
+        for layout, per_batch, bounds in (
+            ("sparse", {"sorted_segment_sum": 2},
+             lambda ld: {"sorted_segment_sum": sparse_bound_per_batch(ld)}),
+            ("dense", {"fused_gin_conv": 4},
+             lambda ld: {"fused_gin_conv": dense_bound_per_batch(ld, True)}),
+        ):
+            t0 = time.perf_counter()
+            trained[layout] = train_phase(layout, GINet, dataset, layout, args.seed, tmp,
+                                          per_batch, bounds)
+            log(f"phase train {layout}: {time.perf_counter() - t0:.1f} s")
+        # 6. attention GINet, sparse, full width: serve and train
+        att = attention_phase(dataset, tmp, args.seed)
+        # 7. the other new paths
+        zoo_out = zoo_phase(zoo, tmp, args.seed)
 
     k1_main = [r for r in k1 if "ms" in r]
     k3_main = [r for r in k3 if "ms_fwd" in r]
+    k2_path = [r for r in k2 if r["case"] in ("conv1", "conv2")]
+    k2_bench = next(r for r in k2 if r["case"] == "bench")
     s_where, d_where = served["sparse"]["where"], served["dense"]["where"]
     t_sparse, t_dense = trained["sparse"]["where"], trained["dense"]["where"]
+    a_serve, a_train = att["serve"]["where"], att["train"]["where"]
     line = {"kernels": [
         {
             "name": "sorted_segment_sum",
             **KERNELS["sorted_segment_sum"],
-            # the sparse serving pass (slice 1's main path)
-            "launches": served["sparse"]["launches"],
+            # the paper-mode sparse serving pass (slice 1's main path)
+            "launches": served["sparse"]["launches"]["sorted_segment_sum"],
             "max_abs_err": max(r["max_abs_err"] for r in k1),
             # one call at each conv level's shape of the first served batch,
             # L2 flushed before each call
@@ -880,9 +1176,18 @@ def main(argv=None) -> int:
             # the profiled passes: device time per batch and its bound
             "served_ms_per_batch": s_where["sorted_segment_sum_ms_per_batch"],
             "served_bound_ms_per_batch": s_where["sorted_segment_sum_bound_ms_per_batch"],
-            "train_launches": trained["sparse"]["launches"],
+            "train_launches": trained["sparse"]["launches"]["sorted_segment_sum"],
             "train_ms_per_batch": t_sparse["sorted_segment_sum_ms_per_batch"],
             "train_bound_ms_per_batch": t_sparse["sorted_segment_sum_bound_ms_per_batch"],
+            # the attention path: 4 launches per served batch, 8 per trained
+            "attention_serve_launches": att["serve"]["launches"]["sorted_segment_sum"],
+            "attention_served_ms_per_batch": a_serve["sorted_segment_sum_ms_per_batch"],
+            "attention_served_bound_ms_per_batch":
+                a_serve["sorted_segment_sum_bound_ms_per_batch"],
+            "attention_train_launches": att["train"]["launches"]["sorted_segment_sum"],
+            "attention_train_ms_per_batch": a_train["sorted_segment_sum_ms_per_batch"],
+            "attention_train_bound_ms_per_batch":
+                a_train["sorted_segment_sum_bound_ms_per_batch"],
             # the same two calls with their inputs L2-resident (graph replay)
             "l2_warm_ms": sum(r["l2_warm_ms"] for r in k1_main),
             # eager per-call time, the host's launch cost included
@@ -894,9 +1199,9 @@ def main(argv=None) -> int:
         {
             "name": "fused_gin_conv",
             **KERNELS["fused_gin_conv"],
-            # the dense training epoch (this slice's main path): 2 forward
+            # the dense training epoch (slice 2's main path): 2 forward
             # and 2 backward launches per batch
-            "launches": trained["dense"]["launches"],
+            "launches": trained["dense"]["launches"]["fused_gin_conv"],
             "max_abs_err": max(r["max_abs_err"] for r in k3),
             # the 4 calls of one training batch at the first dense batch's
             # shapes (conv1 and conv2, forward and backward), L2 flushed
@@ -911,7 +1216,7 @@ def main(argv=None) -> int:
             "library_call": "index_select + index_add_ (two calls, zero-filled output)",
             "train_ms_per_batch": t_dense["fused_gin_conv_ms_per_batch"],
             "train_bound_ms_per_batch": t_dense["fused_gin_conv_bound_ms_per_batch"],
-            "serve_launches": served["dense"]["launches"],
+            "serve_launches": served["dense"]["launches"]["fused_gin_conv"],
             "served_ms_per_batch": d_where["fused_gin_conv_ms_per_batch"],
             "served_bound_ms_per_batch": d_where["fused_gin_conv_bound_ms_per_batch"],
             "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
@@ -920,17 +1225,52 @@ def main(argv=None) -> int:
                                           "bound_ms_bwd", "l2_warm_ms_fwd", "call_ms_fwd")}
                        for r in k3_main],
         },
+        {
+            "name": "sorted_scatter_gather",
+            **KERNELS["sorted_scatter_gather"],
+            # the attention GINet's sparse serving pass (this slice's main
+            # path): one launch per conv and tower, 4 per batch
+            "launches": att["serve"]["launches"]["sorted_scatter_gather"],
+            "max_abs_err": max(r["max_abs_err"] for r in k2),
+            # one call at each softmax shape of the first served batch
+            # (conv1 over the interface edges, conv2 over the pooled ones,
+            # F = 1), L2 flushed before each call
+            "ms": sum(r["ms"] for r in k2_path),
+            "plain_ms": sum(r["plain_ms"] for r in k2_path),
+            "bound_ms": sum(r["bound_ms"] for r in k2_path),
+            "bound_by": "bytes",
+            # no one PyTorch call computes K2: torch.segment_reduce, then
+            # index_select of the sums at the valid edges' rows
+            "library_ms": sum(r["library_ms"] for r in k2_path),
+            "library_call": "torch.segment_reduce + index_select (two calls, prepared indices)",
+            "served_ms_per_batch": a_serve["sorted_scatter_gather_ms_per_batch"],
+            "served_bound_ms_per_batch": a_serve["sorted_scatter_gather_bound_ms_per_batch"],
+            "train_launches": att["train"]["launches"]["sorted_scatter_gather"],
+            "train_ms_per_batch": a_train["sorted_scatter_gather_ms_per_batch"],
+            "train_bound_ms_per_batch": a_train["sorted_scatter_gather_bound_ms_per_batch"],
+            "l2_warm_ms": sum(r["l2_warm_ms"] for r in k2_path),
+            "call_ms": sum(r["call_ms"] for r in k2_path),
+            # bench.py's bench_spmm_kernel shapes (N 81,920, E 983,040, F 16)
+            "bench_shapes": {k: k2_bench[k] for k in ("E", "N", "F", "ms", "plain_ms",
+                                                       "library_ms", "bound_ms", "l2_warm_ms",
+                                                       "call_ms")},
+            "shapes": [{k: r[k] for k in ("case", "E", "E_valid", "N", "F", "ms", "plain_ms",
+                                          "library_ms", "bound_ms", "l2_warm_ms", "call_ms")}
+                       for r in k2_path],
+        },
     ]}
-    summary = {
-        f"{kind_}_{layout}": {
-            "graphs_per_s": [len(dataset) / w for w in served[layout]["walls"]]
-            if kind_ == "serve" else
-            [trained[layout]["graphs"] / w for w in trained[layout]["walls"]],
-            "device_idle_share": (served if kind_ == "serve" else trained)[layout]["where"][
-                "device_idle_share"],
-        }
-        for kind_ in ("serve", "train") for layout in ("sparse", "dense")
-    }
+    passes = {f"serve_{k}": v for k, v in served.items()}
+    passes.update({f"train_{k}": v for k, v in trained.items()})
+    passes.update(serve_attention=att["serve"], train_attention=att["train"])
+    for label, v in zoo_out.items():
+        passes.update({f"serve_{label}": v["serve"], f"train_{label}": v["train"]})
+    summary = {}
+    for label, v in passes.items():
+        count = len(v["pred"]) if label.startswith("serve") else v["graphs"]
+        summary[label] = {"graphs_per_s": [count / w for w in v["walls"]],
+                          "launches": v["launches"]}
+        if v["where"] is not None:
+            summary[label]["device_idle_share"] = v["where"]["device_idle_share"]
     log("summary " + json.dumps(summary))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

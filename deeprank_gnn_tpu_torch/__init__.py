@@ -10,10 +10,12 @@ Every entry point runs on ``cuda`` unless the caller passes
 nothing of JAX or of ``deeprank_gnn_tpu``; ``h5py`` and ``scikit-learn``
 are imported only where files are read or metrics computed.
 
-Ported so far: scoring with a pretrained GINet,
+Ported so far: scoring with a pretrained net,
 ``NeuralNet(db, GINet, pretrained_model=ckpt).test()``, and training it,
-``NeuralNet(db, GINet, ...).train()``, in the sparse and the dense layout
-(ROADMAP.md).
+``NeuralNet(db, GINet, ...).train()``, in the sparse and the dense layout,
+for the whole model zoo: GINet in paper mode, with attention
+(``functools.partial(GINet, attention=True)``) or with the internal tower
+(sparse layout only), FoutNet and sGAT (ROADMAP.md).
 """
 
 __version__ = "0.1.0"
@@ -24,6 +26,8 @@ _EXPORTS = {
     "PreCluster": "deeprank_gnn_tpu_torch.data.dataset",
     "GraphListDataSet": "deeprank_gnn_tpu_torch.data.dataset",
     "GINet": "deeprank_gnn_tpu_torch.models.ginet",
+    "FoutNet": "deeprank_gnn_tpu_torch.models.foutnet",
+    "sGAT": "deeprank_gnn_tpu_torch.models.sgat",
     "NeuralNet": "deeprank_gnn_tpu_torch.train.neuralnet",
 }
 

@@ -15,14 +15,16 @@ Padding conventions (consumed by :mod:`deeprank_gnn_tpu_torch.ops.segment`):
 - boolean masks accompany every padded axis.
 
 Where the JAX batch carries the Pallas kernel's window width, this one
-carries CSR row pointers for the two edge families that the GINet serving
-path reduces over: ``edge_rowptr [N+1]`` over ``edge_index[0]`` and
-``pe_rowptr [C0+1]`` over ``pe_index[0]``. Padding edges carry row
-``n_pad`` (pooled: ``c0_pad``), so they sort last and lie past
-``rowptr[N]``; pooled edges are row-sorted because ``np.unique(axis=0)``
-sorts them lexicographically. The interface edges must come row-sorted
-per graph (both datasets sort them on load); :func:`collate` refuses a
-batch whose edges are not, so every batch can run the sorted segment sum.
+carries CSR row pointers for each of the four edge families, as the JAX
+package requires all four row-sorted: ``edge_rowptr [N+1]`` over
+``edge_index[0]``, ``pe_rowptr [C0+1]`` over ``pe_index[0]``,
+``iedge_rowptr [N+1]`` over ``iedge_index[0]`` and ``pie_rowptr [C0+1]``
+over ``pie_index[0]``. Padding edges carry row ``n_pad`` (pooled:
+``c0_pad``), so they sort last and lie past ``rowptr[N]``; pooled edges are
+row-sorted because ``np.unique(axis=0)`` sorts them lexicographically. The
+interface and internal edges must come row-sorted per graph (both datasets
+sort them on load); :func:`collate` refuses a batch whose edges are not, so
+every batch can run the sorted kernels.
 """
 
 from __future__ import annotations
@@ -104,6 +106,8 @@ class GraphBatch(TensorFields):
     # sum kernel reads them); int32
     edge_rowptr: torch.Tensor  # [N+1] over edge_index[0]
     pe_rowptr: torch.Tensor  # [C0+1] over pe_index[0]
+    iedge_rowptr: torch.Tensor  # [N+1] over iedge_index[0]
+    pie_rowptr: torch.Tensor  # [C0+1] over pie_index[0]
 
     # cluster member tables: node ids per level-0 cluster / cluster ids per
     # level-1 cluster, pad sentinel = source length. Cluster max-pooling
@@ -322,13 +326,12 @@ def collate(
 
     # per-graph row-sorted edges at increasing offsets are globally
     # row-sorted; the row pointers below would be wrong for any others
-    if (np.diff(edge_index[0]) < 0).any():
-        raise ValueError(
-            "interface edges are not row-sorted by source node; HDF5DataSet "
-            "and GraphListDataSet sort them (see data.dataset.row_sorted)"
-        )
-    edge_rowptr = _row_ptr(edge_index[0], n_pad)
-    pe_rowptr = _row_ptr(pe_index[0], c0_pad)
+    for family, index in (("interface", edge_index), ("internal", iedge_index)):
+        if (np.diff(index[0]) < 0).any():
+            raise ValueError(
+                f"{family} edges are not row-sorted by source node; HDF5DataSet "
+                "and GraphListDataSet sort them (see data.dataset.row_sorted)"
+            )
 
     # flat cluster member tables (see GraphBatch field docs): pooling
     # as row gathers. M comes from the caller's dataset-wide caps when
@@ -362,8 +365,10 @@ def collate(
         pool1_mask=t(pool1_mask),
         y=t(y),
         y_mask=t(y_mask),
-        edge_rowptr=t(edge_rowptr),
-        pe_rowptr=t(pe_rowptr),
+        edge_rowptr=t(_row_ptr(edge_index[0], n_pad)),
+        pe_rowptr=t(_row_ptr(pe_index[0], c0_pad)),
+        iedge_rowptr=t(_row_ptr(iedge_index[0], n_pad)),
+        pie_rowptr=t(_row_ptr(pie_index[0], c0_pad)),
         mem0_idx=t(mem0_idx),
         mem1_idx=t(mem1_idx),
     )

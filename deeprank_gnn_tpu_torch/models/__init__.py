@@ -1,5 +1,7 @@
-"""Model zoo of the port (GINet so far; FoutNet and sGAT: ROADMAP.md)."""
+"""Model zoo of the port: GINet, FoutNet and sGAT."""
 
+from deeprank_gnn_tpu_torch.models.foutnet import FoutNet
 from deeprank_gnn_tpu_torch.models.ginet import GINet
+from deeprank_gnn_tpu_torch.models.sgat import sGAT
 
-__all__ = ["GINet"]
+__all__ = ["GINet", "FoutNet", "sGAT"]

@@ -1,4 +1,5 @@
-"""Shared model utilities: initializers, linear layer, dropout.
+"""Shared model utilities: initializers, linear layer, dropout, and the
+skeleton of the single-tower nets.
 
 The port's counterpart of ``deeprank_gnn_tpu/models/common.py``, with the
 reference's initializer bounds:
@@ -18,6 +19,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
+
+from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
+from deeprank_gnn_tpu_torch.device import resolve_device, set_fp32_numerics
 
 
 def uniform_init(
@@ -36,6 +41,19 @@ def linear_init(
     w = uniform_init((out_features, in_features), in_features, generator)
     b = uniform_init((out_features,), in_features, generator)
     return w, b
+
+
+def linear_module(weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> nn.Linear:
+    """An ``nn.Linear`` holding the given tensors (built uninitialized,
+    so it draws nothing from the global RNG)."""
+    m = nn.utils.skip_init(
+        nn.Linear, weight.shape[1], weight.shape[0], bias=bias is not None
+    )
+    with torch.no_grad():
+        m.weight.copy_(weight)
+        if bias is not None:
+            m.bias.copy_(bias)
+    return m
 
 
 def linear(
@@ -61,3 +79,50 @@ def dropout(
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class SingleTowerNet(nn.Module):
+    """The skeleton FoutNet and sGAT share (reference `foutnet.py:90-126`,
+    `sGAT.py:101-139`): two conv layers of ``layer_cls`` (16 and 32
+    channels) around community pooling, a cluster max pool and a per-graph
+    mean (``_pooled``, ``_pooled_dense``, per net), then the fc head 32 ->
+    64 -> ``output_shape`` without dropout (the reference's is dead code).
+    Parameters are drawn on the CPU from ``generator`` and moved to
+    ``device``; their order is the JAX package's leaf order, so Adam
+    moments map by index."""
+
+    def __init__(self, layer_cls, input_shape: int, output_shape: int, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            set_fp32_numerics()
+        self.conv1 = layer_cls(input_shape, 16, generator)
+        self.conv2 = layer_cls(16, 32, generator)
+        self.fc1 = linear_module(*linear_init(32, 64, generator))
+        self.fc2 = linear_module(*linear_init(64, output_shape, generator))
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.fc1.weight.device
+
+    def forward(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[G, output_shape] scores of a sparse ``GraphBatch`` or a
+        ``DenseGraphBatch`` (moved to the model's device first).
+        ``generator`` is unused: the net has no dropout."""
+        batch = batch.to(self.device)
+        if isinstance(batch, DenseGraphBatch):
+            # the JAX package's branches on precomputed operators (FoutNet's
+            # agg_x, sGAT's wagg_x) are not ported; collate_dense cannot make
+            # such a batch yet
+            if getattr(batch, "agg_x", None) is not None or getattr(batch, "wagg_x", None) is not None:
+                raise NotImplementedError(
+                    "precomputed dense operators are not ported yet: see ROADMAP.md, "
+                    "queue 1 (the device store)"
+                )
+            h = self._pooled_dense(batch)
+        else:
+            h = self._pooled(batch)
+        h = torch.relu(linear(h, self.fc1.weight, self.fc1.bias))
+        return linear(h, self.fc2.weight, self.fc2.bias)

@@ -1,7 +1,7 @@
 """GINet: edge-gated two-tower hierarchical GNN (reference `ginet.py`).
 
-The port's counterpart of ``deeprank_gnn_tpu/models/ginet.py`` (sparse
-layout, paper mode), with the reference's behavioral quirks:
+The port's counterpart of ``deeprank_gnn_tpu/models/ginet.py``, with the
+reference's behavioral quirks:
 
 - **Q1** (reference `ginet.py:66`): the attention logit is softmaxed
   over a size-1 axis, so the attention weight is identically 1.0 and its
@@ -12,12 +12,22 @@ layout, paper mode), with the reference's behavioral quirks:
 - **Q2** (reference `ginet.py:101,118-130`): BOTH towers run on the
   *interface* edges, not the internal edges.
 
+``attention=True`` is the JAX package's "fixed" mode: a real softmax of
+the attention logits over each node's edges, where fc_attention and
+fc_edge_attr are live. ``internal_tower=True`` runs the second tower on the
+internal edges (sparse layout only, as in the JAX package). Either one
+unfuses the towers, as the JAX rule ``fuse = not (attention or
+internal_tower)`` does.
+
 On a sparse ``GraphBatch`` the edge aggregations always run as the sorted
 segment sum kernel (K1), from the batch's CSR row pointers (``collate``
-only builds row-sorted batches): two launches per batch on the fused path.
-On a ``DenseGraphBatch`` they run as the per-graph GIN aggregation kernel
-(K3), also twice per batch fused, and pooling is a max by assignment per
-graph (``ops/dense.py``). Both layouts give the same numbers.
+only builds row-sorted batches): two launches per batch on the fused path,
+four unfused. The attention softmax takes its denominator from the sorted
+scatter-gather kernel (K2), once per conv and tower. On a
+``DenseGraphBatch`` the paper-mode aggregations run as the per-graph GIN
+aggregation kernel (K3), twice per batch fused; the attention conv runs the
+dense edge-to-slot ops (``ops/dense.py``), and pooling is a max by
+assignment per graph. Both layouts give the same numbers.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from deeprank_gnn_tpu_torch.data.batch import GraphBatch
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
@@ -34,29 +45,23 @@ from deeprank_gnn_tpu_torch.models.common import (
     dropout,
     linear,
     linear_init,
+    linear_module,
     uniform_init,
 )
-from deeprank_gnn_tpu_torch.ops.dense import masked_mean, slot_max_pool
+from deeprank_gnn_tpu_torch.ops.dense import (
+    dense_segment_softmax,
+    edge_sum_to_slots,
+    gather_nodes,
+    masked_mean,
+    slot_max_pool,
+)
 from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv
 from deeprank_gnn_tpu_torch.ops.pooling import (
     community_pooling_x,
     graph_mean_pool,
     max_pool_x,
 )
-from deeprank_gnn_tpu_torch.ops.segment import gather, segment_sum
-
-
-def _linear_module(weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> nn.Linear:
-    """An ``nn.Linear`` holding the given tensors (built uninitialized,
-    so it draws nothing from the global RNG)."""
-    m = nn.utils.skip_init(
-        nn.Linear, weight.shape[1], weight.shape[0], bias=bias is not None
-    )
-    with torch.no_grad():
-        m.weight.copy_(weight)
-        if bias is not None:
-            m.bias.copy_(bias)
-    return m
+from deeprank_gnn_tpu_torch.ops.segment import gather, segment_softmax, segment_sum
 
 
 class GINetConvLayer(nn.Module):
@@ -72,11 +77,11 @@ class GINetConvLayer(nn.Module):
     ):
         super().__init__()
         fe = number_edge_features
-        self.fc = _linear_module(
+        self.fc = linear_module(
             uniform_init((out_channels, in_channels), in_channels, generator)
         )
-        self.fc_edge_attr = _linear_module(uniform_init((fe, fe), in_channels, generator))
-        self.fc_attention = _linear_module(
+        self.fc_edge_attr = linear_module(uniform_init((fe, fe), in_channels, generator))
+        self.fc_attention = linear_module(
             uniform_init((1, 2 * out_channels + fe), in_channels, generator)
         )
 
@@ -85,15 +90,48 @@ def ginet_conv(
     conv: GINetConvLayer,
     x: torch.Tensor,
     edge_index: torch.Tensor,
+    edge_attr: Optional[torch.Tensor],
     num_nodes: int,
     row_ptr: torch.Tensor,
+    *,
+    attention: bool = False,
 ) -> torch.Tensor:
-    """One GINet conv layer in paper mode (reference `ginet.py:50-73`):
-    per quirk Q1 exactly ``segment_sum(W x[col], row)``, over row-sorted
-    edges with CSR pointers ``row_ptr``."""
+    """One GINet conv layer (reference `ginet.py:50-73`) over row-sorted
+    edges with CSR pointers ``row_ptr``. Paper mode (``attention=False``):
+    per quirk Q1 exactly ``segment_sum(W x[col], row)``. With
+    ``attention`` each message is weighted by the softmax, over its row's
+    edges, of ``leaky_relu([W x[row] | W x[col] | edge_attr W_e] . a)``."""
     row, col = edge_index[0], edge_index[1]
     xw = linear(x, conv.fc.weight)
-    return segment_sum(gather(xw, col), row, num_nodes, row_ptr=row_ptr)
+    msg = gather(xw, col)
+    if attention:
+        xrow = gather(xw, row)
+        ed = linear(edge_attr, conv.fc_edge_attr.weight)
+        logits = linear(torch.cat([xrow, msg, ed], dim=1), conv.fc_attention.weight)
+        alpha = segment_softmax(F.leaky_relu(logits)[:, 0], row, num_nodes, row_ptr=row_ptr)
+        msg = msg * alpha[:, None]
+    return segment_sum(msg, row, num_nodes, row_ptr=row_ptr)
+
+
+def ginet_conv_dense(
+    conv: GINetConvLayer,
+    x: torch.Tensor,
+    row: torch.Tensor,
+    col: torch.Tensor,
+    edge_attr: torch.Tensor,
+    size: int,
+) -> torch.Tensor:
+    """The attention conv in the dense layout (the JAX package's
+    ``conv_att``, ``models/ginet.py:314-327``): the same numbers as
+    :func:`ginet_conv` with ``attention``; pad edges (sentinel row or col)
+    drop out of the softmax and the sum."""
+    xw = linear(x, conv.fc.weight)
+    msg = gather_nodes(xw, col)  # [G,E,F]
+    xrow = gather_nodes(xw, row)
+    ed = linear(edge_attr, conv.fc_edge_attr.weight)
+    logits = linear(torch.cat([xrow, msg, ed], dim=-1), conv.fc_attention.weight)
+    alpha = dense_segment_softmax(F.leaky_relu(logits[..., 0]), row, size)
+    return edge_sum_to_slots(msg * alpha[..., None], row, size)
 
 
 class GINet(nn.Module):
@@ -102,8 +140,9 @@ class GINet(nn.Module):
     ``fuse=True`` (default) runs both towers at double width in one pass
     (:meth:`_towers_fused`); ``fuse=False`` runs them one by one
     (:meth:`_tower`) — the same numbers, since segment ops are
-    column-independent. Parameters are drawn on the CPU from
-    ``generator`` and moved to ``device``.
+    column-independent. ``attention`` or ``internal_tower`` always run the
+    towers one by one. Parameters are drawn on the CPU from ``generator``
+    and moved to ``device``.
     """
 
     dropout_rate = 0.4  # reference `ginet.py:97`
@@ -120,23 +159,20 @@ class GINet(nn.Module):
         device="cuda",
         generator: Optional[torch.Generator] = None,
     ):
-        if attention or internal_tower:
-            raise NotImplementedError(
-                "GINet(attention=True) and GINet(internal_tower=True) are not "
-                "ported yet: see ROADMAP.md, queue 1 (the rest of the model zoo)"
-            )
         super().__init__()
         dev = resolve_device(device)
         if dev.type == "cuda":
             set_fp32_numerics()
-        self.fuse = fuse
+        self.attention = attention
+        self.internal_tower = internal_tower
+        self.fuse = fuse and not (attention or internal_tower)
         fe = input_shape_edge
         self.conv1 = GINetConvLayer(input_shape, 16, fe, generator)
         self.conv2 = GINetConvLayer(16, 32, fe, generator)
         self.conv1_ext = GINetConvLayer(input_shape, 16, fe, generator)
         self.conv2_ext = GINetConvLayer(16, 32, fe, generator)
-        self.fc1 = _linear_module(*linear_init(64, 128, generator))
-        self.fc2 = _linear_module(*linear_init(128, output_shape, generator))
+        self.fc1 = linear_module(*linear_init(64, 128, generator))
+        self.fc2 = linear_module(*linear_init(128, output_shape, generator))
         self.to(dev)
 
     @property
@@ -144,14 +180,30 @@ class GINet(nn.Module):
         return self.fc1.weight.device
 
     def _tower(
-        self, conv1: GINetConvLayer, conv2: GINetConvLayer, batch: GraphBatch
+        self,
+        conv1: GINetConvLayer,
+        conv2: GINetConvLayer,
+        batch: GraphBatch,
+        internal: bool = False,
     ) -> torch.Tensor:
         n, c0, c1 = batch.num_nodes, batch.num_clusters0, batch.num_clusters1
-        # Q2 parity: the shipped reference runs BOTH towers on interface edges
-        h = torch.relu(ginet_conv(conv1, batch.x, batch.edge_index, n, batch.edge_rowptr))
+        if internal:
+            edge_index, edge_attr, row_ptr = batch.iedge_index, batch.iedge_attr, batch.iedge_rowptr
+            to_pooled, pooled_index, pooled_ptr = batch.iedge_to_pie, batch.pie_index, batch.pie_rowptr
+        else:
+            # Q2 parity: the shipped reference runs BOTH towers here
+            edge_index, edge_attr, row_ptr = batch.edge_index, batch.edge_attr, batch.edge_rowptr
+            to_pooled, pooled_index, pooled_ptr = batch.edge_to_pe, batch.pe_index, batch.pe_rowptr
+        att = self.attention
+        h = torch.relu(ginet_conv(conv1, batch.x, edge_index, edge_attr, n, row_ptr, attention=att))
         # community pooling: max over cluster members
         hp = community_pooling_x(h, batch.assign0, c0, batch.mem0_idx)
-        h2 = torch.relu(ginet_conv(conv2, hp, batch.pe_index, c0, batch.pe_rowptr))
+        # pooled edge attrs, duplicates summed (torch-sparse coalesce,
+        # reference `community_pooling.py:204-205`); only attention reads them
+        pooled_attr = (segment_sum(edge_attr, to_pooled, pooled_index.shape[1])
+                       if att else None)
+        h2 = torch.relu(
+            ginet_conv(conv2, hp, pooled_index, pooled_attr, c0, pooled_ptr, attention=att))
         hq = max_pool_x(h2, batch.assign1, c1, batch.mem1_idx)
         return graph_mean_pool(hq, batch.pool1_graph, batch.num_graphs)
 
@@ -203,14 +255,21 @@ class GINet(nn.Module):
     def _tower_dense(
         self, conv1: GINetConvLayer, conv2: GINetConvLayer, batch: DenseGraphBatch
     ) -> torch.Tensor:
-        """One dense tower (the JAX package's non-attention branch): the
-        same numbers as :meth:`_tower`."""
+        """One dense tower (the JAX package's ``_tower_dense``): the same
+        numbers as :meth:`_tower`."""
         c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
-        xw = linear(batch.x, conv1.fc.weight)
-        h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
-        hp = slot_max_pool(h, batch.assign0, c0g)
-        hw = linear(hp, conv2.fc.weight)
-        h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
+        if self.attention:
+            pe_attr = edge_sum_to_slots(batch.edge_attr, batch.edge_to_pe, batch.pe_row.shape[1])
+            h = torch.relu(ginet_conv_dense(
+                conv1, batch.x, batch.row, batch.col, batch.edge_attr, batch.x.shape[1]))
+            hp = slot_max_pool(h, batch.assign0, c0g)
+            h2 = torch.relu(ginet_conv_dense(conv2, hp, batch.pe_row, batch.pe_col, pe_attr, c0g))
+        else:
+            xw = linear(batch.x, conv1.fc.weight)
+            h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
+            hp = slot_max_pool(h, batch.assign0, c0g)
+            hw = linear(hp, conv2.fc.weight)
+            h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
         hq = slot_max_pool(h2, batch.assign1, c1g)
         return masked_mean(hq, batch.pool1_mask)
 
@@ -223,6 +282,13 @@ class GINet(nn.Module):
         ``generator``."""
         batch = batch.to(self.device)
         if isinstance(batch, DenseGraphBatch):
+            if self.internal_tower:
+                # the dense batch carries no internal edges; going on would
+                # silently run the Q2 wiring (the JAX package raises too)
+                raise NotImplementedError(
+                    "GINet(internal_tower=True) needs layout='sparse' (the "
+                    "dense batch carries interface edges only)"
+                )
             if self.fuse:
                 h = self._towers_dense_fused(batch)
             else:
@@ -233,7 +299,7 @@ class GINet(nn.Module):
             h = self._towers_fused(batch)
         else:
             t1 = self._tower(self.conv1, self.conv2, batch)
-            t2 = self._tower(self.conv1_ext, self.conv2_ext, batch)
+            t2 = self._tower(self.conv1_ext, self.conv2_ext, batch, self.internal_tower)
             h = torch.cat([t1, t2], dim=1)
         h = torch.relu(linear(h, self.fc1.weight, self.fc1.bias))
         h = dropout(h, self.dropout_rate, generator, self.training)

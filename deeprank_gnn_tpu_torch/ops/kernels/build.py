@@ -43,6 +43,13 @@ _SIGNATURES = {
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
     },
+    "sorted_scatter_gather": {
+        "sorted_scatter_gather_f32": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ),
+    },
     "fused_gin_conv": {
         "fused_gin_conv_f32": (
             ctypes.c_int,

@@ -50,7 +50,8 @@ def sorted_segment_sum_plain(
     return out[:n]
 
 
-def _check(data: torch.Tensor, row_ptr: torch.Tensor) -> None:
+def check_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> None:
+    """Shapes and devices of ``data [E, F]`` and ``row_ptr [N+1]``."""
     if data.dim() != 2 or row_ptr.dim() != 1 or row_ptr.shape[0] < 1:
         raise ValueError(
             f"want data [E, F] and row_ptr [N+1]; got {tuple(data.shape)} "
@@ -62,6 +63,22 @@ def _check(data: torch.Tensor, row_ptr: torch.Tensor) -> None:
         )
 
 
+def check_csr_kernel(name: str, data: torch.Tensor, row_ptr: torch.Tensor) -> None:
+    """What a CSR kernel takes, checked before its launch: contiguous
+    float32 ``data`` and int32 ``row_ptr``, int32 sizes, on a CUDA device."""
+    if data.dtype != torch.float32 or row_ptr.dtype != torch.int32:
+        raise TypeError(
+            f"want float32 data and int32 row_ptr; got {data.dtype} and "
+            f"{row_ptr.dtype}"
+        )
+    if not (data.is_contiguous() and row_ptr.is_contiguous()):
+        raise ValueError("data and row_ptr must be contiguous")
+    if max(*data.shape, row_ptr.shape[0] - 1) >= 2**31:
+        raise ValueError("sizes must fit in int32")
+    if data.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {data.device}")
+
+
 def sorted_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """``out[n] = data[row_ptr[n]:row_ptr[n+1]].sum(0)``. [E, F] -> [N, F].
 
@@ -71,22 +88,12 @@ def sorted_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tenso
     nondecreasing, with ``row_ptr[N] <= E``. A tensor on any other device
     raises too, after the same checks.
     """
-    _check(data, row_ptr)
+    check_csr(data, row_ptr)
     if data.device.type == "cpu":
         return sorted_segment_sum_plain(data, row_ptr)
-    if data.dtype != torch.float32 or row_ptr.dtype != torch.int32:
-        raise TypeError(
-            f"want float32 data and int32 row_ptr; got {data.dtype} and "
-            f"{row_ptr.dtype}"
-        )
-    if not (data.is_contiguous() and row_ptr.is_contiguous()):
-        raise ValueError("data and row_ptr must be contiguous")
+    check_csr_kernel(NAME, data, row_ptr)
     e, f = data.shape
     n = row_ptr.shape[0] - 1
-    if max(e, n, f) >= 2**31:
-        raise ValueError("sizes must fit in int32")
-    if data.device.type != "cuda":
-        raise ValueError(f"sorted_segment_sum runs on cpu or cuda, not {data.device}")
     out = torch.empty((n, f), dtype=torch.float32, device=data.device)
     if n == 0 or f == 0:
         return out

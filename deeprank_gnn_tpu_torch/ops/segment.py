@@ -13,10 +13,15 @@ per-cluster, or per-graph) buffers with torch_scatter's `scatter_sum` /
 - ``segment_max`` returns 0 for empty segments, not -inf.
 
 ``segment_sum(..., row_ptr=...)`` runs as the sorted segment sum kernel
-(:mod:`deeprank_gnn_tpu_torch.ops.kernels.segment`), with its gradient
-``grad[rows]``; everything else is plain torch (``index_add_``,
-``index_select``, ``scatter_reduce_``), as XLA compiled it for the JAX
-package.
+(K1, :mod:`deeprank_gnn_tpu_torch.ops.kernels.segment`), with its gradient
+``grad[rows]``, and so does ``segment_mean(..., row_ptr=...)``'s sum.
+``segment_softmax(..., row_ptr=...)`` takes its denominator from the
+sorted scatter-gather kernel (K2,
+:mod:`deeprank_gnn_tpu_torch.ops.kernels.scatter_gather`), the one place
+where the port runs a kernel where the JAX package left the composition
+(a segment sum, then its gather) to XLA. Everything else is plain torch
+(``index_add_``, ``index_select``, ``scatter_reduce_``), as XLA compiled it
+for the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from deeprank_gnn_tpu_torch.ops.kernels.scatter_gather import sorted_scatter_gather
 from deeprank_gnn_tpu_torch.ops.kernels.segment import (
     rows_from_row_ptr,
     sorted_segment_sum,
@@ -49,6 +55,33 @@ class SortedSegmentSum(torch.autograd.Function):
     def backward(ctx, grad):
         (rows,) = ctx.saved_tensors
         return sorted_segment_sum_backward(grad, rows), None
+
+
+class SortedScatterGather(torch.autograd.Function):
+    """K2 with its gradient, the JAX package's ``_sg_bwd``
+    (``ops/pallas/segment.py:354-364``): ``d2 = out[rows]``, so
+    ``dout = g_out + K1(g_d2)``, and ``ddata = dout[rows]``, 0 at padding.
+    The K1 launch is the kernel; the gather is plain torch, as in K1's
+    backward. An output the caller does not use gets no cotangent (None),
+    which counts as zero without a tensor being made for it."""
+
+    @staticmethod
+    def forward(ctx, data, row_ptr):
+        ctx.set_materialize_grads(False)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(row_ptr, rows_from_row_ptr(row_ptr, data.shape[0]))
+        return sorted_scatter_gather(data, row_ptr)
+
+    @staticmethod
+    def backward(ctx, g_out, g_d2):
+        row_ptr, rows = ctx.saved_tensors
+        dout = g_out
+        if g_d2 is not None:
+            scattered = sorted_segment_sum(g_d2.contiguous(), row_ptr)
+            dout = scattered if dout is None else dout + scattered
+        if dout is None:
+            return None, None
+        return sorted_segment_sum_backward(dout, rows), None
 
 
 def _dump_row(index: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -100,6 +133,7 @@ def segment_mean(
     num_segments: int,
     *,
     nan_empty: bool = False,
+    row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean of ``data`` rows per segment.
 
@@ -107,10 +141,15 @@ def segment_mean(
     segments give 0 — torch_scatter ``scatter_mean(..., out=zeros)``
     semantics. ``nan_empty=True`` reproduces ``torch.mean`` of an empty
     selection (NaN), the behavior of the reference FoutLayer's per-node
-    loop (reference `foutnet.py:69-73`).
+    loop (reference `foutnet.py:69-73`). With CSR pointers ``row_ptr`` of
+    sorted ids (the JAX package's ``sorted_ids``) the sum runs on K1 and
+    the counts are the runs' lengths.
     """
-    total = segment_sum(data, segment_ids, num_segments)
-    count = segment_count(segment_ids, num_segments)
+    total = segment_sum(data, segment_ids, num_segments, row_ptr=row_ptr)
+    if row_ptr is None:
+        count = segment_count(segment_ids, num_segments)
+    else:
+        count = (row_ptr[1:] - row_ptr[:-1]).to(data.dtype)
     count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
     if nan_empty:
         return total / count
@@ -131,6 +170,38 @@ def segment_max(
     count = segment_count(segment_ids, num_segments)
     count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
     return torch.where(count > 0, out, torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    row_ptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Numerically stable softmax of ``logits [E]`` over entries sharing a
+    segment id (the JAX package's ``segment_softmax``,
+    ``ops/segment.py:148-170``): the attention weights of
+    ``GINet(attention=True)``. Padding entries get a denominator of 1.
+
+    The segment max and the shift are plain torch. With CSR pointers
+    ``row_ptr`` of sorted ids the denominator, each segment's sum of
+    ``exp`` gathered back onto its entries, is one K2 launch; K2 gathers 0
+    at padding, where 1 is put back before the division (``exp / 1e-16``
+    would overflow there). Without them it is the dump-row sum, then a
+    gather.
+    """
+    seg_max = segment_max(logits, segment_ids, num_segments)
+    ids = _dump_row(segment_ids, num_segments)
+    shifted = logits - torch.cat([seg_max, seg_max.new_zeros(1)]).index_select(0, ids)
+    exp = torch.exp(shifted)
+    if row_ptr is not None:
+        _, denom = SortedScatterGather.apply(exp[:, None], row_ptr)
+        denom = torch.where(ids < num_segments, denom[:, 0], torch.ones((), dtype=exp.dtype, device=exp.device))
+    else:
+        denom = segment_sum(exp, segment_ids, num_segments)
+        denom = torch.cat([denom, denom.new_ones(1)]).index_select(0, ids)
+    return exp / torch.clamp(denom, min=1e-16)
 
 
 def gather(data: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

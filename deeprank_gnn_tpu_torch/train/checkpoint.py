@@ -9,8 +9,8 @@ context (reference `NeuralNet.py:768-792`). Two flavours exist:
    state dict with the reference's names (``conv1.fc.weight``, …,
    ``fc2.bias``) and ``optimizer`` a torch Adam ``state_dict()``;
 2. pickles written by the JAX package (``__format__`` == ``MAGIC``):
-   ``model`` is its parameter tree (``GINetParams``), the optimizer an
-   optax Adam state.
+   ``model`` is its parameter tree (``GINetParams``, ``FoutNetParams`` or
+   ``SGATParams``), the optimizer an optax Adam state.
 
 The port writes the first flavour (:func:`save_state`), which the reference
 and the JAX package both read. A JAX pickle names classes of the JAX
@@ -45,6 +45,10 @@ class _Fields:
 _STAND_INS = {
     ("deeprank_gnn_tpu.models.ginet", "GINetParams"): _Fields,
     ("deeprank_gnn_tpu.models.ginet", "GINetConvParams"): _Fields,
+    ("deeprank_gnn_tpu.models.foutnet", "FoutNetParams"): _Fields,
+    ("deeprank_gnn_tpu.models.foutnet", "FoutLayerParams"): _Fields,
+    ("deeprank_gnn_tpu.models.sgat", "SGATParams"): _Fields,
+    ("deeprank_gnn_tpu.models.sgat", "SGATLayerParams"): _Fields,
     ("optax._src.transform", "ScaleByAdamState"): collections.namedtuple(
         "ScaleByAdamState", "count mu nu"
     ),
@@ -69,7 +73,7 @@ class _JaxCheckpointUnpickler(pickle.Unpickler):
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"checkpoint references {module}.{name}; only numpy arrays and "
-            "the JAX package's GINet parameter and Adam state classes are read"
+            "the JAX package's model parameter and Adam state classes are read"
         )
 
 
@@ -97,24 +101,35 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def state_dict_from_jax_params(net_name: str, params) -> Dict[str, torch.Tensor]:
-    """The reference-named torch state dict of the JAX package's GINet
-    parameters (the inverse of its ``torch_state_dict_to_params``).
+# reference state-dict name -> JAX field, per conv layer of each net (the
+# inverse of the JAX package's ``torch_state_dict_to_params``,
+# ``train/checkpoint.py:67-126``)
+_LAYER_FIELDS = {
+    "GINet": (("conv1", "conv2", "conv1_ext", "conv2_ext"),
+              {"fc.weight": "fc_w", "fc_edge_attr.weight": "fc_edge_w",
+               "fc_attention.weight": "fc_att_w"}),
+    "FoutNet": (("conv1", "conv2"), {"Wc": "wc", "Wn": "wn", "bias": "bias"}),
+    "sGAT": (("conv1", "conv2"), {"weight": "weight", "bias": "bias"}),
+}
 
-    ``params`` is the ``GINetParams`` field tree (``conv1.fc_w``, …,
+
+def state_dict_from_jax_params(net_name: str, params) -> Dict[str, torch.Tensor]:
+    """The reference-named torch state dict of the JAX package's parameters
+    of ``net_name`` ("GINet", "FoutNet" or "sGAT"; the inverse of its
+    ``torch_state_dict_to_params``).
+
+    ``params`` is the JAX parameter field tree (``conv1.fc_w``, …,
     ``fc2_b``; arrays of any kind numpy can read), given as nested dicts
     or as objects with those attributes.
     """
-    if net_name != "GINet":
-        raise NotImplementedError(
-            f"{net_name}: only GINet is ported; see ROADMAP.md, queue 1"
-        )
+    if net_name not in _LAYER_FIELDS:
+        raise ValueError(f"unknown net {net_name!r}; want one of {sorted(_LAYER_FIELDS)}")
+    convs, fields = _LAYER_FIELDS[net_name]
     sd = {}
-    for conv in ("conv1", "conv2", "conv1_ext", "conv2_ext"):
+    for conv in convs:
         c = _get(params, conv)
-        sd[f"{conv}.fc.weight"] = _tensor(_get(c, "fc_w"))
-        sd[f"{conv}.fc_edge_attr.weight"] = _tensor(_get(c, "fc_edge_w"))
-        sd[f"{conv}.fc_attention.weight"] = _tensor(_get(c, "fc_att_w"))
+        for name, field in fields.items():
+            sd[f"{conv}.{name}"] = _tensor(_get(c, field))
     for fc in ("fc1", "fc2"):
         sd[f"{fc}.weight"] = _tensor(_get(params, f"{fc}_w"))
         sd[f"{fc}.bias"] = _tensor(_get(params, f"{fc}_b"))

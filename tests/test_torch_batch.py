@@ -62,8 +62,17 @@ def test_unsorted_edges_are_sorted_or_refused(h5_path):
                             edge_attr=g.edge_attr[::-1].copy())
         for g in graphs
     ]
-    with pytest.raises(ValueError, match="not row-sorted"):
+    with pytest.raises(ValueError, match="interface edges are not row-sorted"):
         collate(flipped)
+    flipped_internal = [
+        dataclasses.replace(g, internal_edge_index=g.internal_edge_index[:, ::-1].copy(),
+                            internal_edge_attr=g.internal_edge_attr[::-1].copy())
+        for g in graphs
+    ]
+    with pytest.raises(ValueError, match="internal edges are not row-sorted"):
+        collate(flipped_internal)
+    got, _ = collate([GraphListDataSet(flipped_internal).get(i) for i in range(3)])
+    assert torch.equal(got.iedge_rowptr, collate(graphs)[0].iedge_rowptr)
     mem = GraphListDataSet(flipped)
     assert (np.diff(flipped[0].edge_index[0]) < 0).any()
     want, _ = collate(graphs)
@@ -85,12 +94,14 @@ def test_row_pointers_are_csr_of_sorted_rows(h5_path):
 
     _, tds = datasets(h5_path)
     b, _ = collate([tds.get(i) for i in range(len(tds))])
-    rows, prow = b.edge_index[0].numpy(), b.pe_index[0].numpy()
     n, c0 = b.num_nodes, b.num_clusters0
-    for ptr, r, size, mask in (
-        (b.edge_rowptr, rows, n, b.edge_mask),
-        (b.pe_rowptr, prow, c0, b.pe_mask),
+    for ptr, index, size, mask in (
+        (b.edge_rowptr, b.edge_index, n, b.edge_mask),
+        (b.pe_rowptr, b.pe_index, c0, b.pe_mask),
+        (b.iedge_rowptr, b.iedge_index, n, b.iedge_mask),
+        (b.pie_rowptr, b.pie_index, c0, b.pie_mask),
     ):
+        r = index[0].numpy()
         assert ptr.dtype == torch.int32 and ptr.shape == (size + 1,)
         np.testing.assert_array_equal(ptr.numpy(), np.searchsorted(r, np.arange(size + 1)))
         # padding rows sort last and lie past ptr[N]

@@ -111,8 +111,8 @@ def test_state_dict_names_and_round_trip():
         nested[name] = np.asarray(getattr(params, name))
     from_nested = state_dict_from_jax_params("GINet", nested)
     assert all(torch.equal(from_nested[k], sd[k]) for k in REFERENCE_NAMES)
-    with pytest.raises(NotImplementedError, match="only GINet"):
-        state_dict_from_jax_params("FoutNet", params)
+    with pytest.raises(ValueError, match="unknown net"):
+        state_dict_from_jax_params("GAT", params)
 
 
 def test_init_bounds_and_generator():
@@ -149,11 +149,14 @@ def test_dropout_only_in_training(batch_pair):
 
 
 def test_unported_modes_and_missing_card_raise():
+    """Attention and the internal tower are ported, and unfuse the towers
+    as the JAX package's rule does; a missing card is refused."""
     from deeprank_gnn_tpu_torch.models import GINet
 
+    assert GINet(10, 1, 1, device="cpu").fuse
     for kw in ({"attention": True}, {"internal_tower": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GINet(10, 1, 1, device="cpu", **kw)
+        model = GINet(10, 1, 1, device="cpu", **kw)
+        assert not model.fuse and model.attention == kw.get("attention", False)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -255,3 +255,83 @@ def test_checkpoint_unpickler_refuses_other_globals(tmp_path):
         pickle.dump({"__format__": MAGIC, "model": os.getcwd}, f)
     with pytest.raises(pickle.UnpicklingError, match="getcwd"):
         load_state(path)
+
+
+def zoo_nets(name):
+    """The JAX package's and the port's net for a zoo name."""
+    import functools
+
+    import deeprank_gnn_tpu.models as J
+    import deeprank_gnn_tpu_torch.models as T
+
+    if name == "GINet-attention":
+        return (functools.partial(J.GINet, attention=True),
+                functools.partial(T.GINet, attention=True))
+    return getattr(J, name), getattr(T, name)
+
+
+@pytest.mark.parametrize("name", ["GINet-attention", "FoutNet", "sGAT"])
+def test_zoo_pretrained_matches_jax(db, tmp_path, name):
+    """Scoring with the rest of the zoo from a checkpoint the JAX engine
+    saved, in both packages: outputs, loss, metrics and the export."""
+    from deeprank_gnn_tpu import NeuralNet as JaxNeuralNet
+    from deeprank_gnn_tpu_torch import NeuralNet
+
+    jnet, tnet = zoo_nets(name)
+    ckpt = str(tmp_path / "zoo.pth.tar")
+    JaxNeuralNet(db, jnet, node_feature=FEATURE_NAMES, edge_feature=["dist"], target="fnat",
+                 batch_size=4, outdir=str(tmp_path), seed=3).save_model(ckpt)
+    j = JaxNeuralNet(db, jnet, pretrained_model=ckpt, outdir=str(tmp_path / "jax"))
+    j.test(threshold=0.3)
+    t = NeuralNet(db, tnet, pretrained_model=ckpt, outdir=str(tmp_path / "torch"), device="cpu")
+    t.test(threshold=0.3)
+    assert type(t.model).__name__ == name.split("-")[0]
+    assert np.std(t.test_out) > 1e-4
+    assert_served_alike(j, t, 0.3, str(tmp_path))
+
+
+@pytest.mark.parametrize("name", ["FoutNet", "sGAT"])
+def test_zoo_jax_checkpoint_loads_without_jax(db, tmp_path, name):
+    """A FoutNet or sGAT checkpoint saved by the JAX package loads, with its
+    weights and Adam moments, in a process where jax, optax and
+    deeprank_gnn_tpu cannot be imported."""
+    from deeprank_gnn_tpu import NeuralNet as JaxNeuralNet
+    from deeprank_gnn_tpu.train.checkpoint import load_state as jax_load_state
+
+    jnet, _ = zoo_nets(name)
+    ckpt = str(tmp_path / "zoo.pth.tar")
+    j = JaxNeuralNet(db, jnet, node_feature=FEATURE_NAMES, edge_feature=["dist"],
+                     target="fnat", batch_size=4, outdir=str(tmp_path), seed=2)
+    j.train(nepoch=1, save_model=None)
+    j.save_model(ckpt)
+    out = str(tmp_path / "state.pt")
+    code = f"""
+import sys
+for name in ("jax", "jaxlib", "optax", "deeprank_gnn_tpu"):
+    sys.modules[name] = None
+import torch
+from deeprank_gnn_tpu_torch import {name}
+from deeprank_gnn_tpu_torch.train.checkpoint import (
+    adam_state_from_checkpoint, load_state, state_dict_from_checkpoint)
+payload = load_state({ckpt!r})
+assert payload["net"] == {name!r}
+model = {name}(13, 1, 1, device="cpu")
+model.load_state_dict(state_dict_from_checkpoint({name!r}, payload))
+moments = adam_state_from_checkpoint(payload, list(model.parameters()))
+assert moments is not None and len(moments) == len(list(model.parameters()))
+torch.save({{"model": model.state_dict(), "moments": moments}}, {out!r})
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and m.split(".")[0] in ("jax", "optax", "deeprank_gnn_tpu")]
+assert not loaded, loaded
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = torch.load(out)
+    params = jax_load_state(ckpt)["model"]
+    np.testing.assert_array_equal(got["model"]["conv1.bias"].numpy(),
+                                  np.asarray(params.conv1.bias))
+    np.testing.assert_array_equal(got["model"]["fc2.weight"].numpy(), np.asarray(params.fc2_w))
+    mu = np.concatenate([got["moments"][i]["exp_avg"].numpy().ravel()
+                         for i in sorted(got["moments"])])
+    np.testing.assert_array_equal(mu, np.asarray(j.opt_state[0].mu))

@@ -179,3 +179,90 @@ def test_k1_cuda_matches_plain():
         assert torch.equal(a, b)
         want = sorted_segment_sum_plain(data, ptr_t, torch.from_numpy(rows).cuda())
         torch.testing.assert_close(a, want, **TOL)
+
+
+def _softmax_inputs(seed):
+    """Sorted ids with empty rows and padding lanes (== n), logits with a
+    wide range so the max shift matters."""
+    rng = np.random.default_rng(seed)
+    n, e_valid, e_pad = 80, 300, 340
+    rows = sorted_rows(rng, n, e_valid, e_pad, long_run=True)
+    logits = (5 * rng.standard_normal(e_pad)).astype(np.float32)
+    cot = rng.standard_normal(e_pad).astype(np.float32)
+    ptr = np.searchsorted(rows, np.arange(n + 1)).astype(np.int32)
+    return n, e_valid, rows, ptr, logits, cot
+
+
+@pytest.mark.parametrize("with_row_ptr", [True, False], ids=["k2", "plain"])
+def test_segment_softmax_matches_jax(with_row_ptr):
+    """``segment_softmax`` with its denominator from K2 (``row_ptr``) and in
+    the plain dump-row form, against the JAX package's, forward and
+    gradient: padding lanes get weight exp(logit) / 1 and a zero gradient
+    contribution, and nothing is NaN."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeprank_gnn_tpu.ops.segment import segment_softmax as jax_softmax
+    from deeprank_gnn_tpu_torch.ops import segment as T
+
+    n, e_valid, rows, ptr, logits, cot = _softmax_inputs(7)
+    jr = jnp.asarray(rows)
+    want, vjp = jax.vjp(lambda v: jax_softmax(v, jr, n), jnp.asarray(logits))
+    (want_grad,) = vjp(jnp.asarray(cot))
+
+    x = torch.from_numpy(logits).requires_grad_(True)
+    got = T.segment_softmax(x, torch.from_numpy(rows), n,
+                            row_ptr=torch.from_numpy(ptr) if with_row_ptr else None)
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), rtol=5e-4, atol=1e-5)
+    assert np.isfinite(x.grad.numpy()).all()
+    # each row's weights sum to 1
+    sums = np.bincount(rows[:e_valid], got.detach().numpy()[:e_valid], minlength=n)
+    np.testing.assert_allclose(sums[np.bincount(rows[:e_valid], minlength=n) > 0], 1.0,
+                               rtol=1e-5)
+
+
+def test_segment_softmax_routes_through_k2(monkeypatch):
+    from deeprank_gnn_tpu_torch.ops import segment
+
+    calls = []
+    real = segment.sorted_scatter_gather
+    monkeypatch.setattr(segment, "sorted_scatter_gather",
+                        lambda d, p: calls.append(tuple(d.shape)) or real(d, p))
+    n, _, rows, ptr, logits, _ = _softmax_inputs(8)
+    segment.segment_softmax(torch.from_numpy(logits), torch.from_numpy(rows), n)
+    assert calls == []
+    segment.segment_softmax(torch.from_numpy(logits), torch.from_numpy(rows), n,
+                            row_ptr=torch.from_numpy(ptr))
+    assert calls == [(len(rows), 1)]  # one K2 call, at F = 1
+
+
+def test_segment_mean_sorted_matches_jax():
+    """``segment_mean(row_ptr=...)`` (the sum on K1, the counts from the
+    runs' lengths) against the JAX package's ``segment_mean(sorted_ids=
+    True)``, forward and gradient, with empty rows and padding."""
+    import jax
+    import jax.numpy as jnp
+
+    from deeprank_gnn_tpu.ops.segment import segment_mean as jax_mean
+    from deeprank_gnn_tpu_torch.ops.segment import segment_mean
+
+    rng = np.random.default_rng(9)
+    n, e_valid, e_pad, f = 90, 400, 450, 6
+    rows = sorted_rows(rng, n, e_valid, e_pad, long_run=True)
+    ptr = np.searchsorted(rows, np.arange(n + 1)).astype(np.int32)
+    data = rng.standard_normal((e_pad, f)).astype(np.float32)
+    cot = rng.standard_normal((n, f)).astype(np.float32)
+    jr = jnp.asarray(rows)
+    want, vjp = jax.vjp(lambda d: jax_mean(d, jr, n, sorted_ids=True), jnp.asarray(data))
+    (want_grad,) = vjp(jnp.asarray(cot))
+    x = torch.from_numpy(data).requires_grad_(True)
+    got = segment_mean(x, torch.from_numpy(rows), n, row_ptr=torch.from_numpy(ptr))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_grad), rtol=5e-4, atol=1e-5)
+    assert not x.grad[e_valid:].any()
+    np.testing.assert_allclose(
+        got.detach().numpy(), segment_mean(torch.from_numpy(data), torch.from_numpy(rows), n),
+        **TOL)

@@ -198,14 +198,100 @@ def test_unported_engine_options_raise(db, tmp_path, kw):
 
 
 def test_unported_methods_raise(db, tmp_path):
-    from deeprank_gnn_tpu_torch.models import GINet
-
     t = port_engine(db, str(tmp_path), target="fnat", batch_size=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.train(nepoch=1, profile=str(tmp_path / "trace"))
     for name in ("plot_loss", "plot_acc", "plot_hit_rate", "plot_scatter"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(t, name)()
-    for layout_kw in ({"attention": True}, {"internal_tower": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GINet(13, 1, 1, device="cpu", **layout_kw)
+
+
+def zoo_nets(name):
+    """The JAX package's and the port's net for a zoo name, as a user picks
+    them: ``functools.partial`` for GINet's options."""
+    import functools
+
+    import deeprank_gnn_tpu.models as J
+    import deeprank_gnn_tpu_torch.models as T
+
+    if name.startswith("GINet-"):
+        kw = {"attention": True} if name == "GINet-attention" else {"internal_tower": True}
+        return functools.partial(J.GINet, **kw), functools.partial(T.GINet, **kw)
+    return getattr(J, name), getattr(T, name)
+
+
+ZOO = [("GINet-attention", "sparse", "fnat"), ("GINet-attention", "dense", "fnat"),
+       ("GINet-internal", "sparse", "fnat"), ("FoutNet", "sparse", "fnat"),
+       ("FoutNet", "dense", "fnat"), ("sGAT", "sparse", "fnat"), ("sGAT", "dense", "fnat"),
+       ("FoutNet", "sparse", "bin_class"), ("sGAT", "dense", "bin_class")]
+
+
+@pytest.mark.parametrize("name,layout,target", ZOO,
+                         ids=[f"{n}-{lay}-{'class' if t == 'bin_class' else 'reg'}"
+                              for n, lay, t in ZOO])
+def test_zoo_loss_trajectory_matches_jax(db, tmp_path, no_dropout, name, layout, target):
+    """4 Adam steps of the rest of the zoo, from one checkpoint saved by the
+    JAX engine, in both packages, for regression and (FoutNet and sGAT,
+    whose two-class head the engine sizes) classification. With attention
+    the attention parameters get real gradients, and the engine's zero fill
+    (for Q1's dead ones) leaves them alone."""
+    from deeprank_gnn_tpu import NeuralNet as JaxNeuralNet
+    from deeprank_gnn_tpu_torch import NeuralNet
+
+    jnet, tnet = zoo_nets(name)
+    start = str(tmp_path / "start.pth.tar")
+    JaxNeuralNet(db, jnet, node_feature=FEATURE_NAMES, edge_feature=["dist"], target=target,
+                 batch_size=16, lr=0.005, seed=2, layout=layout,
+                 class_weights=target == "bin_class",
+                 outdir=str(tmp_path / "j0")).save_model(start)
+    j = JaxNeuralNet(db, jnet, pretrained_model=start, layout=layout, outdir=str(tmp_path / "j"))
+    t = NeuralNet(db, tnet, pretrained_model=start, layout=layout, device="cpu",
+                  outdir=str(tmp_path / "t"))
+    assert t.model.fc2.weight.shape[0] == (2 if target == "bin_class" else 1)
+    j.train(nepoch=4)
+    t.train(nepoch=4)
+    assert np.isfinite(t.train_loss).all()
+    np.testing.assert_allclose(t.train_loss, j.train_loss, **TOL)
+    assert len(set(np.round(t.train_loss, 6))) == 4  # every step moved the weights
+    np.testing.assert_allclose(t.train_out, j.train_out, **TOL)
+    state = t.optimizer.state_dict()["state"]
+    assert len(state) == len(list(t.model.parameters()))
+    for i, (pname, p) in enumerate(t.model.named_parameters()):
+        dead = name != "GINet-attention" and pname.split(".")[-2] in (
+            "fc_edge_attr", "fc_attention")
+        assert bool(state[i]["exp_avg"].any()) != dead, pname
+        assert bool(p.grad.any()) != dead, pname
+
+
+@pytest.mark.parametrize("name", ["FoutNet", "sGAT"])
+def test_zoo_checkpoints_cross_load(db, tmp_path, no_dropout, name):
+    """A port checkpoint of FoutNet or sGAT loads in the JAX engine with the
+    same Adam moments and predictions; a JAX checkpoint with its optimizer
+    resumes in the port with the same losses."""
+    from deeprank_gnn_tpu import NeuralNet as JaxNeuralNet
+    from deeprank_gnn_tpu_torch import NeuralNet
+
+    jnet, tnet = zoo_nets(name)
+    kw = dict(node_feature=FEATURE_NAMES, edge_feature=["dist"], target="fnat", batch_size=4,
+              lr=0.003, seed=8)
+    t = NeuralNet(db, tnet, device="cpu", outdir=str(tmp_path / "t"), **kw)
+    t.train(nepoch=1, save_model="last")
+    path = str(tmp_path / "t" / "treg_yfnat_b4_e1_lr0.003.pth.tar")
+    assert torch.load(path, weights_only=False)["net"] == name
+    j = JaxNeuralNet(db, jnet, pretrained_model=path, outdir=str(tmp_path / "j"))
+    mu, nu = flat_moments(t)
+    np.testing.assert_array_equal(np.asarray(j.opt_state[0].mu), mu)
+    np.testing.assert_array_equal(np.asarray(j.opt_state[0].nu), nu)
+    j.test(threshold=0.3)
+    t.test(database_test=db, threshold=0.3)
+    np.testing.assert_allclose(t.test_out, j.test_out, **TOL)
+
+    j0 = JaxNeuralNet(db, jnet, outdir=str(tmp_path / "j0"), **{**kw, "batch_size": 16})
+    j0.train(nepoch=2, save_model="last")
+    path = str(tmp_path / "j0" / "treg_yfnat_b16_e2_lr0.003.pth.tar")
+    j = JaxNeuralNet(db, jnet, pretrained_model=path, outdir=str(tmp_path / "j1"))
+    r = NeuralNet(db, tnet, pretrained_model=path, device="cpu", outdir=str(tmp_path / "r"))
+    np.testing.assert_array_equal(flat_moments(r)[0], np.asarray(j.opt_state[0].mu))
+    j.train(nepoch=2)
+    r.train(nepoch=2)
+    np.testing.assert_allclose(r.train_loss, j.train_loss, **TOL)
