@@ -13,27 +13,32 @@ Phases, each of which raises on failure:
    deterministic mode needs;
 2. build: every CUDA kernel of the port, from ``ops/csrc`` in this
    checkout, one ``nvcc`` per source, all started together;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   rtol 1e-5 and atol 1e-5 (the summation order differs from
-   ``index_add_``; the edge cases use values whose sums are exact in fp32,
-   so long runs compare which edges were summed rather than rounding); two
-   launches must be bitwise equal. K1 (sorted segment sum) at the sparse
-   serving path's shapes and at edge cases (empty rows, a run of thousands
-   of edges, trailing padding, odd widths), and its gradient against the
+3. kernels: each kernel against its plain PyTorch version, and two
+   launches bitwise equal. K1 (sorted segment sum) on the card at rtol 1e-5
+   and atol 1e-5 (the summation order differs from ``index_add_``; its
+   edge cases use values whose sums are exact in fp32, so long runs compare
+   which edges were summed rather than rounding), at the sparse serving
+   path's shapes and at edge cases (empty rows, a run of thousands of
+   edges, trailing padding, odd widths), and its gradient against the
    plain version's. K3 (per-graph GIN aggregation) forward and backward
-   at the dense path's first-batch shapes of both conv levels, and at edge
-   cases: unsorted rows, duplicate edges, empty rows, sentinel and negative
-   indices, F = 1, 17 and 100, more edges than one shared-memory tile, and
-   a graph whose [S, F] slab does not fit in shared memory. K2 (sorted
+   bitwise equal to the plain version run on the CPU (both sum in edge
+   order), on random values, at the dense path's first-batch shapes of
+   both conv levels, and at edge cases: unsorted rows, duplicate edges,
+   empty rows, sentinel and negative indices, F = 1, 17 and 100, more
+   edges than one shared-memory tile, every valid edge of a graph on one
+   row, a graph whose [S, F] slab does not fit in shared memory, and S of
+   70,000, far beyond one block's rows; its launch plan (slab staged, rows
+   per block, blocks resident per SM) is checked too. K2 (sorted
    scatter-gather, the attention softmax's denominator) forward and
-   backward at the attention path's two softmax shapes of the first batch
-   (F = 1), at the JAX package's ``bench.py`` SpMM shapes, and at edge
-   cases (empty rows, a run of 8,000 edges, leading and trailing padding,
-   F = 1, 17 and 100, no row at all); its ``d2`` must be bitwise
-   ``out[rows]`` and 0 at padding, its ``out`` bitwise K1's sums. Each is
-   timed at the main shapes with the L2 cache flushed before each call,
-   beside its plain version, a PyTorch library yardstick and the least
-   time the card could take (K1 and K2 also L2-resident and eagerly);
+   backward on the card at rtol 1e-5 and atol 1e-5, at the attention
+   path's two softmax shapes of the first batch (F = 1), at the JAX
+   package's ``bench.py`` SpMM shapes, and at edge cases (empty rows, a
+   run of 8,000 edges, leading and trailing padding, F = 1, 17 and 100, no
+   row at all); its ``d2`` must be bitwise ``out[rows]`` and 0 at padding,
+   its ``out`` bitwise K1's sums. Each is timed at the main shapes with the
+   L2 cache flushed before each call, beside its plain version, a PyTorch
+   library yardstick and the least time the card could take, and also
+   L2-resident and eagerly;
 4. serve: a GINet at the paper's width (48 node features, the ``fold6``
    feature set, 1 edge feature, target ``fnat``, batch 128) with seeded
    random weights, written as a reference-format torch checkpoint, scores
@@ -449,41 +454,41 @@ def k3_library_pair(xw, row, col):
 
 
 def k3_case(name, xw, row, col, gen, timed: bool) -> dict:
-    """K3 against its plain version on the card, forward and backward
-    (the gradient through its autograd Function against the gradient
-    through the plain version); two launches bitwise equal; timed when
-    ``timed``."""
+    """K3 forward and backward (the gradient through its autograd Function)
+    bitwise equal to the plain version run on the CPU on the same inputs
+    (``plain(xw, row, col)``, and ``plain(cot, col, row)`` for the
+    backward), which sums in edge order as the kernel does; two launches
+    bitwise equal; the launch plan; timed when ``timed``."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import (
         fused_gin_conv,
         fused_gin_conv_forward,
         fused_gin_conv_plain,
-        uses_slab,
+        launch_plan,
     )
 
     g, s, f = xw.shape
     e = row.shape[1]
     cot = torch.randn(xw.shape, generator=gen, device=xw.device)
-    if name != "conv1" and name != "conv2":
-        cot = torch.round(cot * 64) / 64  # exact sums, as for the values
     x = xw.clone().requires_grad_(True)
     fwd = fused_gin_conv(x, row, col)
     fwd.backward(cot)
-    xp = xw.clone().requires_grad_(True)
-    want = fused_gin_conv_plain(xp, row, col)
-    want.backward(cot)
     again = fused_gin_conv_forward(xw, row, col)
     bwd_again = fused_gin_conv_forward(cot, col, row)
     torch.cuda.synchronize()
     if not (torch.equal(fwd, again) and torch.equal(x.grad, bwd_again)):
         raise AssertionError(f"K3 {name}: two launches differ")
-    torch.testing.assert_close(fwd.detach(), want.detach(), **KERNEL_TOL, msg=f"K3 {name}")
-    torch.testing.assert_close(x.grad, xp.grad, **KERNEL_TOL, msg=f"K3 {name} backward")
-    e_valid = int(((row >= 0) & (row < s) & (col >= 0) & (col < s)).sum())
-    fe, be = errors(fwd.detach(), want.detach()), errors(x.grad, xp.grad)
-    res = {"case": name, "G": g, "S": s, "F": f, "E": e, "E_valid": e_valid,
-           "slab": uses_slab(xw.device, s, f, e),
+    xc, rc, cc, gc = xw.cpu(), row.cpu(), col.cpu(), cot.cpu()
+    want, want_grad = fused_gin_conv_plain(xc, rc, cc), fused_gin_conv_plain(gc, cc, rc)
+    got, got_grad = fwd.detach().cpu(), x.grad.cpu()
+    fe, be = errors(got, want), errors(got_grad, want_grad)
+    if not (torch.equal(got, want) and torch.equal(got_grad, want_grad)):
+        raise AssertionError(f"K3 {name}: not bitwise the plain version on the cpu: "
+                             f"forward {fe}, backward {be}")
+    valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    res = {"case": name, "G": g, "S": s, "F": f, "E": e, "E_valid": int(valid.sum()),
+           **launch_plan(xw.device, s, f, e),
            "max_abs_err": max(fe["max_abs_err"], be["max_abs_err"]),
            "max_rel_err": max(fe["max_rel_err"], be["max_rel_err"])}
     if timed:
@@ -496,9 +501,10 @@ def k3_case(name, xw, row, col, gen, timed: bool) -> dict:
             library_ms_fwd=cold_ms(lib_fwd),
             library_ms_bwd=cold_ms(lib_bwd),
             l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xw, row, col)),
+            l2_warm_ms_bwd=l2_warm_ms(lambda: fused_gin_conv_forward(cot, col, row)),
             call_ms_fwd=call_ms(lambda: fused_gin_conv_forward(xw, row, col)),
             library_max_abs_err=float(
-                (lib_fwd()[: g * s].reshape(g, s, f) - want.detach()).abs().max()),
+                (lib_fwd()[: g * s].reshape(g, s, f).cpu() - want).abs().max()),
             bound_ms_fwd=k3_bound_ms(s, f, row, col),
             bound_ms_bwd=k3_bound_ms(s, f, col, row),
         )
@@ -506,23 +512,26 @@ def k3_case(name, xw, row, col, gen, timed: bool) -> dict:
 
 
 def k3_phase(first_dense_batch, seed: int):
-    """K3 at the dense path's first-batch shapes of both conv levels
-    (random values) and at edge cases (exactly summable values)."""
+    """K3 at the dense path's first-batch shapes of both conv levels and at
+    edge cases, all with random values: summation order shows in the bits."""
     import torch
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rng = np.random.default_rng(seed + 1)
 
-    def exact(shape):
-        return torch.randint(-512, 512, shape, generator=gen, device=dev).float() / 64
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=dev)
 
-    def indices(g, s, e):
-        """Unsorted rows with a long run of duplicates on one row, sentinel
-        (== S) and negative indices, and rows without edges."""
+    def indices(g, s, e, one_row=False):
+        """Unsorted rows with a long run of duplicates on one row (with
+        ``one_row``, every valid edge on one row), sentinel (== S) and
+        negative indices, and rows without edges."""
         row = rng.integers(0, s, (g, e))
         col = rng.integers(0, s, (g, e))
         row[:, : e // 4] = s // 3  # duplicates of one row
+        if one_row:
+            row[:] = s // 3
         row[:, ::7] = s
         col[:, 3::11] = s
         row[:, 5::13] = -1
@@ -535,23 +544,34 @@ def k3_phase(first_dense_batch, seed: int):
     g, ng = b.x.shape[0], b.x.shape[1]
     c0g = b.pool0_mask.shape[1]
     main = [
-        ("conv1", torch.randn((g, ng, 32), generator=gen, device=dev), b.row, b.col),
-        ("conv2", torch.randn((g, c0g, 64), generator=gen, device=dev), b.pe_row, b.pe_col),
+        ("conv1", rand((g, ng, 32)), b.row, b.col),
+        ("conv2", rand((g, c0g, 64)), b.pe_row, b.pe_col),
     ]
     results = [k3_case(name, x, r, c, gen, timed=True) for name, x, r, c in main]
     edge = []
     for f in (1, 17, 100):
-        edge.append((f"edges-F{f}", exact((6, 50, f)), *indices(6, 50, 400)))
-    edge.append(("tiles-F32", exact((4, 300, 32)), *indices(4, 300, 10000)))
-    edge.append(("no-slab-F64", exact((2, 4000, 64)), *indices(2, 4000, 9000)))
+        edge.append((f"edges-F{f}", rand((6, 50, f)), *indices(6, 50, 400)))
+    edge.append(("tiles-F32", rand((4, 300, 32)), *indices(4, 300, 10000)))
+    edge.append(("one-row-F32", rand((3, 300, 32)), *indices(3, 300, 5000, one_row=True)))
+    edge.append(("no-slab-F64", rand((2, 4000, 64)), *indices(2, 4000, 9000)))
+    edge.append(("wide-S-F8", rand((2, 70000, 8)), *indices(2, 70000, 9000)))
     results += [k3_case(name, x, r, c, gen, timed=False) for name, x, r, c in edge]
     for res in results:
         log("K3 " + json.dumps(res))
     by_case = {r["case"]: r for r in results}
-    if not (by_case["conv1"]["slab"] and by_case["conv2"]["slab"]):
-        raise AssertionError("K3: the main shapes should stage their slab in shared memory")
-    if by_case["no-slab-F64"]["slab"]:
-        raise AssertionError("K3: the 4,000 x 64 slab should not fit in shared memory")
+    for name in ("conv1", "conv2"):
+        # the main shapes: slab staged, rows split at most 128 to a block, at
+        # least two blocks resident per SM
+        r = by_case[name]
+        if not (r["slab"] and r["rows_per_block"] <= 128 and r["blocks_per_sm"] >= 2):
+            raise AssertionError(f"K3 {name}: launch plan {r}")
+    if by_case["conv1"]["blocks_per_graph"] < 2:
+        raise AssertionError("K3: conv1's rows should be split over several blocks")
+    for name in ("no-slab-F64", "wide-S-F8"):
+        if by_case[name]["slab"]:
+            raise AssertionError(f"K3 {name}: the slab should not fit in shared memory")
+    if by_case["wide-S-F8"]["blocks_per_graph"] != -(-70000 // 128):
+        raise AssertionError(f"K3 wide-S-F8: launch plan {by_case['wide-S-F8']}")
     return results
 
 
@@ -1222,7 +1242,9 @@ def main(argv=None) -> int:
             "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
                                           "ms_bwd", "plain_ms_fwd", "plain_ms_bwd",
                                           "library_ms_fwd", "library_ms_bwd", "bound_ms_fwd",
-                                          "bound_ms_bwd", "l2_warm_ms_fwd", "call_ms_fwd")}
+                                          "bound_ms_bwd", "l2_warm_ms_fwd", "l2_warm_ms_bwd",
+                                          "call_ms_fwd", "rows_per_block", "blocks_per_graph",
+                                          "smem_bytes", "blocks_per_sm")}
                        for r in k3_main],
         },
         {

@@ -56,8 +56,9 @@ _SIGNATURES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
-        "fused_gin_conv_uses_slab": (
-            ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+        "fused_gin_conv_plan": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
         ),
     },
 }

@@ -7,18 +7,27 @@ Replaces ``deeprank_gnn_tpu/ops/pallas/__init__.py:fused_gin_conv``. For
     out[g, n] = sum over edges e of graph g with row[g, e] == n of xw[g, col[g, e]]
 
 An index outside ``[0, S)`` (the dense collate's sentinel ``S``) drops its
-edge, and rows need not be sorted. The gradient with respect to ``xw`` is the
-same op with ``row`` and ``col`` swapped, as in the JAX package's VJP, so
-training launches the kernel once forward and once backward per call.
+edge, and rows need not be sorted. Each row sums its edges in ascending edge
+order, so the kernel's result is bitwise :func:`fused_gin_conv_plain`'s on
+the CPU. The gradient with respect to ``xw`` is the same op with ``row`` and
+``col`` swapped, as in the JAX package's VJP, so training launches the
+kernel once forward and once backward per call.
 
-The kernel (``ops/csrc/fused_gin_conv.cu``) is bound by bytes: one block per
-graph, one warp per output row, the graph's edges (and its ``[S, F]`` slab,
-when it fits) in shared memory, sums in edge order without atomics. At the
+The kernel (``ops/csrc/fused_gin_conv.cu``) is bound by bytes: at the
 paper's width conv1 must move ~7.1 MB per call (the ``xw`` rows that valid
-edges read, ``out`` whole, the indices): ~2.1 us at 3.35 TB/s.
+edges read, ``out`` whole, the indices), 2.12 us at 3.35 TB/s. A graph's
+output rows are split over blocks of at most 128 rows. Each block copies the
+graph's ``[S, F]`` slab into shared memory with one bulk (TMA) copy when it
+fits, while it sorts its rows' edges into a CSR in shared memory (counts and
+ranks from ``__match_any_sync``, a scan, stable placement, no atomics); then
+a group of lanes per row sums the row's run in edge order and writes it
+once. It is not a tensor-core product: that would do S / degree times the
+adds and need a three-way bf16 split to stay fp32-exact.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -92,15 +101,22 @@ def fused_gin_conv_forward(xw: torch.Tensor, row: torch.Tensor, col: torch.Tenso
     return out
 
 
-def uses_slab(device, s: int, f: int, e: int) -> bool:
-    """Whether the kernel stages a graph's ``[S, F]`` slab in shared memory
-    on ``device`` (else it reads ``xw`` from device memory)."""
+def launch_plan(device, s: int, f: int, e: int) -> dict:
+    """The launch the kernel makes on ``device`` for ``S``, ``F`` and ``E``
+    (all > 0): ``slab`` (whether a graph's ``[S, F]`` slab is staged in
+    shared memory, else ``xw`` is read from device memory), ``rows_per_block``
+    and ``blocks_per_graph`` (the split of a graph's output rows),
+    ``smem_bytes`` per block and ``blocks_per_sm`` resident."""
     lib = build.load(NAME)
+    plan = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
-        path = lib.fused_gin_conv_uses_slab(s, f, e)
-    if path < 0:
-        raise RuntimeError(f"fused_gin_conv_uses_slab: CUDA error {-path}")
-    return path == 1
+        err = lib.fused_gin_conv_plan(s, f, e, plan)
+    if err != 0:
+        raise RuntimeError(f"fused_gin_conv_plan: CUDA error {err}")
+    keys = ("slab", "rows_per_block", "blocks_per_graph", "smem_bytes", "blocks_per_sm")
+    out = dict(zip(keys, plan))
+    out["slab"] = bool(out["slab"])
+    return out
 
 
 class FusedGinConv(torch.autograd.Function):

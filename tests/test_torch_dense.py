@@ -4,7 +4,9 @@
   equal, ``x`` equal;
 - K3 (``fused_gin_conv``): the port's plain version against the JAX
   package's ``fused_gin_conv`` on the CPU (its einsum path), forward and
-  VJP, at rtol = atol = 1e-5 (the summation order differs);
+  VJP, at rtol = atol = 1e-5 (the summation order differs), and bitwise
+  against a loop that sums each row's edges in ascending edge order, the
+  order the CUDA kernel keeps;
 - the dense pools and readout, K1's gradient and ``member_max_pool``'s
   gradient against the JAX functions, with ties;
 - dense GINet, fused and unfused, against JAX dense and against the port's
@@ -12,7 +14,8 @@
   atol 1e-5 (``tests/test_dense_layout.py:52-54``).
 
 The CUDA kernel is checked on the card by ``chip_smoke.py``;
-``test_k3_cuda_matches_plain`` runs it where a card is present.
+``test_k3_cuda_matches_plain`` runs it where a card is present and holds it
+bitwise to the plain version on the CPU.
 """
 
 import dataclasses
@@ -107,11 +110,14 @@ def test_graph_sizes_match_jax(h5_path):
         assert mem.graph_sizes(i) == want
 
 
-def k3_inputs(rng, g, s, f, e):
+def k3_inputs(rng, g, s, f, e, one_row=False):
     """Unsorted rows and cols with sentinels (== S and negative),
-    duplicate edges, and rows without edges."""
+    duplicate edges, and rows without edges; with ``one_row``, every valid
+    edge of a graph on one row (the longest run)."""
     row = rng.integers(0, s, (g, e))
     col = rng.integers(0, s, (g, e))
+    if one_row:
+        row[:] = s // 3
     row[:, ::7] = s  # sentinel rows
     col[:, 3::11] = s  # sentinel cols
     row[:, 5::13] = -1
@@ -122,18 +128,63 @@ def k3_inputs(rng, g, s, f, e):
     return xw, row.astype(np.int32), col.astype(np.int32)
 
 
-@pytest.mark.parametrize("f", [1, 17, 32])
-def test_k3_plain_matches_jax(f):
+# (G, S, F, E, one_row): small graphs at three widths, a run of ~4,000 edges
+# on one row, more edges than one of the kernel's 2,048-edge tiles (and than
+# 4,096), and conv1's shape at the paper's width
+K3_SHAPES = {
+    "1": (3, 40, 1, 150, False),
+    "17": (3, 40, 17, 150, False),
+    "32": (3, 40, 32, 150, False),
+    "one-row": (2, 40, 8, 5000, True),
+    "E6000": (2, 300, 16, 6000, False),
+    "conv1": (8, 272, 32, 512, False),
+}
+
+
+def edge_order_sum(xw, row, col):
+    """``fused_gin_conv`` as a loop over the edges in ascending order, one
+    float32 add per edge and column."""
+    g, s, _ = xw.shape
+    out = np.zeros_like(xw)
+    for gi in range(g):
+        for r, c in zip(row[gi], col[gi]):
+            if 0 <= r < s and 0 <= c < s:
+                out[gi, r] += xw[gi, c]
+    return out
+
+
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_k3_plain_sums_in_edge_order(shape):
+    """The plain version on the CPU sums each row's edges in ascending edge
+    order: bitwise the loop, forward and with the indices swapped (the
+    backward). The kernel sums in the same order, so the card's check
+    holds it to this bitwise."""
+    from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv_plain
+
+    g, s, f, e, one_row = K3_SHAPES[shape]
+    xw, row, col = k3_inputs(np.random.default_rng(11), g, s, f, e, one_row)
+    for r, c in ((row, col), (col, row)):
+        got = fused_gin_conv_plain(torch.from_numpy(xw), torch.from_numpy(r),
+                                   torch.from_numpy(c)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), edge_order_sum(xw, r, c).view(np.int32))
+
+
+@pytest.mark.parametrize("shape", list(K3_SHAPES))
+def test_k3_plain_matches_jax(shape):
     import jax
     import jax.numpy as jnp
 
     from deeprank_gnn_tpu.ops.pallas import fused_gin_conv as jax_fused
     from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv
 
+    g, s, f, e, one_row = K3_SHAPES[shape]
     rng = np.random.default_rng(f)
-    g, s, e = 3, 40, 150
-    xw, row, col = k3_inputs(rng, g, s, f, e)
+    xw, row, col = k3_inputs(rng, g, s, f, e, one_row)
     cot = rng.standard_normal((g, s, f)).astype(np.float32)
+    if one_row:
+        # multiples of 1/64 below 8: every partial sum of the ~4,000-edge run
+        # is exact in fp32, so the two summation orders agree
+        xw, cot = (np.clip(np.round(a * 64), -511, 511) / 64 for a in (xw, cot))
     want, vjp = jax.vjp(lambda v: jax_fused(v, jnp.asarray(row), jnp.asarray(col)),
                         jnp.asarray(xw))
     (want_grad,) = vjp(jnp.asarray(cot))
@@ -173,31 +224,40 @@ def test_k3_wrapper_never_falls_back():
 
 @pytest.mark.cuda
 def test_k3_cuda_matches_plain():
+    """The kernel, forward and backward, bitwise the plain version on the
+    CPU, two launches bitwise equal, and its launch plan: the slab staged
+    when it fits in shared memory, at most 128 rows to a block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
     from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import (
         fused_gin_conv,
         fused_gin_conv_plain,
-        uses_slab,
+        launch_plan,
     )
 
     rng = np.random.default_rng(0)
-    for g, s, f, e in ((4, 40, 17, 300), (2, 4000, 64, 6000), (8, 32, 100, 5000)):
-        xw, row, col = k3_inputs(rng, g, s, f, e)
+    cases = ((4, 40, 17, 300, False), (2, 4000, 64, 6000, False), (8, 32, 100, 5000, False),
+             (3, 300, 32, 5000, True), (2, 70000, 8, 9000, False))
+    for g, s, f, e, one_row in cases:
+        xw, row, col = k3_inputs(rng, g, s, f, e, one_row)
+        cot = torch.from_numpy(rng.standard_normal((g, s, f)).astype(np.float32))
         x = torch.from_numpy(xw).cuda().requires_grad_(True)
         r, c = torch.from_numpy(row).cuda(), torch.from_numpy(col).cuda()
         before = LAUNCHES["fused_gin_conv"]
         a = fused_gin_conv(x, r, c)
         b = fused_gin_conv(x, r, c)
-        a.sum().backward()
+        (a * cot.cuda()).sum().backward()
         torch.cuda.synchronize()
         assert LAUNCHES["fused_gin_conv"] == before + 3
         assert torch.equal(a, b)
-        torch.testing.assert_close(a, fused_gin_conv_plain(x.detach(), r, c), **KERNEL_TOL)
-        torch.testing.assert_close(
-            x.grad, fused_gin_conv_plain(torch.ones_like(a), c, r), **KERNEL_TOL)
-        assert uses_slab(x.device, s, f, e) == (s * f <= 40 * 100)
+        rc, cc = torch.from_numpy(row), torch.from_numpy(col)
+        assert torch.equal(a.detach().cpu(), fused_gin_conv_plain(torch.from_numpy(xw), rc, cc))
+        assert torch.equal(x.grad.cpu(), fused_gin_conv_plain(cot, cc, rc))
+        plan = launch_plan(x.device, s, f, e)
+        assert plan["slab"] == (s * f * 4 < 200_000)
+        assert plan["rows_per_block"] <= 128
+        assert plan["blocks_per_graph"] == -(-s // plan["rows_per_block"])
 
 
 def pool_inputs(rng, g=3, s=40, f=6, c=9):
