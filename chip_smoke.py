@@ -15,12 +15,14 @@ Phases, each of which raises on failure:
    checkout, one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version, and two
    launches bitwise equal. K1 (sorted segment sum) on the card at rtol 1e-5
-   and atol 1e-5 (the summation order differs from ``index_add_``; its
-   edge cases use values whose sums are exact in fp32, so long runs compare
-   which edges were summed rather than rounding), at the sparse serving
-   path's shapes and at edge cases (empty rows, a run of thousands of
-   edges, trailing padding, odd widths), and its gradient against the
-   plain version's. K3 (per-graph GIN aggregation) forward and backward
+   and atol 1e-5 against the plain version run there (``index_add_`` with
+   atomics; its edge cases use values whose sums are exact in fp32), and
+   bitwise equal to the plain version run on the CPU (both sum each row in
+   edge order), at the sparse serving path's shapes (F = 32 and 64), at
+   the attention path's (F = 16 and 32), and at edge cases (empty rows, a
+   run of thousands of edges, trailing padding, odd widths), with its
+   launch plan (columns per load, lanes per row, rows per block), and its
+   gradient against the plain version's. K3 (per-graph GIN aggregation) forward and backward
    bitwise equal to the plain version run on the CPU (both sum in edge
    order), on random values, at the dense path's first-batch shapes of
    both conv levels, and at edge cases: unsorted rows, duplicate edges,
@@ -30,15 +32,20 @@ Phases, each of which raises on failure:
    70,000, far beyond one block's rows; its launch plan (slab staged, rows
    per block, blocks resident per SM) is checked too. K2 (sorted
    scatter-gather, the attention softmax's denominator) forward and
-   backward on the card at rtol 1e-5 and atol 1e-5, at the attention
+   backward on the card at rtol 1e-5 and atol 1e-5, and bitwise equal to
+   the plain version run on the CPU, forward and backward, at the attention
    path's two softmax shapes of the first batch (F = 1), at the JAX
    package's ``bench.py`` SpMM shapes, and at edge cases (empty rows, a
-   run of 8,000 edges, leading and trailing padding, F = 1, 17 and 100, no
-   row at all); its ``d2`` must be bitwise ``out[rows]`` and 0 at padding,
-   its ``out`` bitwise K1's sums. Each is timed at the main shapes with the
-   L2 cache flushed before each call, beside its plain version, a PyTorch
-   library yardstick and the least time the card could take, and also
-   L2-resident and eagerly;
+   run of 8,000 edges, longer than a shared-memory tile, leading and
+   trailing padding, F = 1, 17 and 100, no row at all); its ``d2`` must be
+   bitwise ``out[rows]`` and 0 at padding, its ``out`` bitwise K1's sums;
+   its launch plan (path, rows and threads per block, tile edges) is
+   checked. Each is
+   timed at the main shapes with the L2 cache flushed before each call,
+   beside its plain version, a PyTorch library yardstick and the least time
+   the card could take, and also L2-resident and eagerly; and the device
+   time of an almost empty launch of each (one row, no edges) is read
+   under ``torch.profiler``, the floor of the in-pass times;
 4. serve: a GINet at the paper's width (48 node features, the ``fold6``
    feature set, 1 edge feature, target ``fnat``, batch 128) with seeded
    random weights, written as a reference-format torch checkpoint, scores
@@ -67,8 +74,9 @@ Phases, each of which raises on failure:
 6. attention, the main path of the model zoo's slice:
    ``functools.partial(GINet, attention=True)``, sparse, at the paper's
    width on 2,048 graphs: served from a reference-format checkpoint as in
-   4 (K1 4 and K2 4 launches per batch) and trained as in 5 (K1 8 and K2 4
-   per training batch: K2's backward runs K1), with every check of both;
+   4 (K1 4 and K2 4 launches per batch) and trained as in 5 (K1 4 and K2 8
+   per training batch: K2's backward is K2 on the ``d2`` cotangent), with
+   every check of both;
 7. the other new paths on 768 graphs (4 or more training batches): the dense attention GINet (also
    against the sparse one), the internal-tower GINet (sparse only, K1 4
    per batch), FoutNet and sGAT in both layouts (K1 2 per sparse batch;
@@ -112,12 +120,12 @@ KERNELS = {
     "sorted_segment_sum": {
         "route": "cuda",
         "source": "deeprank_gnn_tpu_torch/ops/csrc/sorted_segment_sum.cu",
-        "replaces": "deeprank_gnn_tpu/ops/pallas/segment.py:408",
+        "replaces": "deeprank_gnn_tpu/ops/pallas/segment.py:409",
     },
     "fused_gin_conv": {
         "route": "cuda",
         "source": "deeprank_gnn_tpu_torch/ops/csrc/fused_gin_conv.cu",
-        "replaces": "deeprank_gnn_tpu/ops/pallas/__init__.py:203",
+        "replaces": "deeprank_gnn_tpu/ops/pallas/__init__.py:204",
     },
     "sorted_scatter_gather": {
         "route": "cuda",
@@ -290,10 +298,13 @@ def errors(got, want) -> dict:
 
 def k1_case(name, data, row_ptr, rows, timed: bool):
     """Check the sorted segment sum kernel against its plain version on
-    the card; time it when ``timed``. Returns a dict of numbers."""
+    the card (``KERNEL_TOL``) and bitwise against the plain version run on
+    the CPU (both sum in edge order); log its launch plan; time it when
+    ``timed``. Returns a dict of numbers."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels.segment import (
+        launch_plan,
         sorted_segment_sum,
         sorted_segment_sum_plain,
     )
@@ -305,10 +316,14 @@ def k1_case(name, data, row_ptr, rows, timed: bool):
     if not torch.equal(a, b):
         raise AssertionError(f"K1 {name}: two launches differ")
     torch.testing.assert_close(a, want, **KERNEL_TOL, msg=f"K1 {name}")
+    want_cpu = sorted_segment_sum_plain(data.cpu(), row_ptr.cpu())
+    if not torch.equal(a.cpu(), want_cpu):
+        raise AssertionError(f"K1 {name}: not bitwise the plain version on the cpu: "
+                             f"{errors(a.cpu(), want_cpu)}")
     n, f = row_ptr.shape[0] - 1, data.shape[1]
     e_valid = int(row_ptr[-1])
     res = {"case": name, "E": int(data.shape[0]), "E_valid": e_valid, "N": n, "F": f,
-           **errors(a, want)}
+           **errors(a, want), **launch_plan(data, row_ptr)}
     if timed:
         lengths = row_ptr.diff().to(torch.int64)
         valid = data[:e_valid]
@@ -359,9 +374,35 @@ def k1_backward_case(name, data, row_ptr, rows, gen) -> dict:
     return {"case": name + "-backward", **errors(x.grad, xp.grad)}
 
 
+def k1_lanes(f: int, vec: int) -> int:
+    """The lanes per row of F columns read ``vec`` at a time: the smallest
+    power of two at or above ceil(F / vec), at most 32."""
+    lanes = 1
+    while lanes < -(-f // vec) and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def k1_plan_want(n: int, f: int) -> tuple:
+    """The (columns per load, lanes per row, loads in flight) K1's plan must
+    give for N rows of F columns, 16-byte aligned: float2 where F is even,
+    F <= 64 and N x its lanes stays within 3/4 of the threads the card holds
+    resident, else float4 where F % 4 == 0, else float2 where F is even,
+    else single floats; 4 float4 loads in flight, else 8."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    resident = props.multi_processor_count * props.max_threads_per_multi_processor
+    vec = 4 if f % 4 == 0 else 2 if f % 2 == 0 else 1
+    if vec == 4 and f <= 64 and 4 * n * k1_lanes(f, 2) <= 3 * resident:
+        vec = 2
+    return vec, k1_lanes(f, vec), 4 if vec == 4 else 8
+
+
 def k1_phase(first_batch, seed: int):
-    """K1 at the sparse serving path's two shapes (from the first collated
-    batch) and at edge cases, forward and backward."""
+    """K1 at the sparse paper-mode path's two shapes and the attention
+    path's two (from the first collated batch), and at edge cases, forward
+    and backward; the launch plans."""
     import torch
 
     dev = torch.device("cuda")
@@ -385,8 +426,11 @@ def k1_phase(first_batch, seed: int):
 
     b = first_batch.to(dev)
     main = [
+        # paper-mode GINet's fused towers, and the attention GINet's towers
         ("conv1", rand(b.edge_index.shape[1], 32), b.edge_rowptr, b.edge_index[0]),
         ("conv2", rand(b.pe_index.shape[1], 64), b.pe_rowptr, b.pe_index[0]),
+        ("attention-conv1", rand(b.edge_index.shape[1], 16), b.edge_rowptr, b.edge_index[0]),
+        ("attention-conv2", rand(b.pe_index.shape[1], 32), b.pe_rowptr, b.pe_index[0]),
     ]
     log(f"K1 event floor: {cold_ms(lambda: None)} ms between two events with no call")
     results = [k1_case(name, d, p, r, timed=True) for name, d, p, r in main]
@@ -400,6 +444,17 @@ def k1_phase(first_batch, seed: int):
     ptr0, r0 = from_rows(np.full(300, 50), 50)  # every row empty, all padding
     edge_cases.append(("all-empty-F32", exact(300, 32), ptr0, r0))
     results += [k1_case(name, d, p, rr, timed=False) for name, d, p, rr in edge_cases]
+    for res in results:
+        # every tensor here is a fresh allocation, so 16-byte aligned
+        got = (res["vec"], res["lanes_per_row"], res["loads_in_flight"])
+        if got != k1_plan_want(res["N"], res["F"]) or \
+                res["rows_per_block"] * res["lanes_per_row"] != 256:
+            raise AssertionError(f"K1 {res['case']}: launch plan {res}")
+    by_case = {r["case"]: r for r in results}
+    # the widths this phase times take float2 where rows are few or F is
+    # small, float4 on paper mode's conv1 (F 32, N ~16,640)
+    if (by_case["attention-conv1"]["vec"], by_case["conv1"]["vec"]) != (2, 4):
+        raise AssertionError(f"K1: launch plans {by_case['attention-conv1']}, {by_case['conv1']}")
     results += [k1_backward_case(name, d, p, rr, gen)
                 for name, d, p, rr in main + edge_cases[:1]]
     for res in results:
@@ -612,11 +667,15 @@ def k2_case(name, data, row_ptr, rows, gen, timed: bool) -> dict:
     ``KERNEL_TOL``, ``d2`` bitwise ``out[rows]`` and 0 outside every run,
     ``out`` bitwise K1's sums, two launches bitwise equal, and the gradient
     through its autograd Function (with both cotangents, and with the
-    ``out`` one absent as on the softmax path) against the gradient through
-    the plain version. Timed when ``timed``."""
+    ``out`` one absent as on the softmax path, where the backward is K2
+    itself) against the gradient through the plain version; and all of
+    them bitwise equal to the plain version run on the CPU on the same
+    inputs (both sum each row in edge order). Its launch plan. Timed when
+    ``timed``."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels.scatter_gather import (
+        launch_plan,
         sorted_scatter_gather,
         sorted_scatter_gather_plain,
     )
@@ -638,6 +697,10 @@ def k2_case(name, data, row_ptr, rows, gen, timed: bool) -> dict:
         raise AssertionError(f"K2 {name}: d2 is not bitwise out[rows], 0 at padding")
     if not torch.equal(out, k1):
         raise AssertionError(f"K2 {name}: out differs from K1's sums")
+    cpu_out, cpu_d2 = sorted_scatter_gather_plain(data.cpu(), row_ptr.cpu())
+    if not (torch.equal(out.cpu(), cpu_out) and torch.equal(d2.cpu(), cpu_d2)):
+        raise AssertionError(f"K2 {name}: not bitwise the plain version on the cpu: out "
+                             f"{errors(out.cpu(), cpu_out)}, d2 {errors(d2.cpu(), cpu_d2)}")
     errs = [errors(out, want_out), errors(d2, want_d2)]
     cot_out = torch.randn((n, f), generator=gen, device=data.device)
     cot_d2 = torch.randn((e, f), generator=gen, device=data.device)
@@ -654,11 +717,19 @@ def k2_case(name, data, row_ptr, rows, gen, timed: bool) -> dict:
         torch.testing.assert_close(x.grad, xp.grad, **KERNEL_TOL, msg=f"K2 {name} backward")
         if x.grad[~valid].any():
             raise AssertionError(f"K2 {name}: padding edges got a gradient")
+        xc = data.cpu().requires_grad_(True)
+        o, g = sorted_scatter_gather_plain(xc, row_ptr.cpu())
+        ((g * cot_d2.cpu()).sum() + ((o * cot_out.cpu()).sum() if use_out else 0)).backward()
+        if not torch.equal(x.grad.cpu(), xc.grad):
+            raise AssertionError(f"K2 {name} backward (out cotangent {use_out}): not bitwise "
+                                 f"the plain version's on the cpu: {errors(x.grad.cpu(), xc.grad)}")
         errs.append(errors(x.grad, xp.grad))
     e_valid = int(valid.sum())
     res = {"case": name, "E": e, "E_valid": e_valid, "N": n, "F": f,
            "max_abs_err": max(r["max_abs_err"] for r in errs),
-           "max_rel_err": max(r["max_rel_err"] for r in errs)}
+           "max_rel_err": max(r["max_rel_err"] for r in errs),
+           "longest_run": int(row_ptr.diff().max()) if n else 0,
+           **launch_plan(data.device, n, f)}
     if timed:
         lib = k2_library(data, row_ptr, rows)
         lib_out, lib_d2 = lib()
@@ -720,7 +791,53 @@ def k2_phase(first_batch, seed: int):
         log("K2 " + json.dumps(res))
     if int(ptr[0]) != 300:
         raise AssertionError("K2: the edge cases should carry leading padding")
+    for res in results:
+        # F = 1: a block of one warp stages its 32 rows' edges in
+        # shared-memory tiles; other widths take lane groups, 256 threads
+        want = (("tiles", 32, 32) if res["F"] == 1
+                else ("lanes", 256 // k1_lanes(res["F"], 1), 256))
+        if (res["path"], res["rows_per_block"], res["threads"]) != want or \
+                (res["tile_edges"] > 0) != (res["path"] == "tiles"):
+            raise AssertionError(f"K2 {res['case']}: launch plan {res}")
+    edges_f1 = next(r for r in results if r["case"] == "edges-F1")
+    if edges_f1["longest_run"] <= edges_f1["tile_edges"]:
+        raise AssertionError(f"K2 edges-F1: the long run should cross tiles: {edges_f1}")
     return results
+
+
+def launch_floor(reps: int = 200) -> dict:
+    """The device time of an almost empty launch of K1 and of K2 (one row,
+    one padding edge, no valid edge: K1 one block, K2 one block and its
+    zero-fill blocks), as ``torch.profiler`` reads each launch: the floor
+    under the kernels' in-pass times, which the profiled passes read the
+    same way. Milliseconds per launch, median and mean over ``reps``
+    launches of each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeprank_gnn_tpu_torch.ops.kernels.scatter_gather import sorted_scatter_gather
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import sorted_segment_sum
+
+    data = torch.ones((1, 1), device="cuda")
+    ptr = torch.zeros(2, dtype=torch.int32, device="cuda")
+    for _ in range(10):
+        sorted_segment_sum(data, ptr)
+        sorted_scatter_gather(data, ptr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            sorted_segment_sum(data, ptr)
+            sorted_scatter_gather(data, ptr)
+        torch.cuda.synchronize()
+    res = {}
+    for name in ("sorted_segment_sum", "sorted_scatter_gather"):
+        times = [e.device_time / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+        if len(times) != reps:
+            raise AssertionError(f"launch floor: {len(times)} {name} launches traced, want {reps}")
+        res[name] = {"median_ms": float(np.median(times)), "mean_ms": float(np.mean(times))}
+    log("launch floor under torch.profiler " + json.dumps(res))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -814,14 +931,15 @@ def attention_bounds_per_batch(loader, training: bool) -> dict:
     """K1's and K2's bounds per batch of ``loader`` on the attention path,
     averaged over its batches: per tower K1 sums the weighted messages
     (conv1 at 16 columns, conv2 at 32) and K2 the softmax denominators
-    (F = 1); training adds K2's backward, one K1 call at F = 1 each."""
+    (F = 1); training adds K2's backward, one more K2 call at F = 1 each
+    (the messages' gradient is a plain gather)."""
     k1, k2 = [], []
     for b, _ in loader:
         levels = ((int(b.edge_rowptr[-1]), b.edge_index.shape[1], b.num_nodes, 16),
                   (int(b.pe_rowptr[-1]), b.pe_index.shape[1], b.num_clusters0, 32))
-        k1.append(2 * sum(k1_bound_ms(ev, n, f) + (k1_bound_ms(ev, n, 1) if training else 0.0)
-                          for ev, _e, n, f in levels))
-        k2.append(2 * sum(k2_bound_ms(ev, e, n, 1) for ev, e, n, _f in levels))
+        k1.append(2 * sum(k1_bound_ms(ev, n, f) for ev, _e, n, f in levels))
+        k2.append((4 if training else 2) * sum(k2_bound_ms(ev, e, n, 1)
+                                               for ev, e, n, _f in levels))
     return {"sorted_segment_sum": float(np.mean(k1)), "sorted_scatter_gather": float(np.mean(k2))}
 
 
@@ -1023,7 +1141,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
 def attention_phase(dataset, tmp: str, seed: int) -> dict:
     """``functools.partial(GINet, attention=True)``, sparse, at full width:
     served from a reference-format checkpoint (4 K1 and 4 K2 launches per
-    batch) and trained (8 K1 and 4 K2 per batch: K2's backward launches K1),
+    batch) and trained (4 K1 and 8 K2 per batch: K2's backward is K2),
     both profiled, with every check of the training phase."""
     from deeprank_gnn_tpu_torch.models import GINet
 
@@ -1037,7 +1155,7 @@ def attention_phase(dataset, tmp: str, seed: int) -> dict:
     log(f"phase serve attention: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trained = train_phase("attention", net, dataset, "sparse", seed, tmp,
-                          {"sorted_segment_sum": 8, "sorted_scatter_gather": 4},
+                          {"sorted_segment_sum": 4, "sorted_scatter_gather": 8},
                           lambda ld: attention_bounds_per_batch(ld, True))
     log(f"phase train attention: {time.perf_counter() - t0:.1f} s")
     return {"serve": served, "train": trained}
@@ -1056,7 +1174,7 @@ def zoo_phase(dataset, tmp: str, seed: int) -> dict:
         ("attention_dense", attention, "dense", {}, {}),
         ("attention_sparse_small", attention, "sparse",
          {"sorted_segment_sum": 4, "sorted_scatter_gather": 4},
-         {"sorted_segment_sum": 8, "sorted_scatter_gather": 4}),
+         {"sorted_segment_sum": 4, "sorted_scatter_gather": 8}),
         ("internal_tower", functools.partial(GINet, internal_tower=True), "sparse",
          {"sorted_segment_sum": 4}, {"sorted_segment_sum": 4}),
         ("foutnet_sparse", FoutNet, "sparse", {"sorted_segment_sum": 2},
@@ -1148,6 +1266,7 @@ def main(argv=None) -> int:
     k1 = k1_phase(first_batch, args.seed)
     k3 = k3_phase(first_dense, args.seed)
     k2 = k2_phase(first_batch, args.seed)
+    floor = launch_floor()
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1172,7 +1291,12 @@ def main(argv=None) -> int:
         # 7. the other new paths
         zoo_out = zoo_phase(zoo, tmp, args.seed)
 
-    k1_main = [r for r in k1 if "ms" in r]
+    k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
+    k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
+    k1_plans = ("vec", "lanes_per_row", "rows_per_block", "blocks", "loads_in_flight",
+                "blocks_per_sm")
+    k2_plans = ("path", "rows_per_block", "tile_edges", "blocks", "smem_bytes", "blocks_per_sm",
+                "threads")
     k3_main = [r for r in k3 if "ms_fwd" in r]
     k2_path = [r for r in k2 if r["case"] in ("conv1", "conv2")]
     k2_bench = next(r for r in k2 if r["case"] == "bench")
@@ -1199,7 +1323,8 @@ def main(argv=None) -> int:
             "train_launches": trained["sparse"]["launches"]["sorted_segment_sum"],
             "train_ms_per_batch": t_sparse["sorted_segment_sum_ms_per_batch"],
             "train_bound_ms_per_batch": t_sparse["sorted_segment_sum_bound_ms_per_batch"],
-            # the attention path: 4 launches per served batch, 8 per trained
+            # the attention path: 4 launches per served batch and per trained
+            # one (K2's backward runs on K2)
             "attention_serve_launches": att["serve"]["launches"]["sorted_segment_sum"],
             "attention_served_ms_per_batch": a_serve["sorted_segment_sum_ms_per_batch"],
             "attention_served_bound_ms_per_batch":
@@ -1212,9 +1337,17 @@ def main(argv=None) -> int:
             "l2_warm_ms": sum(r["l2_warm_ms"] for r in k1_main),
             # eager per-call time, the host's launch cost included
             "call_ms": sum(r["call_ms"] for r in k1_main),
+            # one call at each attention conv's shape (F = 16 and 32), L2
+            # flushed, L2-warm and eager, beside the plain version, the
+            # library call and the bound
+            **{f"attention_{k}": sum(r[k] for r in k1_att)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms", "l2_warm_ms", "call_ms")},
+            # an almost empty launch under torch.profiler
+            "launch_floor_ms": floor["sorted_segment_sum"]["median_ms"],
             "shapes": [{k: r[k] for k in ("case", "E", "E_valid", "N", "F", "ms", "plain_ms",
-                                          "library_ms", "bound_ms", "l2_warm_ms", "call_ms")}
-                       for r in k1_main],
+                                          "library_ms", "bound_ms", "l2_warm_ms", "call_ms",
+                                          *k1_plans)}
+                       for r in k1_main + k1_att],
         },
         {
             "name": "fused_gin_conv",
@@ -1272,12 +1405,16 @@ def main(argv=None) -> int:
             "train_bound_ms_per_batch": a_train["sorted_scatter_gather_bound_ms_per_batch"],
             "l2_warm_ms": sum(r["l2_warm_ms"] for r in k2_path),
             "call_ms": sum(r["call_ms"] for r in k2_path),
+            # an almost empty launch under torch.profiler: the floor of the
+            # in-pass times
+            "launch_floor_ms": floor["sorted_scatter_gather"]["median_ms"],
             # bench.py's bench_spmm_kernel shapes (N 81,920, E 983,040, F 16)
             "bench_shapes": {k: k2_bench[k] for k in ("E", "N", "F", "ms", "plain_ms",
                                                        "library_ms", "bound_ms", "l2_warm_ms",
                                                        "call_ms")},
             "shapes": [{k: r[k] for k in ("case", "E", "E_valid", "N", "F", "ms", "plain_ms",
-                                          "library_ms", "bound_ms", "l2_warm_ms", "call_ms")}
+                                          "library_ms", "bound_ms", "l2_warm_ms", "call_ms",
+                                          *k2_plans)}
                        for r in k2_path],
         },
     ]}

@@ -42,12 +42,20 @@ _SIGNATURES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
+        "sorted_segment_sum_plan": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+        ),
     },
     "sorted_scatter_gather": {
         "sorted_scatter_gather_f32": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ),
+        "sorted_scatter_gather_plan": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
         ),
     },
     "fused_gin_conv": {

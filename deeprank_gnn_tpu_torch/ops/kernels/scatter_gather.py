@@ -10,15 +10,19 @@ onto each edge of the row, 0 for an edge outside every row's run (padding).
 
 The JAX package's models leave this composition to XLA; in the port it
 carries the denominator of the sparse attention softmax
-(``ops.segment.segment_softmax(..., row_ptr=...)``), at F = 1. The kernel
-(``ops/csrc/sorted_scatter_gather.cu``) is bound by bytes: it reads each
-valid input row once and writes ``out`` and ``d2`` once, ~0.6 MB per conv1
-softmax of a served batch (~0.2 us at 3.35 TB/s), so launch latency will
-dominate there.
+(``ops.segment.segment_softmax(..., row_ptr=...)``) and its gradient, at
+F = 1. The kernel (``ops/csrc/sorted_scatter_gather.cu``) is bound by bytes:
+it reads each valid input row once and writes ``out`` and ``d2`` once, ~0.6
+MB per conv1 softmax of a served batch (~0.2 us at 3.35 TB/s). At F = 1 a
+block of one warp owns 32 consecutive rows, stages their contiguous span of
+edges in shared-memory tiles with coalesced loads, sums each run in edge
+order there and writes each row's sum over its run of ``d2``; other widths
+take a group of lanes per row. :func:`launch_plan` reports the launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -83,3 +87,23 @@ def sorted_scatter_gather(
         raise RuntimeError(f"sorted_scatter_gather launch failed: CUDA error {err}")
     LAUNCHES[NAME] += 1
     return out, d2
+
+
+def launch_plan(device, n: int, f: int) -> dict:
+    """The launch :func:`sorted_scatter_gather` makes on ``device`` for
+    ``N`` rows of ``F`` columns: ``path`` ("tiles" at F = 1, else "lanes"),
+    ``rows_per_block``, ``tile_edges`` (edges staged per shared-memory tile;
+    0 on the lane path), ``blocks`` (the rows' blocks and the padding's
+    zero-fill blocks), ``smem_bytes`` per block, ``blocks_per_sm`` resident
+    and ``threads`` per block."""
+    lib = build.load(NAME)
+    plan = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = lib.sorted_scatter_gather_plan(n, f, plan)
+    if err != 0:
+        raise RuntimeError(f"sorted_scatter_gather_plan: CUDA error {err}")
+    keys = ("path", "rows_per_block", "tile_edges", "blocks", "smem_bytes", "blocks_per_sm",
+            "threads")
+    out = dict(zip(keys, plan))
+    out["path"] = ("tiles", "lanes")[out["path"]]
+    return out

@@ -6,16 +6,19 @@ built on the host by ``collate``): ``row_ptr[n]`` is the first edge of row
 ``n``, ``row_ptr[N]`` the end of the valid edges; padding edges lie past it
 and drop out, and an empty row gives 0.
 
-The kernel (``ops/csrc/sorted_segment_sum.cu``) is bound by bytes: one warp
-per output row sums its contiguous run of edges, so it moves each valid
-input row once and each output row once. On the serving path that is ~10.4
-MB per conv1 call (~3.1 us at 3.35 TB/s) and at most ~17.3 MB per conv2
-call (<= 5.2 us); launch latency likely dominates at these sizes, and
-making the kernel fast is a later change.
+The kernel (``ops/csrc/sorted_segment_sum.cu``) is bound by bytes: it moves
+each valid input row once and each output row once, ~10.4 MB per conv1 call
+of the serving path (~3.1 us at 3.35 TB/s). A group of lanes sized to F
+sums each output row's contiguous run of edges, each lane a float2 or a
+float4 of columns (float2 while the grid stays within 3/4 of the card's
+resident threads), with 64 bytes of loads in flight; every column is summed
+in ascending edge order, so the result is bitwise the plain version's on
+the CPU. :func:`launch_plan` reports the launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -107,6 +110,26 @@ def sorted_segment_sum(data: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tenso
         raise RuntimeError(f"sorted_segment_sum launch failed: CUDA error {err}")
     LAUNCHES[NAME] += 1
     return out
+
+
+def launch_plan(data: torch.Tensor, row_ptr: torch.Tensor) -> dict:
+    """The launch :func:`sorted_segment_sum` makes for ``data [E, F]`` and
+    ``row_ptr [N+1]`` on their CUDA device: ``vec`` (columns a lane reads
+    per load: 2 or 4 where F and ``data``'s alignment allow, else 1),
+    ``lanes_per_row`` (the smallest power of two at or above F / ``vec``, at
+    most 32), ``rows_per_block``, ``blocks``, ``loads_in_flight`` (edges a
+    lane loads before it adds them) and ``blocks_per_sm`` resident."""
+    lib = build.load(NAME)
+    plan = (ctypes.c_int * 6)()
+    ptr = data.data_ptr()
+    align = 16 if ptr % 16 == 0 else 8 if ptr % 8 == 0 else 4
+    with torch.cuda.device(data.device):
+        err = lib.sorted_segment_sum_plan(row_ptr.shape[0] - 1, data.shape[1], align, plan)
+    if err != 0:
+        raise RuntimeError(f"sorted_segment_sum_plan: CUDA error {err}")
+    keys = ("vec", "lanes_per_row", "rows_per_block", "blocks", "loads_in_flight",
+            "blocks_per_sm")
+    return dict(zip(keys, plan))
 
 
 def sorted_segment_sum_backward(grad: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -60,27 +60,33 @@ class SortedSegmentSum(torch.autograd.Function):
 class SortedScatterGather(torch.autograd.Function):
     """K2 with its gradient, the JAX package's ``_sg_bwd``
     (``ops/pallas/segment.py:354-364``): ``d2 = out[rows]``, so
-    ``dout = g_out + K1(g_d2)``, and ``ddata = dout[rows]``, 0 at padding.
-    The K1 launch is the kernel; the gather is plain torch, as in K1's
-    backward. An output the caller does not use gets no cotangent (None),
-    which counts as zero without a tensor being made for it."""
+    ``dout = g_out + segment_sum(g_d2)`` and ``ddata = dout[rows]``, 0 at
+    padding. An output the caller does not use gets no cotangent (None),
+    which counts as zero without a tensor being made for it. With only the
+    ``d2`` cotangent (the softmax path) the gradient is
+    ``segment_sum(g_d2)[rows]``, 0 at padding: exactly K2's ``d2`` on
+    ``g_d2``, so it is one K2 launch. With both, the sum is one K1 launch and
+    the gather plain torch, as in K1's backward."""
 
     @staticmethod
     def forward(ctx, data, row_ptr):
         ctx.set_materialize_grads(False)
         if ctx.needs_input_grad[0]:
-            ctx.save_for_backward(row_ptr, rows_from_row_ptr(row_ptr, data.shape[0]))
+            ctx.save_for_backward(row_ptr)
+            ctx.num_edges = data.shape[0]
         return sorted_scatter_gather(data, row_ptr)
 
     @staticmethod
     def backward(ctx, g_out, g_d2):
-        row_ptr, rows = ctx.saved_tensors
+        (row_ptr,) = ctx.saved_tensors
+        if g_out is None:
+            if g_d2 is None:
+                return None, None
+            return sorted_scatter_gather(g_d2.contiguous(), row_ptr)[1], None
         dout = g_out
         if g_d2 is not None:
-            scattered = sorted_segment_sum(g_d2.contiguous(), row_ptr)
-            dout = scattered if dout is None else dout + scattered
-        if dout is None:
-            return None, None
+            dout = dout + sorted_segment_sum(g_d2.contiguous(), row_ptr)
+        rows = rows_from_row_ptr(row_ptr, ctx.num_edges)
         return sorted_segment_sum_backward(dout, rows), None
 
 

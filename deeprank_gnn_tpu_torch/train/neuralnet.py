@@ -21,7 +21,9 @@ reference engine's API (reference `NeuralNet.py:18-26`)::
 - best/last checkpoints with the reference's file names and format
   (`:326-355`, ``train/checkpoint.py``), epoch-data HDF5 export
   (`:827-872`); a pretrained load restores the configuration and the Adam
-  moments of either checkpoint flavour and can resume training;
+  moments of either checkpoint flavour, and the dropout generator's state
+  of a port checkpoint saved on the same device type, and can resume
+  training;
 - clusters are computed into the file when it lacks them (quirk Q8,
   ``precluster_mode``).
 
@@ -65,6 +67,9 @@ from deeprank_gnn_tpu_torch.train.metrics import Metrics
 
 REG_TARGETS = ("irmsd", "lrmsd", "fnat", "dockQ")
 CLASS_TARGETS = ("bin_class", "capri_classes")
+# the checkpoint key of the dropout generator's state (the JAX package keeps
+# its PRNG key under "rng" and ignores this one)
+DROPOUT_KEY = "dropout_generator"
 
 
 def _unported(what: str, where: str) -> NotImplementedError:
@@ -273,10 +278,12 @@ class NeuralNet:
     def load_pretrained_model(self, database, Net) -> None:
         """Test loader, and a shuffled train loader over the same data so
         that a reloaded checkpoint can go on training (the reference can
-        only test after a reload)."""
+        only test after a reload). The test loader has one bucket whatever
+        ``num_buckets`` is, as in the JAX package, so graphs are scored in
+        the dataset's order."""
         test_dataset = self._make_dataset(database)
         self._maybe_precluster(test_dataset)
-        self.test_loader = self._loader(test_dataset, num_buckets=self.num_buckets)
+        self.test_loader = self._loader(test_dataset)
         self.train_loader = self._loader(test_dataset, shuffle=True, seed=self.seed)
         self.valid_loader = None
         print("Test set loaded")
@@ -286,8 +293,11 @@ class NeuralNet:
     def build_model(self, dataset, Net) -> None:
         """The network on the engine's device (reference
         `put_model_to_device`, `NeuralNet.py:195-237`), drawn from ``seed``
-        or loaded from the pending checkpoint, and its Adam optimizer
-        (with the checkpoint's moments, when it has some that fit)."""
+        or loaded from the pending checkpoint, its Adam optimizer (with the
+        checkpoint's moments, when it has some that fit) and the dropout
+        generator (seeded from ``seed``, or the checkpoint's saved state
+        when it was saved on the same device type, as the JAX package
+        carries on from its saved PRNG key)."""
         self.num_edge_features = len(self.edge_feature)
         num_features = dataset.get(0).num_features
         if self.task == "reg":
@@ -321,6 +331,15 @@ class NeuralNet:
                 "optimizer state in checkpoint does not match the current "
                 "optimizer; starting moments fresh"
             )
+        saved = payload.get(DROPOUT_KEY)
+        if saved is not None and saved["device"] == self.device.type:
+            self._dropout_generator.set_state(
+                torch.from_numpy(np.array(saved["state"], dtype=np.uint8)))
+        else:
+            why = ("the checkpoint holds no dropout generator state" if saved is None else
+                   f"the checkpoint's dropout generator state is for {saved['device']}, "
+                   f"not {self.device.type}")
+            print(f"{why}; dropout seeded from seed {self.seed}")
 
     def set_loss(self) -> None:
         """Select loss; compute inverse-frequency class weights if asked
@@ -555,7 +574,7 @@ class NeuralNet:
             if database_test is not None:
                 test_dataset = self._make_dataset(database_test)
                 self._maybe_precluster(test_dataset)
-                self.test_loader = self._loader(test_dataset, num_buckets=self.num_buckets)
+                self.test_loader = self._loader(test_dataset)  # one bucket, as in JAX
                 print("Test set loaded")
             self.data = {}
             _out, _out_m, _y, _test_loss, self.data["test"] = self._run_pass(
@@ -614,9 +633,12 @@ class NeuralNet:
     def save_model(self, filename: str = "model.pth.tar") -> None:
         """Write a reference-format torch checkpoint (``model`` a state
         dict, ``optimizer`` the torch Adam state), with the JAX package's
-        resume keys (loss and accuracy history). Lands in ``outdir``
-        unless ``filename`` has a directory. It holds no ``rng`` entry: the
-        JAX package would read one as its PRNG key."""
+        resume keys (loss and accuracy history) and the dropout generator's
+        state and device type under ``DROPOUT_KEY`` (a uint8 numpy array,
+        which both packages' loaders read), so that a reloaded engine on the
+        same device type goes on with the same dropout stream. Lands in
+        ``outdir`` unless ``filename`` has a directory. It holds no ``rng``
+        entry: the JAX package would read one as its PRNG key."""
         if not os.path.dirname(filename):
             filename = os.path.join(self.outdir, filename)
         state = {
@@ -641,6 +663,10 @@ class NeuralNet:
             "valid_loss": list(getattr(self, "valid_loss", [])),
             "train_acc": list(getattr(self, "train_acc", [])),
             "valid_acc": list(getattr(self, "valid_acc", [])),
+            DROPOUT_KEY: {
+                "device": self._dropout_generator.device.type,
+                "state": self._dropout_generator.get_state().numpy(),
+            },
         }
         ckpt.save_state(filename, state)
 

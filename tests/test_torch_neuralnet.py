@@ -135,6 +135,32 @@ def test_pretrained_classifier_matches_jax(db, tmp_path):
     assert_served_alike(j, t, 1, str(tmp_path))
 
 
+@pytest.mark.parametrize("where", ["pretrained", "database_test"])
+def test_test_loader_keeps_dataset_order_with_buckets(db, tmp_path, where):
+    """With ``num_buckets=2`` the JAX package still scores the test set with
+    one bucket, in the file's order, both for the loader a pretrained load
+    builds and for ``test(database_test=)``; the port does the same: the
+    same ``test_out`` order and values (rtol 2e-4, atol 1e-5) and the same
+    exported ``mol`` order, over 10 graphs at batch size 4 (two buckets of
+    graphs by node count)."""
+    from deeprank_gnn_tpu import NeuralNet as JaxNeuralNet
+    from deeprank_gnn_tpu.models import GINet as JaxGINet
+    from deeprank_gnn_tpu_torch import GINet, NeuralNet
+
+    ckpt = jax_checkpoint(db, str(tmp_path / "model.pth.tar"), "fnat")
+    j = JaxNeuralNet(db, JaxGINet, pretrained_model=ckpt, num_buckets=2,
+                     outdir=str(tmp_path / "jax"))
+    t = NeuralNet(db, GINet, pretrained_model=ckpt, num_buckets=2,
+                  outdir=str(tmp_path / "torch"), device="cpu")
+    assert t.batch_size == 4 and len(t.test_loader.dataset) == 10
+    kw = {"database_test": db} if where == "database_test" else {}
+    j.test(threshold=0.3, **kw)
+    t.test(threshold=0.3, **kw)
+    assert t.data["test"]["mol"] == j.data["test"]["mol"] == sorted(t.data["test"]["mol"])
+    np.testing.assert_allclose(t.test_out, j.test_out, **TOL)
+    np.testing.assert_allclose(t.test_loss, j.test_loss, **TOL)
+
+
 def test_in_memory_graphs_score_like_the_file(db, tmp_path):
     from deeprank_gnn_tpu_torch import GINet, GraphListDataSet, NeuralNet
     from test_torch_data import graphs

@@ -6,9 +6,11 @@ sorted_scatter_gather``, as ``tests/test_pallas_sorted.py`` runs it),
 forward and VJP, with padding rows, empty rows and a run across the Pallas
 kernel's block boundary. The sums agree at rtol 2e-4, atol 1e-5 (the
 summation order differs), gradients at rtol 5e-4; ``d2`` is bitwise
-``out[rows]``, 0 at padding. The CUDA kernel itself is checked on the card
-by ``chip_smoke.py``; ``test_k2_cuda_matches_plain`` runs it where a card
-is present.
+``out[rows]``, 0 at padding. The plain version sums each row in ascending
+edge order, bitwise a loop over the edges, and so does the kernel. The CUDA
+kernel itself is checked on the card by ``chip_smoke.py``, bitwise against
+the plain version on the CPU; ``test_k2_cuda_matches_plain`` runs it where a
+card is present.
 """
 
 import numpy as np
@@ -132,6 +134,81 @@ def test_k2_vjp_matches_jax_interpret():
         assert not x.grad[e_valid:].any()  # padding edges get no gradient
 
 
+@pytest.mark.parametrize("padding", ["leading", "trailing"])
+def test_k2_plain_sums_in_edge_order(padding):
+    """At F = 1, the softmax's width, the plain version on the CPU sums each
+    row in ascending edge order: ``out`` bitwise a loop over the edges from
+    0, ``d2`` bitwise ``out[rows]`` and 0 at padding, with random values, an
+    8,000-edge run (longer than the kernel's shared-memory tile), empty rows
+    and padding before the first row's run or after the last. The kernel
+    sums in the same order, so the card's check holds it to the plain
+    version on the CPU bitwise."""
+    from deeprank_gnn_tpu_torch.ops.kernels.scatter_gather import sorted_scatter_gather
+    from test_torch_segment import edge_order_sum, long_run_rows
+
+    rng = np.random.default_rng(31)
+    n = 1500
+    lead, trail = (300, 0) if padding == "leading" else (0, 777)
+    rows = long_run_rows(rng, n, lead, trail)
+    ptr = csr(rows, n)
+    data = rng.standard_normal((len(rows), 1)).astype(np.float32)
+    out, d2 = (a.numpy() for a in sorted_scatter_gather(torch.from_numpy(data),
+                                                        torch.from_numpy(ptr)))
+    want = edge_order_sum(data, ptr)
+    np.testing.assert_array_equal(out.view(np.int32), want.view(np.int32))
+    valid = (rows >= 0) & (rows < n)
+    np.testing.assert_array_equal(d2[valid].view(np.int32), want[rows[valid]].view(np.int32))
+    assert not d2[~valid].any() and (~valid).sum() == lead + trail
+
+
+@pytest.mark.parametrize("cotangents", ["d2", "both", "out"])
+def test_k2_backward_routes(monkeypatch, cotangents):
+    """``SortedScatterGather.backward`` with only the ``d2`` cotangent (the
+    softmax path) is one K2 call on it and no K1 call; with both it is one
+    K1 call and no K2 call (then the gather); with only ``out``'s, neither.
+    The gradient is bitwise the JAX ``_sg_bwd`` composition computed with
+    K1's plain version: ``(g_out + segment_sum(g_d2))[rows]``, 0 at
+    padding."""
+    from deeprank_gnn_tpu_torch.ops import segment
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import (
+        sorted_segment_sum_backward,
+        sorted_segment_sum_plain,
+    )
+
+    calls = []
+    real_k1, real_k2 = segment.sorted_segment_sum, segment.sorted_scatter_gather
+    monkeypatch.setattr(segment, "sorted_segment_sum",
+                        lambda d, p: calls.append("K1") or real_k1(d, p))
+    monkeypatch.setattr(segment, "sorted_scatter_gather",
+                        lambda d, p: calls.append("K2") or real_k2(d, p))
+    rng = np.random.default_rng(4)
+    n, e_valid, e_pad = 200, 700, 760
+    rows = sorted_rows(rng, n, e_valid, e_pad, long_run=True)
+    ptr = torch.from_numpy(csr(rows, n))
+    data = torch.from_numpy(rng.standard_normal((e_pad, 1)).astype(np.float32))
+    g_out = torch.from_numpy(rng.standard_normal((n, 1)).astype(np.float32))
+    g_d2 = torch.from_numpy(rng.standard_normal((e_pad, 1)).astype(np.float32))
+    x = data.clone().requires_grad_(True)
+    out, d2 = segment.SortedScatterGather.apply(x, ptr)
+    assert calls == ["K2"]  # the forward
+    calls.clear()
+    loss = 0.0
+    if cotangents in ("d2", "both"):
+        loss = loss + (d2 * g_d2).sum()
+    if cotangents in ("out", "both"):
+        loss = loss + (out * g_out).sum()
+    loss.backward()
+    assert calls == {"d2": ["K2"], "both": ["K1"], "out": []}[cotangents]
+    dout = torch.zeros((n, 1))
+    if cotangents != "out":
+        dout = sorted_segment_sum_plain(g_d2, ptr)
+    if cotangents != "d2":
+        dout = g_out if cotangents == "out" else g_out + dout
+    want = sorted_segment_sum_backward(dout, torch.from_numpy(rows))
+    assert torch.equal(x.grad, want)
+    assert not x.grad[e_valid:].any()
+
+
 def test_k2_wrapper_never_falls_back():
     """Only a CPU tensor takes the plain version. Off the CPU the kernel
     path's own checks run (on meta tensors, which need no card) and a
@@ -178,8 +255,8 @@ def test_k2_cuda_matches_plain():
         torch.cuda.synchronize()
         assert LAUNCHES["sorted_scatter_gather"] == before + 2
         assert torch.equal(a_out, b_out) and torch.equal(a_d2, b_d2)
-        want_out, want_d2 = sorted_scatter_gather_plain(data, ptr)
-        torch.testing.assert_close(a_out, want_out, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(a_d2, want_d2, rtol=1e-5, atol=1e-5)
+        want_out, want_d2 = sorted_scatter_gather_plain(data.cpu(), ptr.cpu())
+        # both sum in edge order
+        assert torch.equal(a_out.cpu(), want_out) and torch.equal(a_d2.cpu(), want_d2)
         assert torch.equal(a_d2[:4000], a_out[torch.from_numpy(rows[:4000]).cuda().long()])
         assert not a_d2[4000:].any()

@@ -4,7 +4,9 @@ K1's plain version is held against the JAX package's ``segment_sum`` (its
 XLA path on the CPU) and against the Pallas kernel in interpret mode, at
 atol = rtol = 1e-5 (the summation order differs). The CUDA kernel itself
 is checked on the card by ``chip_smoke.py``; ``test_k1_cuda_matches_plain``
-runs it where a card is present.
+runs it where a card is present. The plain version sums each row in
+ascending edge order, bitwise a loop over the edges, and so does the
+kernel: the card's checks compare the two bitwise.
 """
 
 import numpy as np
@@ -54,6 +56,45 @@ def test_k1_plain_matches_jax(f):
     # empty rows give 0, padding edges drop out
     assert (from_ptr[1::2] == 0).all()
     np.testing.assert_allclose(from_ptr.sum(0), data[:e_valid].sum(0), rtol=1e-4, atol=1e-3)
+
+
+def edge_order_sum(data, row_ptr):
+    """Each row's run summed as a loop over its edges in ascending order,
+    one float32 add per edge and column, from 0."""
+    out = np.zeros((len(row_ptr) - 1, data.shape[1]), dtype=np.float32)
+    for r in range(len(row_ptr) - 1):
+        acc = np.zeros(data.shape[1], dtype=np.float32)
+        for e in range(max(row_ptr[r], 0), row_ptr[r + 1]):
+            acc += data[e]
+        out[r] = acc
+    return out
+
+
+def long_run_rows(rng, n, lead, trail):
+    """Nondecreasing rows with 2 of 3 rows empty, one run of 8,000 edges and
+    ``lead`` edges before the first row's run and ``trail`` after the last
+    (rows -1 and n: padding)."""
+    rows = np.sort(rng.choice(np.arange(0, n, 3), 12000))
+    rows[:8000] = 3 * (n // 6)
+    return np.concatenate([np.full(lead, -1), np.sort(rows), np.full(trail, n)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("f", [1, 16, 32, 64])
+def test_k1_plain_sums_in_edge_order(f):
+    """The plain version on the CPU sums each row in ascending edge order:
+    bitwise the loop, with random values (so the order shows in the bits),
+    an 8,000-edge run, empty rows and leading and trailing padding. The
+    kernel sums in the same order, so the card's check holds it to the plain
+    version on the CPU bitwise."""
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import sorted_segment_sum
+
+    rng = np.random.default_rng(20 + f)
+    n = 1200
+    rows = long_run_rows(rng, n, lead=70, trail=130)
+    ptr = np.searchsorted(rows, np.arange(n + 1)).astype(np.int32)
+    data = rng.standard_normal((len(rows), f)).astype(np.float32)
+    got = sorted_segment_sum(torch.from_numpy(data), torch.from_numpy(ptr)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), edge_order_sum(data, ptr).view(np.int32))
 
 
 def test_segment_sum_routes_sorted_ids_to_k1(monkeypatch):
@@ -177,8 +218,8 @@ def test_k1_cuda_matches_plain():
         torch.cuda.synchronize()
         assert LAUNCHES["sorted_segment_sum"] == before + 2
         assert torch.equal(a, b)
-        want = sorted_segment_sum_plain(data, ptr_t, torch.from_numpy(rows).cuda())
-        torch.testing.assert_close(a, want, **TOL)
+        want = sorted_segment_sum_plain(data.cpu(), torch.from_numpy(ptr))
+        assert torch.equal(a.cpu(), want)  # both sum in edge order
 
 
 def _softmax_inputs(seed):

@@ -166,12 +166,32 @@ def test_jax_checkpoint_resumes_in_port(db, tmp_path, no_dropout, layout):
     np.testing.assert_allclose(t.train_loss, j.train_loss, **TOL)
 
 
-def test_port_checkpoint_resumes_in_port(db, tmp_path):
+def first_dropout_mask(nn):
+    """The mask of the engine's next dropout draw (GINet's rate, 256 units),
+    drawn from a copy of its generator."""
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.models.common import dropout
+
+    gen = torch.Generator(device=nn.device)
+    gen.set_state(nn._dropout_generator.get_state())
+    return dropout(torch.ones(256), GINet.dropout_rate, gen, True) != 0
+
+
+def test_port_checkpoint_resumes_in_port(db, tmp_path, capsys):
+    """Weights, Adam moments and the dropout generator's state come back
+    from a port checkpoint: the reloaded engine goes on with the saved
+    dropout stream (bitwise the state at save time), not the seed's. A
+    checkpoint without that state (a JAX one), or with one saved on another
+    device type, resumes seeded from ``seed`` and says so."""
+    from deeprank_gnn_tpu_torch.train.neuralnet import DROPOUT_KEY
+
     t = port_engine(db, str(tmp_path / "t"), target="fnat", batch_size=4, seed=7,
                     layout="dense")
+    fresh_mask = first_dropout_mask(t)
     t.train(nepoch=1)
+    saved_state = t._dropout_generator.get_state()  # train() saved the model last
     path = str(tmp_path / "t" / "treg_yfnat_b4_e1_lr0.01.pth.tar")
-    r = port_engine(db, str(tmp_path / "r"), pretrained_model=path, layout="dense")
+    r = port_engine(db, str(tmp_path / "r"), pretrained_model=path, layout="dense", seed=7)
     for (name, a), b in zip(t.model.state_dict().items(), r.model.state_dict().values()):
         assert torch.equal(a, b), name
     sa, sb = t.optimizer.state_dict()["state"], r.optimizer.state_dict()["state"]
@@ -179,8 +199,33 @@ def test_port_checkpoint_resumes_in_port(db, tmp_path):
     for i in sa:
         assert all(torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
                    for k in ("step", "exp_avg", "exp_avg_sq"))
+    assert torch.equal(r._dropout_generator.get_state(), saved_state)
+    assert not torch.equal(first_dropout_mask(r), fresh_mask)
+    assert "dropout seeded" not in capsys.readouterr().out
     r.train(nepoch=1)
     assert len(r.train_loss) == 2 and np.isfinite(r.train_loss).all()
+
+    # a state saved on another device type is not restored
+    payload = torch.load(path, weights_only=False)
+    assert payload[DROPOUT_KEY]["device"] == "cpu"
+    payload[DROPOUT_KEY]["device"] = "cuda"
+    other = str(tmp_path / "other.pth.tar")
+    torch.save(payload, other)
+    o = port_engine(db, str(tmp_path / "o"), pretrained_model=other, layout="dense", seed=7)
+    assert "state is for cuda, not cpu; dropout seeded from seed 7" in capsys.readouterr().out
+    assert torch.equal(first_dropout_mask(o), fresh_mask)
+
+    # a JAX-package checkpoint holds no such state and still resumes
+    jpath = str(tmp_path / "jax.pth.tar")
+    jax_engine(db, str(tmp_path / "j"), target="fnat", batch_size=4, seed=7,
+               layout="dense").save_model(jpath)
+    capsys.readouterr()
+    j = port_engine(db, str(tmp_path / "jr"), pretrained_model=jpath, layout="dense", seed=7)
+    assert ("the checkpoint holds no dropout generator state; dropout seeded from seed 7"
+            in capsys.readouterr().out)
+    assert torch.equal(first_dropout_mask(j), fresh_mask)
+    j.train(nepoch=1)
+    assert np.isfinite(j.train_loss).all()
 
 
 UNPORTED = [
