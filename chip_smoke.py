@@ -82,7 +82,23 @@ Phases, each of which raises on failure:
    per batch), FoutNet and sGAT in both layouts (K1 2 per sparse batch;
    their dense aggregations are plain torch), each served against its CPU
    run (one of two passes profiled) and trained 4 Adam steps against the
-   CPU and one epoch.
+   CPU and one epoch;
+8. the device store (``device_cache``) on the 2,048 graphs at batch 128:
+   every field of every batch of an unshuffled store epoch bitwise the
+   streamed batch on the card, without and with the precomputed operators
+   (with the store's build time, its bytes as ``estimate_store_bytes``
+   gives them and as ``torch.cuda.memory_allocated`` grows, and one
+   batch's gather time); paper-mode GINet trained on store batches without
+   the operators, which feed K3 (4 launches per training batch; the first
+   4 losses bitwise the streaming dense phase's); the operator path
+   (``NeuralNet(..., layout="dense", device_cache=True)``) served and
+   trained with every check of phases 4 and 5 and no hand kernel
+   launched; the chunked store (4 chunks: serving bitwise the resident
+   store's, a shuffled training epoch that sees every graph once, each
+   chunk's copy time on its side stream beside the host's time between
+   uploads); ``store_pack="bf16"`` serving within ``BF16_TOL`` of
+   lossless; and FoutNet and sGAT on the operator path (768 graphs),
+   against the CPU and their streaming dense runs.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -109,6 +125,9 @@ L2_FLUSH_BYTES = 256 << 20  # read before a cold call: 5x the 50 MB L2
 SPIN_CYCLES = 1_000_000  # ~0.5 ms of device spin that hides the host's launch
 TOL = dict(rtol=2e-4, atol=1e-5)
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+# bf16 store packing against lossless: the raw fp32 payloads (features and
+# the stored aggregations) keep 8 significant bits
+BF16_TOL = dict(rtol=5e-2, atol=5e-3)
 
 FOLD6_FEATURES = ["type", "polarity", "bsa", "charge", "cons", "ic", "pssm"]
 NODES_PER_GRAPH = 130
@@ -844,17 +863,19 @@ def launch_floor(reps: int = 200) -> dict:
 # the engine's passes
 
 
-def serve(dataset, ckpt: str, device: str, outdir: str, passes: int, layout: str, Net):
+def serve(dataset, ckpt: str, device: str, outdir: str, passes: int, layout: str, Net,
+          **engine_kw):
     """Score every graph ``passes`` times through the port's engine on
-    ``device``; returns the engine, the last pass's outputs and loss, and
-    per-pass wall times and launch counts."""
+    ``device`` (``engine_kw``: the store options); returns the engine, the
+    last pass's outputs and loss, and per-pass wall times and launch
+    counts. A store is built in the first pass."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
     nn = NeuralNet(dataset, Net, pretrained_model=ckpt, device=device, outdir=outdir,
-                   layout=layout)
+                   layout=layout, **engine_kw)
     walls, launches = [], []
     for _ in range(passes):
         LAUNCHES.clear()
@@ -959,22 +980,25 @@ def dense_bound_per_batch(loader, backward: bool) -> float:
 
 
 def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_batch: dict,
-                bounds=None, passes: int = 2) -> dict:
+                bounds=None, passes: int = 2, **engine_kw) -> dict:
     """Score ``dataset`` with ``Net`` from ``ckpt`` on the card (``passes``
     passes, launch counts cleared before each and read after: ``per_batch``
     launches per batch, nothing else) and once on the CPU: finite
     predictions that match the CPU's at ``TOL``. With ``bounds`` (a function
     of the test loader giving each kernel's bound per batch) one more pass
-    runs under ``torch.profiler``."""
+    runs under ``torch.profiler``. ``engine_kw`` (the store options) go to
+    both engines."""
     nn, pred, loss, walls, launches = serve(
-        dataset, ckpt, "cuda", os.path.join(tmp, f"serve_{label}"), passes, layout, Net)
+        dataset, ckpt, "cuda", os.path.join(tmp, f"serve_{label}"), passes, layout, Net,
+        **engine_kw)
     batches = len(nn.test_loader)
     where = None
     if bounds is not None:
         where = profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader,
                              bounds(nn.test_loader))
     _, pred_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
-        dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{label}_cpu"), 1, layout, Net)
+        dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{label}_cpu"), 1, layout, Net,
+        **engine_kw)
     log(f"serve {label}: {len(pred)} models in {batches} batches; pass walls (s) {walls} "
         f"-> models/s {[len(pred) / w for w in walls]}; loss {loss}")
     log(f"serve {label}: launches per pass {launches}; cpu pass {walls_cpu[0]} s, "
@@ -1037,7 +1061,7 @@ def first_steps(nn, steps: int):
 
 
 def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_batch: dict,
-                bounds=None) -> dict:
+                bounds=None, **engine_kw) -> dict:
     """Train ``Net`` at the paper's width, batch 128, percent [0.8, 0.2]:
     the first 4 Adam steps (dropout off) against the CPU's at ``TOL``; the
     epoch passes of ``train()`` with ``per_batch`` launches per training
@@ -1045,7 +1069,8 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     losses. With ``bounds`` (a function of the training loader giving each
     kernel's bound per batch) the whole check: two epochs, a second run
     from the same seed bitwise equal, a profiled warm epoch, and save,
-    reload and resume."""
+    reload and resume. ``engine_kw`` (the store options) go to every
+    engine."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
@@ -1053,7 +1078,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
     kw = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat",
-              batch_size=BATCH, percent=[0.8, 0.2], layout=layout, seed=seed)
+              batch_size=BATCH, percent=[0.8, 0.2], layout=layout, seed=seed, **engine_kw)
     full = bounds is not None
 
     def engine(device, name, **extra):
@@ -1102,7 +1127,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     if not np.isfinite(losses + valid).all():
         raise AssertionError(f"train {label}: losses {losses}, valid {valid}")
     res = {"walls": walls, "launches": launches[0], "where": None, "graphs": graphs,
-           "parity_max_abs": float(diff.max())}
+           "parity_max_abs": float(diff.max()), "parity_losses": card}
     if not full:
         return res
 
@@ -1124,7 +1149,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     path = os.path.join(tmp, f"{label}_a", "resume.pth.tar")
     a.save_model(path)
     r = NeuralNet(dataset, Net, pretrained_model=path, layout=layout, device="cuda",
-                  outdir=os.path.join(tmp, f"{label}_r"))
+                  outdir=os.path.join(tmp, f"{label}_r"), **engine_kw)
     if not all(torch.equal(v, r.model.state_dict()[k]) for k, v in a.model.state_dict().items()):
         raise AssertionError(f"train {label}: the reloaded weights differ")
     state = r.optimizer.state_dict()["state"]
@@ -1198,6 +1223,244 @@ def zoo_phase(dataset, tmp: str, seed: int) -> dict:
     log(f"serve attention: dense vs sparse on the card, max abs {diff.max()}")
     np.testing.assert_allclose(out["attention_dense"]["serve"]["pred"],
                                out["attention_sparse_small"]["serve"]["pred"], **TOL)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the device store
+
+
+def store_batches_check(dataset, precompute_ops: bool) -> dict:
+    """One unshuffled epoch of ``GraphLoader(device_cache=True)`` on the card
+    against the streaming loader with the same ``precompute_ops``: the same
+    molecules, and every field of every batch bitwise the streamed batch
+    moved to the card (the same dtype and shape; a field is None in both or
+    in neither). Also the store's build time and its bytes, as
+    ``estimate_store_bytes`` gives them and as ``torch.cuda.memory_allocated``
+    grows."""
+    import dataclasses
+
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.device_store import estimate_store_bytes
+
+    kw = dict(batch_size=BATCH, layout="dense", precompute_ops=precompute_ops)
+    streamed = GraphLoader(dataset, **kw)
+    stored = GraphLoader(dataset, device_cache=True, device="cuda", **kw)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if not stored._maybe_build_store():
+        raise AssertionError("the device store was not built")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated() - before
+    nf, ef = dataset.feature_dims()
+    estimate = estimate_store_bytes(len(dataset), num_features=nf, num_edge_features=ef,
+                                    precompute_ops=precompute_ops, **stored._dense_caps)
+    pairs = list(zip(streamed, stored))
+    if len(pairs) != len(streamed) or len(stored) != len(streamed):
+        raise AssertionError("store and streaming epochs differ in length")
+    fields = 0
+    for bi, ((sb, smols), (cb, cmols)) in enumerate(pairs):
+        if smols != cmols:
+            raise AssertionError(f"store batch {bi}: molecules differ")
+        if cb.x.device.type != "cuda":
+            raise AssertionError(f"store batch {bi} is on {cb.x.device}")
+        want, got = sb.to("cuda"), cb.to("cuda")
+        for f in dataclasses.fields(want):
+            a, b = getattr(want, f.name), getattr(got, f.name)
+            if (a is None) != (b is None):
+                raise AssertionError(f"store batch {bi} field {f.name}: None in one only")
+            if a is not None and (a.dtype != b.dtype or a.shape != b.shape
+                                  or not torch.equal(a, b)):
+                raise AssertionError(f"store batch {bi} field {f.name} differs")
+            fields += a is not None
+    # one batch's gather and unpack, eager (the host's launches included),
+    # and the packed bytes it reads
+    store, slots = stored._store, np.arange(BATCH)
+    gather_ms = call_ms(lambda: store.batch(slots, BATCH), iters=50, warmup=5)
+    res = {"precompute_ops": precompute_ops, "batches": len(pairs),
+           "fields_per_batch": fields // len(pairs), "build_s": build_s,
+           "estimate_bytes": estimate, "packed_bytes": store.nbytes,
+           "allocated_bytes": allocated, "gather_call_ms": gather_ms,
+           "gather_bytes": BATCH * store.nbytes // (len(dataset) + 1)}
+    log("store batches bitwise the streamed ones " + json.dumps(res))
+    return res
+
+
+def store_k3_check(dataset, seed: int, tmp: str, dense_parity: list) -> dict:
+    """Paper-mode GINet trained on store batches without the operators
+    (``precompute_ops=False``): they feed K3. The first 4 Adam steps
+    (dropout off) must be bitwise the streaming dense phase's, since the
+    batches and their order are the same; then one epoch with dropout on,
+    K3 4 launches per training batch."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    def engine(name):
+        nn = NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
+                       target="fnat", batch_size=BATCH, percent=[0.8, 0.2], layout="dense",
+                       seed=seed, device="cuda", outdir=os.path.join(tmp, f"store_k3_{name}"))
+        nn.train_loader = GraphLoader(nn.train_loader.dataset, batch_size=BATCH, shuffle=True,
+                                      seed=seed, layout="dense", device_cache=True,
+                                      precompute_ops=False, device="cuda")
+        return nn
+
+    rate = GINet.dropout_rate
+    GINet.dropout_rate = 0.0
+    try:
+        LAUNCHES.clear()
+        losses = first_steps(engine("parity"), PARITY_STEPS)
+        torch.cuda.synchronize()
+        steps_launches = dict(LAUNCHES)
+    finally:
+        GINet.dropout_rate = rate
+    log(f"store k3: first {PARITY_STEPS} losses {losses}, streaming dense {dense_parity}; "
+        f"launches {steps_launches}")
+    if losses != dense_parity:
+        raise AssertionError("store k3: losses are not bitwise the streaming dense phase's")
+    if steps_launches != {"fused_gin_conv": 4 * PARITY_STEPS}:
+        raise AssertionError(f"store k3: launched {steps_launches} in {PARITY_STEPS} steps")
+    nn = engine("epoch")
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    loss = nn._run_pass(nn.train_loader, training=True)[3]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    batches = len(nn.train_loader)
+    log(f"store k3: one epoch, {batches} batches in {wall} s (store build included), "
+        f"loss {loss}, launches {launches}")
+    if launches != {"fused_gin_conv": 4 * batches} or not np.isfinite(loss):
+        raise AssertionError(f"store k3 epoch: launches {launches}, loss {loss}")
+    return {"launches": launches, "walls": [wall], "where": None,
+            "graphs": len(nn.train_loader.dataset)}
+
+
+def chunked_check(dataset, ckpt: str, tmp: str, seed: int, store_pred) -> dict:
+    """``device_cache="chunked"`` with a budget of 4 batches a chunk (at
+    least 3 chunks): unshuffled serving bitwise that of
+    ``device_cache=True``, no hand kernel, the copies of the chunks on
+    their side stream beside the host's time per chunk; then a shuffled
+    training epoch that sees every graph once."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.device_store import estimate_store_bytes
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    nf, ef = dataset.feature_dims()
+    caps = GraphLoader(dataset, batch_size=BATCH, layout="dense")._dense_caps
+    per_slot = estimate_store_bytes(1, num_features=nf, num_edge_features=ef, **caps) // 2
+    budget = 2 * per_slot * (4 * BATCH + 1)
+    kw = dict(layout="dense", device="cuda", device_cache="chunked", device_cache_bytes=budget)
+    nn = NeuralNet(dataset, GINet, pretrained_model=ckpt, outdir=os.path.join(tmp, "chunked"),
+                   **kw)
+    t0 = time.perf_counter()
+    nn.test_loader._maybe_build_chunks()
+    build_s = time.perf_counter() - t0
+    cs = nn.test_loader._chunk_store
+    if cs.num_chunks < 3:
+        raise AssertionError(f"chunked: {cs.num_chunks} chunks")
+    uploads = []
+    upload = cs.upload
+
+    def timed_upload(ci):
+        # events around the copy on its side stream: the copy's device time
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(cs.copy_stream())
+        store = upload(ci)
+        end.record(cs.copy_stream())
+        uploads.append((time.perf_counter(), start, end))
+        return store
+
+    cs.upload = timed_upload
+    walls, launches = [], []
+    for _ in range(2):
+        uploads.clear()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = nn.eval(nn.test_loader)[0]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(dict(LAUNCHES))
+    pred = np.asarray(out, dtype=np.float64)
+    copy_ms = [s.elapsed_time(e) for _, s, e in uploads]
+    host_ms = [1e3 * (b[0] - a[0]) for a, b in zip(uploads, uploads[1:])]
+    log(f"chunked: {cs.num_chunks} chunks of {cs.chunk_nbytes} bytes (budget {budget}), "
+        f"built in {build_s} s; pass walls {walls}; launches {launches}; copy per chunk (ms, "
+        f"side stream) {copy_ms}; host between chunk uploads (ms) {host_ms}")
+    if any(launches) or not np.array_equal(pred, store_pred):
+        raise AssertionError(f"chunked serving: launches {launches}, max abs "
+                             f"{np.abs(pred - store_pred).max()} against device_cache=True")
+    t = NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
+                  target="fnat", batch_size=BATCH, percent=[0.8, 0.2], seed=seed,
+                  outdir=os.path.join(tmp, "chunked_train"), **kw)
+    data = t._run_pass(t.train_loader, training=True)[4]
+    want = sorted(t.train_loader.dataset.get(i).mol for i in range(len(t.train_loader.dataset)))
+    chunks = t.train_loader._chunk_store.num_chunks
+    log(f"chunked training epoch: {len(data['mol'])} graphs in {chunks} chunks")
+    if sorted(data["mol"]) != want:
+        raise AssertionError("chunked training epoch: not every graph exactly once")
+    return {"chunks": cs.num_chunks, "pred": pred, "walls": walls, "launches": launches[0],
+            "where": None, "copy_ms": copy_ms, "host_ms_between_uploads": host_ms}
+
+
+def store_phase(dataset, zoo, tmp: str, seed: int, dense_parity: list, served_dense,
+                zoo_out) -> dict:
+    """The device store (``device_cache``): store batches bitwise the
+    streamed ones; K3 on store batches; the operator path (the default with
+    the store) served and trained with every check of phases 4 and 5 and no
+    hand kernel; the chunked store; bf16 packing; FoutNet and sGAT on the
+    operator path."""
+    from deeprank_gnn_tpu_torch.models import FoutNet, GINet, sGAT
+
+    out = {"batches": [store_batches_check(dataset, False),
+                       store_batches_check(dataset, True)]}
+    t0 = time.perf_counter()
+    out["train_k3"] = store_k3_check(dataset, seed, tmp, dense_parity)
+    log(f"phase store k3: {time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
+    t0 = time.perf_counter()
+    out["serve"] = serve_check("store", GINet, dataset, ckpt, tmp, "dense", {}, lambda ld: {},
+                               device_cache=True)
+    diff = np.abs(out["serve"]["pred"] - served_dense["pred"])
+    log(f"serve store: operator path vs K3 path on the card, max abs {diff.max()}")
+    np.testing.assert_allclose(out["serve"]["pred"], served_dense["pred"], **TOL)
+    out["train"] = train_phase("store", GINet, dataset, "dense", seed, tmp, {}, lambda ld: {},
+                               device_cache=True)
+    log(f"phase store operators: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["chunked"] = chunked_check(dataset, ckpt, tmp, seed, out["serve"]["pred"])
+    _, pred, _loss, walls, launches = serve(dataset, ckpt, "cuda", os.path.join(tmp, "bf16"), 1,
+                                            "dense", GINet, device_cache=True, store_pack="bf16")
+    diff = np.abs(pred - out["serve"]["pred"])
+    log(f"serve store bf16: max abs {diff.max()} against lossless, max rel "
+        f"{(diff / np.maximum(np.abs(out['serve']['pred']), 1e-30)).max()}; launches {launches}")
+    np.testing.assert_allclose(pred, out["serve"]["pred"], **BF16_TOL)
+    log(f"phase store chunked and bf16: {time.perf_counter() - t0:.1f} s")
+    for label, net in (("foutnet", FoutNet), ("sgat", sGAT)):
+        t0 = time.perf_counter()
+        name = f"{label}_store"
+        ckpt = os.path.join(tmp, f"{name}.pth.tar")
+        write_checkpoint(ckpt, seed, net)
+        served = serve_check(name, net, zoo, ckpt, tmp, "dense", {}, lambda ld: {},
+                             device_cache=True)
+        diff = np.abs(served["pred"] - zoo_out[f"{label}_dense"]["serve"]["pred"])
+        log(f"serve {name}: operator path vs streaming dense on the card, max abs {diff.max()}")
+        np.testing.assert_allclose(served["pred"], zoo_out[f"{label}_dense"]["serve"]["pred"],
+                                   **TOL)
+        trained = train_phase(name, net, zoo, "dense", seed, tmp, {}, device_cache=True)
+        out[name] = {"serve": served, "train": trained}
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -1290,6 +1553,9 @@ def main(argv=None) -> int:
         att = attention_phase(dataset, tmp, args.seed)
         # 7. the other new paths
         zoo_out = zoo_phase(zoo, tmp, args.seed)
+        # 8. the device store
+        store = store_phase(dataset, zoo, tmp, args.seed, trained["dense"]["parity_losses"],
+                            served["dense"], zoo_out)
 
     k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
     k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
@@ -1370,6 +1636,9 @@ def main(argv=None) -> int:
             "train_ms_per_batch": t_dense["fused_gin_conv_ms_per_batch"],
             "train_bound_ms_per_batch": t_dense["fused_gin_conv_bound_ms_per_batch"],
             "serve_launches": served["dense"]["launches"]["fused_gin_conv"],
+            # a training epoch on device-store batches without the operators
+            # (the operator path itself runs no hand kernel)
+            "store_train_launches": store["train_k3"]["launches"]["fused_gin_conv"],
             "served_ms_per_batch": d_where["fused_gin_conv_ms_per_batch"],
             "served_bound_ms_per_batch": d_where["fused_gin_conv_bound_ms_per_batch"],
             "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
@@ -1423,6 +1692,11 @@ def main(argv=None) -> int:
     passes.update(serve_attention=att["serve"], train_attention=att["train"])
     for label, v in zoo_out.items():
         passes.update({f"serve_{label}": v["serve"], f"train_{label}": v["train"]})
+    passes.update(serve_store=store["serve"], train_store=store["train"],
+                  train_store_k3=store["train_k3"], serve_store_chunked=store["chunked"])
+    for label in ("foutnet_store", "sgat_store"):
+        passes.update({f"serve_{label}": store[label]["serve"],
+                       f"train_{label}": store[label]["train"]})
     summary = {}
     for label, v in passes.items():
         count = len(v["pred"]) if label.startswith("serve") else v["graphs"]
@@ -1430,6 +1704,7 @@ def main(argv=None) -> int:
                           "launches": v["launches"]}
         if v["where"] is not None:
             summary[label]["device_idle_share"] = v["where"]["device_idle_share"]
+    summary["store_bytes"] = store["batches"]
     log("summary " + json.dumps(summary))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

@@ -37,8 +37,7 @@ import numpy as np
 import torch
 
 from deeprank_gnn_tpu_torch.data.dataset import GraphSample
-
-_DEFERRED = "see ROADMAP.md, queue 1 (the device store)"
+from deeprank_gnn_tpu_torch.device import resolve_device
 
 
 class TensorFields:
@@ -49,6 +48,7 @@ class TensorFields:
         return self.x.device
 
     def _map(self, fn):
+        # fields that are None (the dense batch's optional operators) stay so
         changes = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -57,13 +57,14 @@ class TensorFields:
         return dataclasses.replace(self, **changes)
 
     def to(self, device, non_blocking: bool = False):
-        """Every tensor moved to ``device``."""
+        """Every tensor moved to ``device`` (those already there stay)."""
         return self._map(lambda t: t.to(device, non_blocking=non_blocking))
 
     def pin_memory(self):
-        """Every tensor in page-locked host memory, so that a
-        ``non_blocking`` copy to the card is asynchronous."""
-        return self._map(lambda t: t.pin_memory())
+        """Every CPU tensor in page-locked host memory, so that a
+        ``non_blocking`` copy to the card is asynchronous; tensors already
+        on a card (a device-store batch) are left where they are."""
+        return self._map(lambda t: t.pin_memory() if t.device.type == "cpu" else t)
 
 
 @dataclass(frozen=True)
@@ -425,11 +426,24 @@ class GraphLoader:
     ``layout="dense"`` yields :class:`~deeprank_gnn_tpu_torch.data.
     dense_batch.DenseGraphBatch` batches (``collate_dense``) with
     per-graph capacities fixed over the dataset at construction, in the
-    same shuffle order; it has no buckets and keeps no padding statistics,
-    as in the JAX package.
+    same shuffle order; it has no buckets, and a streamed dense epoch keeps
+    no padding statistics, as in the JAX package.
 
-    Batches come out as CPU tensors; the engine moves them to its device
-    (`data/prefetch.py`).
+    ``device_cache`` (dense layout; JAX ``data/batch.py:432-500``): ``True``
+    packs the dense-collated dataset into ``device`` memory once
+    (``data/device_store.py``) and each batch is gathered there, in the
+    streamed epoch's shuffle order; when the store's estimate exceeds
+    ``device_cache_bytes`` the loader prints so and streams. ``"chunked"``
+    rotates a host-packed store through the device two chunks at a time
+    (chunk order shuffled, then the order within each chunk; batches never
+    span chunks). ``precompute_ops`` (default: on exactly when the cache
+    is) adds the precomputed operators to dense batches; ``store_pack``
+    ("lossless" or "bf16") packs the store. ``store_sharding`` is
+    multi-device and not ported yet.
+
+    Streamed batches come out as CPU tensors, which the engine moves to its
+    device (`data/prefetch.py`); store batches are already on ``device``,
+    apart from ``y`` and ``y_mask``, taken from the store's host copy.
     """
 
     def __init__(
@@ -447,18 +461,40 @@ class GraphLoader:
         num_buckets: int = 1,
         host_batch_slice: Optional[slice] = None,
         device_cache: bool = False,
+        device_cache_bytes: int = 2 * 1024**3,
+        store_sharding=None,
         precompute_ops: Optional[bool] = None,
+        store_pack: str = "lossless",
+        *,
+        device="cuda",
     ):
         if layout not in ("sparse", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
-        if device_cache:
-            raise NotImplementedError(f"device_cache: {_DEFERRED}")
-        if precompute_ops:
-            raise NotImplementedError(f"precompute_ops: {_DEFERRED}")
-        if host_batch_slice is not None:
+        if host_batch_slice is not None or store_sharding is not None:
             raise NotImplementedError(
-                "host_batch_slice: see ROADMAP.md, queue 1 (multi-device)"
+                "host_batch_slice and store_sharding: see ROADMAP.md, queue 1 (multi-device)"
             )
+        if device_cache not in (False, True, "chunked"):
+            raise ValueError("device_cache must be False, True or 'chunked'")
+        if device_cache and layout != "dense":
+            raise ValueError("device_cache requires layout='dense'")
+        if store_pack not in ("lossless", "bf16"):
+            raise ValueError("store_pack must be 'lossless' or 'bf16'")
+        # the device the store lives on: checked only when there is a store
+        self.device = resolve_device(device) if device_cache else torch.device(device)
+        self.device_cache = device_cache
+        self.device_cache_bytes = device_cache_bytes
+        self.store_pack = store_pack
+        # the operator fields default on with the store (built once) and
+        # off for streaming (host work and bytes every batch)
+        self._precompute_requested = precompute_ops is not None
+        if precompute_ops is None:
+            precompute_ops = bool(device_cache)
+        if precompute_ops and layout != "dense":
+            raise ValueError("precompute_ops requires layout='dense'")
+        self.precompute_ops = precompute_ops
+        self._store = None
+        self._chunk_store = None
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -499,6 +535,10 @@ class GraphLoader:
                 "eg": max(128, -(-max(s["e"] for s in sizes) // 128) * 128),
                 "c0g": max(8, -(-max(s["c0"] for s in sizes) // 8) * 8),
                 "c1g": max(8, -(-max(s["c1"] for s in sizes) // 8) * 8),
+                # member-table and tile-table capacities of the operators
+                "m0g": max(8, -(-max(s["m0"] for s in sizes) // 8) * 8),
+                "m1g": max(8, -(-max(s["m1"] for s in sizes) // 8) * 8),
+                "mt0g": max(1, max(s["mt0"] for s in sizes)),
             }
             # the pooled-edge capacity is bounded by the edge capacity
             self._dense_caps["pg"] = self._dense_caps["eg"]
@@ -599,8 +639,111 @@ class GraphLoader:
                 [s for _, s in pairs],
                 g_pad=self.batch_size,
                 plans=[self._get_plan(i, s) for i, s in pairs],
+                precompute_ops=self.precompute_ops,
                 **(self._dense_caps or {}),
             )
+
+    def _maybe_build_store(self) -> bool:
+        """Build the device store on first use; False when the dataset is
+        empty or the store's estimate exceeds the byte budget (then the
+        loader streams from here on, and drops the operators unless they
+        were asked for)."""
+        if self._store is not None:
+            return True
+        if self._dense_caps is None or len(self.dataset) == 0:
+            return False
+        from deeprank_gnn_tpu_torch.data.device_store import (
+            build_store_from_loader,
+            estimate_store_bytes,
+        )
+
+        nf, ef = self.dataset.feature_dims()
+        est = estimate_store_bytes(
+            len(self.dataset), num_features=nf, num_edge_features=ef,
+            precompute_ops=self.precompute_ops, pack=self.store_pack, **self._dense_caps,
+        )
+        if est > self.device_cache_bytes:
+            print(
+                f"device_cache: padded store ~{est / 1e9:.2f} GB exceeds "
+                f"budget {self.device_cache_bytes / 1e9:.2f} GB; streaming "
+                f"(device_cache='chunked' rotates it through HBM instead)"
+            )
+            self.device_cache = False
+            if not self._precompute_requested:
+                # the operators were on only because of the store; a
+                # streamed epoch does not pay their host work unasked
+                self.precompute_ops = False
+            return False
+        self._store = build_store_from_loader(self)
+        return self._store is not None
+
+    def _maybe_build_chunks(self) -> bool:
+        """Build the rotating chunk store (``device_cache="chunked"``),
+        chunks of half the byte budget."""
+        if self._chunk_store is not None:
+            return True
+        if self._dense_caps is None or len(self.dataset) == 0:
+            return False
+        from deeprank_gnn_tpu_torch.data.device_store import build_chunked_store_from_loader
+
+        self._chunk_store = build_chunked_store_from_loader(
+            self, chunk_bytes=max(1, self.device_cache_bytes // 2))
+        return self._chunk_store is not None
+
+    def _count_store_batch(self, counts_from, sel, batch) -> None:
+        st = self._epoch_stats
+        st["valid_edges"] += int(counts_from.edge_counts[sel].sum())
+        st["padded_edges"] += batch.edge_mask.numel()
+        st["valid_nodes"] += int(counts_from.node_counts[sel].sum())
+        st["padded_nodes"] += batch.node_mask.numel()
+        st["num_batches"] += 1
+
+    def _iter_chunked(self):
+        """Epoch over the rotating chunk store: the next chunk's copy is
+        started before the current chunk's batches are gathered."""
+        cs = self._chunk_store
+        corder = np.arange(cs.num_chunks)
+        if self.shuffle:
+            self._rng.shuffle(corder)
+        cur = cs.upload(int(corder[0]))
+        for pos, ci in enumerate(corder):
+            ci = int(ci)
+            nxt = cs.upload(int(corder[pos + 1])) if pos + 1 < len(corder) else None
+            start, clen = cs.chunk_ranges[ci]
+            local = np.arange(clen)
+            if self.shuffle:
+                self._rng.shuffle(local)
+            for bstart in range(0, clen, self.batch_size):
+                sel = local[bstart: bstart + self.batch_size]
+                if self.drop_last and len(sel) < self.batch_size:
+                    break
+                batch, mols = cs.batch(cur, ci, sel, self.batch_size)
+                self._count_store_batch(cs, start + sel, batch)
+                yield batch, mols
+            cur = nxt  # the chunk's matrices are freed once unreferenced
+        self._finish_epoch_stats()
+
+    def _iter_device(self):
+        """Epoch of batches gathered from the resident store, in the
+        streamed epoch's order."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        store = self._store
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start: start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                break
+            slots = np.asarray(
+                [store.slot_of_index[int(i)] for i in idx if int(i) in store.slot_of_index],
+                dtype=np.int64,
+            )
+            if len(slots) == 0:
+                continue
+            batch, mols = store.batch(slots, self.batch_size)
+            self._count_store_batch(store, slots, batch)
+            yield batch, mols
+        self._finish_epoch_stats()
 
     def _finish_epoch_stats(self) -> None:
         st = self._epoch_stats
@@ -618,7 +761,12 @@ class GraphLoader:
             "num_batches": 0,
         }
         if self.layout == "dense":
-            yield from self._iter_dense()
+            if self.device_cache == "chunked" and self._maybe_build_chunks():
+                yield from self._iter_chunked()
+            elif self.device_cache is True and self._maybe_build_store():
+                yield from self._iter_device()
+            else:
+                yield from self._iter_dense()
             return
         # per-bucket static shapes
         if self._buckets is not None:

@@ -143,6 +143,11 @@ class GraphListDataSet:
     def get_target(self, index: int) -> Optional[float]:
         return self.graphs[index].y
 
+    def feature_dims(self) -> Tuple[int, int]:
+        """(node_feature_dim, edge_feature_dim) of the first graph."""
+        g = self.graphs[0]
+        return g.num_features, g.edge_attr.shape[1]
+
 
 _FILTER_RE = re.compile(r"(>|<|>=|<=|==|!=)\s*([-+0-9.eE]+)")
 
@@ -320,6 +325,28 @@ class HDF5DataSet:
                 return None
             raw = grp["score/" + self.target][()]
             return None if raw is None else float(raw)
+
+    def feature_dims(self) -> Tuple[int, int]:
+        """(node_feature_dim, edge_feature_dim) from HDF5 shape metadata
+        only; no graph payload is read (JAX ``data/dataset.py:253``). The
+        device store sizes its all-padding slot from it."""
+        f, grp = self._first_mol_group()
+        try:
+            nf = sum(
+                1 if grp[f"node_data/{k}"].ndim == 1 else grp[f"node_data/{k}"].shape[1]
+                for k in self.node_feature
+            )
+            if self.edge_feature is None:
+                ef = 0
+            else:
+                raw = sum(
+                    1 if grp[f"edge_data/{k}"].ndim == 1 else grp[f"edge_data/{k}"].shape[1]
+                    for k in self.edge_feature
+                )
+                ef = self.edge_feature_transform(np.zeros((1, raw), dtype=np.float32)).shape[1]
+        finally:
+            f.close()
+        return nf, ef
 
     def create_index_molecules(self) -> None:
         import h5py

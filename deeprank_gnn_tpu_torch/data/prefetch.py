@@ -9,7 +9,10 @@ starts the ``non_blocking`` copy on its current stream and yields the
 batch. The copy and the kernels that read the batch are ordered on that
 one stream, so no event is needed; PyTorch's pinned-memory allocator keeps
 the host buffer alive until the copy has run. While the card works on
-batch k, the worker collates batch k+1.
+batch k, the worker collates batch k+1. A device-store batch
+(``data/device_store.py``) is gathered on the card by the worker, on the
+same default stream; only its host-side ``y`` and ``y_mask`` are pinned and
+copied, the rest is not copied again.
 """
 
 from __future__ import annotations

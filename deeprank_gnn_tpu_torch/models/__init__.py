@@ -4,4 +4,6 @@ from deeprank_gnn_tpu_torch.models.foutnet import FoutNet
 from deeprank_gnn_tpu_torch.models.ginet import GINet
 from deeprank_gnn_tpu_torch.models.sgat import sGAT
 
-__all__ = ["GINet", "FoutNet", "sGAT"]
+MODELS = {"GINet": GINet, "FoutNet": FoutNet, "sGAT": sGAT}
+
+__all__ = ["GINet", "FoutNet", "sGAT", "MODELS"]

@@ -113,14 +113,6 @@ class SingleTowerNet(nn.Module):
         ``generator`` is unused: the net has no dropout."""
         batch = batch.to(self.device)
         if isinstance(batch, DenseGraphBatch):
-            # the JAX package's branches on precomputed operators (FoutNet's
-            # agg_x, sGAT's wagg_x) are not ported; collate_dense cannot make
-            # such a batch yet
-            if getattr(batch, "agg_x", None) is not None or getattr(batch, "wagg_x", None) is not None:
-                raise NotImplementedError(
-                    "precomputed dense operators are not ported yet: see ROADMAP.md, "
-                    "queue 1 (the device store)"
-                )
             h = self._pooled_dense(batch)
         else:
             h = self._pooled(batch)

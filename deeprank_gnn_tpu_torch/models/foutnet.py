@@ -12,7 +12,10 @@ and the port give 0 there. There is no dropout (reference `foutnet.py:123`
 is dead code).
 
 On a ``DenseGraphBatch`` the neighbor mean is the dense edge-to-slot mean
-(``ops/dense.py``), the JAX package's streaming branch.
+(``ops/dense.py``), the JAX package's streaming branch, or, when the batch
+carries the precomputed operators, the stored sum aggregation ``agg_x``
+divided by the in-degree at level 1 and the stored pooled adjacency at
+level 2 (JAX ``foutnet.py:118-138``).
 """
 
 from __future__ import annotations
@@ -26,10 +29,11 @@ from deeprank_gnn_tpu_torch.data.batch import GraphBatch
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 from deeprank_gnn_tpu_torch.models.common import SingleTowerNet, uniform_init
 from deeprank_gnn_tpu_torch.ops.dense import (
+    adj_conv,
+    cluster_max_pool,
     edge_mean_to_slots,
     gather_nodes,
     masked_mean,
-    slot_max_pool,
 )
 from deeprank_gnn_tpu_torch.ops.pooling import (
     community_pooling_x,
@@ -94,11 +98,23 @@ class FoutNet(SingleTowerNet):
 
     def _pooled_dense(self, batch: DenseGraphBatch) -> torch.Tensor:
         c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
-        h = torch.relu(fout_layer_dense(self.conv1, batch.x, batch.row, batch.col,
-                                        batch.x.shape[1]))
-        hp = slot_max_pool(h, batch.assign0, c0g)
-        h2 = torch.relu(fout_layer_dense(self.conv2, hp, batch.pe_row, batch.pe_col, c0g))
-        return masked_mean(slot_max_pool(h2, batch.assign1, c1g), batch.pool1_mask)
+        if batch.agg_x is not None:
+            # the neighbor mean is the sum operator over the in-degree, and
+            # both commute with the Wn projection
+            c1, c2 = self.conv1, self.conv2
+            mean_x = batch.agg_x / torch.clamp(batch.deg0, min=1.0)[..., None]
+            h = torch.relu(batch.x @ c1.Wc + mean_x @ c1.Wn + c1.bias)
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
+            deg1 = torch.clamp(batch.adj1.to(torch.float32).sum(dim=-1), min=1.0)
+            h2 = torch.relu(hp @ c2.Wc + adj_conv(hp @ c2.Wn, batch.adj1) / deg1[..., None]
+                            + c2.bias)
+        else:
+            h = torch.relu(fout_layer_dense(self.conv1, batch.x, batch.row, batch.col,
+                                            batch.x.shape[1]))
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
+            h2 = torch.relu(fout_layer_dense(self.conv2, hp, batch.pe_row, batch.pe_col, c0g))
+        return masked_mean(cluster_max_pool(h2, batch.assign1, c1g, batch.mem1_idx),
+                           batch.pool1_mask)
 
     def _pooled(self, batch: GraphBatch) -> torch.Tensor:
         n, c0, c1 = batch.num_nodes, batch.num_clusters0, batch.num_clusters1

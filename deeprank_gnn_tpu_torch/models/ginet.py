@@ -26,8 +26,13 @@ four unfused. The attention softmax takes its denominator from the sorted
 scatter-gather kernel (K2), once per conv and tower. On a
 ``DenseGraphBatch`` the paper-mode aggregations run as the per-graph GIN
 aggregation kernel (K3), twice per batch fused; the attention conv runs the
-dense edge-to-slot ops (``ops/dense.py``), and pooling is a max by
-assignment per graph. Both layouts give the same numbers.
+dense edge-to-slot ops (``ops/dense.py``), and pooling is the
+``cluster_max_pool`` dispatch. A dense batch with precomputed operators
+(``collate_dense(precompute_ops=True)``, the device store) takes the
+operator path in paper mode: level 1 is one product of the stored
+aggregation with both towers' weights and a tiled pool, level 2 the stored
+pooled adjacency (``adj_conv``); no hand kernel runs there. Both layouts
+and both dense paths give the same numbers.
 """
 
 from __future__ import annotations
@@ -49,11 +54,13 @@ from deeprank_gnn_tpu_torch.models.common import (
     uniform_init,
 )
 from deeprank_gnn_tpu_torch.ops.dense import (
+    adj_conv,
+    cluster_max_pool,
     dense_segment_softmax,
     edge_sum_to_slots,
     gather_nodes,
     masked_mean,
-    slot_max_pool,
+    tiled_cluster_max_pool,
 )
 from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv
 from deeprank_gnn_tpu_torch.ops.pooling import (
@@ -232,24 +239,41 @@ class GINet(nn.Module):
         return graph_mean_pool(hq, batch.pool1_graph, batch.num_graphs)
 
     def _towers_dense_fused(self, batch: DenseGraphBatch) -> torch.Tensor:
-        """Dense-layout analog of :meth:`_towers_fused`: one K3 launch per
-        conv level at double width (the JAX package's branch without
-        precomputed operators). Returns [G, 64]."""
+        """Dense-layout analog of :meth:`_towers_fused` (JAX
+        ``models/ginet.py:225-291``). Returns [G, 64].
+
+        Level 1 takes the first of: the striped feature-major operator
+        ``agg_x_fm`` (one product ``relu(W_cat . agg_x_fm)`` for both towers,
+        since ``relu(P (x W)) == relu((P x) W)``, then the tiled pool), the
+        node-major operator ``agg_x``, or K3 on the edges. Level 2 applies
+        the stored pooled adjacency ``adj1`` when the batch has it, else
+        K3."""
         c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
-        xw = torch.cat(
-            [linear(batch.x, self.conv1.fc.weight),
-             linear(batch.x, self.conv1_ext.fc.weight)],
-            dim=-1,
-        )
-        h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
-        hp = slot_max_pool(h, batch.assign0, c0g)
+        if batch.agg_x_fm is not None:
+            w_cat = torch.cat([self.conv1.fc.weight, self.conv1_ext.fc.weight], dim=0)
+            h = torch.relu(torch.einsum("of,gfrt->gort", w_cat, batch.agg_x_fm))
+            hp = tiled_cluster_max_pool(h, batch.node_mask_fm, batch.tile_mem0,
+                                        batch.tile_assign0)
+        else:
+            src = batch.agg_x if batch.agg_x is not None else batch.x
+            h = torch.cat(
+                [linear(src, self.conv1.fc.weight), linear(src, self.conv1_ext.fc.weight)],
+                dim=-1,
+            )
+            if batch.agg_x is None:
+                h = fused_gin_conv(h, batch.row, batch.col)
+            h = torch.relu(h)
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
         hw = torch.cat(
             [linear(hp[..., :16], self.conv2.fc.weight),
              linear(hp[..., 16:], self.conv2_ext.fc.weight)],
             dim=-1,
         )
-        h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
-        hq = slot_max_pool(h2, batch.assign1, c1g)
+        if batch.adj1 is not None:
+            h2 = torch.relu(adj_conv(hw, batch.adj1))
+        else:
+            h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
+        hq = cluster_max_pool(h2, batch.assign1, c1g, batch.mem1_idx)
         return masked_mean(hq, batch.pool1_mask)
 
     def _tower_dense(
@@ -262,15 +286,15 @@ class GINet(nn.Module):
             pe_attr = edge_sum_to_slots(batch.edge_attr, batch.edge_to_pe, batch.pe_row.shape[1])
             h = torch.relu(ginet_conv_dense(
                 conv1, batch.x, batch.row, batch.col, batch.edge_attr, batch.x.shape[1]))
-            hp = slot_max_pool(h, batch.assign0, c0g)
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
             h2 = torch.relu(ginet_conv_dense(conv2, hp, batch.pe_row, batch.pe_col, pe_attr, c0g))
         else:
             xw = linear(batch.x, conv1.fc.weight)
             h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
-            hp = slot_max_pool(h, batch.assign0, c0g)
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
             hw = linear(hp, conv2.fc.weight)
             h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
-        hq = slot_max_pool(h2, batch.assign1, c1g)
+        hq = cluster_max_pool(h2, batch.assign1, c1g, batch.mem1_idx)
         return masked_mean(hq, batch.pool1_mask)
 
     def forward(

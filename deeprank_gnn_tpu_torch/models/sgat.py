@@ -11,7 +11,10 @@ sum kernel (K1): two launches per sparse batch. There is no dropout
 (reference `sGAT.py:136` is dead code).
 
 On a ``DenseGraphBatch`` the mean is the dense edge-to-slot mean
-(``ops/dense.py``), the JAX package's streaming branch.
+(``ops/dense.py``), the JAX package's streaming branch, or, when the batch
+carries the edge-weighted operators, ``xr * rowsum(ea) + (A_w x) Wc`` over
+the in-degree, from the stored ``wagg_x``, ``ea_rowsum0``, ``wadj1`` and
+``ea_rowsum1`` (JAX ``sgat.py:130-159``).
 """
 
 from __future__ import annotations
@@ -25,11 +28,11 @@ from deeprank_gnn_tpu_torch.data.batch import GraphBatch
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 from deeprank_gnn_tpu_torch.models.common import SingleTowerNet, uniform_init
 from deeprank_gnn_tpu_torch.ops.dense import (
+    cluster_max_pool,
     edge_mean_to_slots,
     edge_sum_to_slots,
     gather_nodes,
     masked_mean,
-    slot_max_pool,
 )
 from deeprank_gnn_tpu_torch.ops.pooling import (
     community_pooling_x,
@@ -116,12 +119,27 @@ class sGAT(SingleTowerNet):
 
     def _pooled_dense(self, batch: DenseGraphBatch) -> torch.Tensor:
         c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
-        h = torch.relu(sgat_layer_dense(self.conv1, batch.x, batch.row, batch.col,
-                                        batch.edge_attr, batch.x.shape[1]))
-        hp = slot_max_pool(h, batch.assign0, c0g)
-        pe_attr = edge_sum_to_slots(batch.edge_attr, batch.edge_to_pe, batch.pe_mask.shape[1])
-        h2 = torch.relu(sgat_layer_dense(self.conv2, hp, batch.pe_row, batch.pe_col, pe_attr, c0g))
-        return masked_mean(slot_max_pool(h2, batch.assign1, c1g), batch.pool1_mask)
+        if batch.wagg_x is not None:
+            in_ch = batch.x.shape[-1]
+            w1, w2 = self.conv1.weight, self.conv2.weight
+            xr = batch.x @ w1[:in_ch]
+            h = torch.relu((xr * batch.ea_rowsum0[..., None] + batch.wagg_x @ w1[in_ch:])
+                           / torch.clamp(batch.deg0, min=1.0)[..., None] + self.conv1.bias)
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
+            wagg2 = torch.bmm(batch.wadj1, hp @ w2[16:])
+            deg1 = torch.clamp(batch.adj1.to(torch.float32).sum(dim=-1), min=1.0)
+            h2 = torch.relu((hp @ w2[:16] * batch.ea_rowsum1[..., None] + wagg2)
+                            / deg1[..., None] + self.conv2.bias)
+        else:
+            h = torch.relu(sgat_layer_dense(self.conv1, batch.x, batch.row, batch.col,
+                                            batch.edge_attr, batch.x.shape[1]))
+            hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
+            pe_attr = edge_sum_to_slots(batch.edge_attr, batch.edge_to_pe,
+                                        batch.pe_mask.shape[1])
+            h2 = torch.relu(sgat_layer_dense(self.conv2, hp, batch.pe_row, batch.pe_col,
+                                             pe_attr, c0g))
+        return masked_mean(cluster_max_pool(h2, batch.assign1, c1g, batch.mem1_idx),
+                           batch.pool1_mask)
 
     def _pooled(self, batch: GraphBatch) -> torch.Tensor:
         n, c0, c1 = batch.num_nodes, batch.num_clusters0, batch.num_clusters1

@@ -11,7 +11,14 @@ the JAX package's ``cluster_max_pool`` dispatch always lands there), and the
 masked mean readout. The paper-mode GINet's aggregation is kernel K3
 (:mod:`deeprank_gnn_tpu_torch.ops.kernels.gin_conv`).
 
-Gradients come from autograd. A max pool splits a slot's gradient evenly
+The operator path (``collate_dense(precompute_ops=True)`` and the device
+store) adds the :func:`cluster_max_pool` dispatch, the tiled pool over the
+striped feature-major layout (:func:`tiled_cluster_max_pool`) and the
+aggregation by a stored adjacency (:func:`adj_conv`): plain torch products,
+as the JAX package leaves them to XLA.
+
+Gradients come from autograd, except for the tiled pool and ``adj_conv``,
+which carry the JAX package's custom backward. A max pool splits a slot's gradient evenly
 among tied maxima, as the JAX package's pools do (``_member_max_bwd``, and
 ``reduce_max``'s VJP for ``slot_max_pool``): ``amax`` and
 ``scatter_reduce(amax)`` both split ties evenly.
@@ -22,6 +29,12 @@ from __future__ import annotations
 import torch
 
 from deeprank_gnn_tpu_torch.ops.segment import segment_max
+
+# Above this virtual broadcast size (G * C * S * F fp32 bytes) the pool
+# takes the member-table gathers, below it the pool by assignment: the JAX
+# package's threshold (``ops/dense.py:354-367``), kept so that both packages
+# take the same form for the same batch.
+_MEMBER_POOL_MIN_BYTES = 64 * 1024 * 1024
 
 # Run-padded dense layout: every level-0 cluster's contiguous run of node
 # slots is padded to a multiple of this many rows (``collate_dense``).
@@ -126,3 +139,122 @@ def masked_mean(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     none)."""
     m = mask.to(h.dtype)[..., None]
     return (h * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+
+
+def member_counts(mem_idx: torch.Tensor, src_len: int) -> torch.Tensor:
+    """Valid-member count per slot straight from the table (no scatter).
+    [.., C, M] -> [.., C] float32."""
+    return (mem_idx < src_len).sum(dim=-1).to(torch.float32)
+
+
+def cluster_max_pool(h: torch.Tensor, assign: torch.Tensor, size: int,
+                     mem_idx=None) -> torch.Tensor:
+    """Cluster max-pool dispatch (JAX ``ops/dense.py:354-367``): the
+    member-table gathers when the batch carries a table and the pool's
+    virtual broadcast exceeds ``_MEMBER_POOL_MIN_BYTES``, else the pool by
+    assignment. Both give the same numbers."""
+    g, s, f = h.shape
+    if mem_idx is not None and g * size * s * f * 4 > _MEMBER_POOL_MIN_BYTES:
+        return member_max_pool(h, mem_idx)
+    return slot_max_pool(h, assign, size)
+
+
+def _flat_rows(x: torch.Tensor, pad_value: float) -> torch.Tensor:
+    """[G,S,F] -> [G*S + 1, F] with a trailing sentinel row."""
+    g, s, f = x.shape
+    return torch.cat([x.reshape(g * s, f), x.new_full((1, f), pad_value)])
+
+
+def _flat_idx(idx: torch.Tensor, bound: int) -> torch.Tensor:
+    """Per-graph indices [G, ...] (pad sentinel >= ``bound``) -> flat row ids
+    into the [G*bound + 1]-row view, the pad at the sentinel row."""
+    g = idx.shape[0]
+    goff = torch.arange(g, dtype=idx.dtype, device=idx.device).reshape((g,) + (1,) * (idx.ndim - 1))
+    return torch.where(idx < bound, idx + goff * bound, g * bound).reshape(-1).long()
+
+
+def _tiles_to_clusters_sum(a_t: torch.Tensor, tile_mem: torch.Tensor) -> torch.Tensor:
+    """[G, F, T] tile values -> [G, C, F]: per cluster the sum over its tiles
+    (the tile member table, pad sentinel == T)."""
+    tl = a_t.transpose(1, 2)  # [G, T, F]
+    g, t, f = tl.shape
+    vals = _flat_rows(tl, 0.0).index_select(0, _flat_idx(tile_mem, t))
+    return vals.reshape(g, tile_mem.shape[1], tile_mem.shape[2], f).sum(dim=2)
+
+
+def _clusters_to_tiles(a_c: torch.Tensor, tile_assign: torch.Tensor, pad: float) -> torch.Tensor:
+    """[G, C, F] cluster values -> [G, F, T] at each tile via ``tile_assign``
+    (pad tiles read ``pad``)."""
+    g, c, f = a_c.shape
+    t = tile_assign.shape[1]
+    rows = _flat_rows(a_c, pad).index_select(0, _flat_idx(tile_assign, c))
+    return rows.reshape(g, t, f).transpose(1, 2)
+
+
+class _TiledPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h_fm, node_mask_fm, tile_mem, tile_assign):
+        vals = torch.where(node_mask_fm[:, None], h_fm, float("-inf"))
+        tiles = vals.amax(dim=2)  # [G, F, T]
+        out = member_max_pool(tiles.transpose(1, 2), tile_mem)  # [G, C, F]
+        ctx.save_for_backward(h_fm, node_mask_fm, tile_mem, tile_assign, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        # JAX ``_tiled_pool_bwd``: every argmax node of a cluster, in any
+        # of its tiles, takes an even share of the cluster's cotangent
+        h_fm, node_mask_fm, tile_mem, tile_assign, hp = ctx.saved_tensors
+        cmax_t = _clusters_to_tiles(hp, tile_assign, float("inf"))  # [G, F, T]
+        cot_t = _clusters_to_tiles(cot, tile_assign, 0.0)
+        vals = torch.where(node_mask_fm[:, None], h_fm, float("-inf"))
+        is_max = vals == cmax_t[:, :, None, :]  # [G, F, R, T]
+        eq_t = is_max.to(h_fm.dtype).sum(dim=2)  # [G, F, T]
+        cnt_t = _clusters_to_tiles(_tiles_to_clusters_sum(eq_t, tile_mem), tile_assign, 1.0)
+        share = (cot_t / torch.clamp(cnt_t, min=1.0))[:, :, None, :]
+        dh = torch.where(is_max, share, torch.zeros((), dtype=h_fm.dtype, device=h_fm.device))
+        return dh, None, None, None
+
+
+def tiled_cluster_max_pool(h_fm: torch.Tensor, node_mask_fm: torch.Tensor,
+                           tile_mem: torch.Tensor, tile_assign: torch.Tensor) -> torch.Tensor:
+    """Cluster max-pool of a striped feature-major activation [G, F, R, T]
+    on the run-padded layout -> [G, C, F] (JAX ``ops/dense.py:277-351``).
+    ``node_mask_fm`` [G, R, T] marks member slot r of tile t (node 8t + r),
+    ``tile_mem`` [G, C, MT] lists each cluster's tiles (pad == T) and
+    ``tile_assign`` [G, T] each tile's cluster (pad == C).
+
+    The forward is a max within each tile, then a member-table max over
+    the tiles; an empty cluster gives 0. The backward is JAX's: each
+    cluster's cotangent is split evenly over all of its argmax nodes,
+    across every tile, from gathers alone. Autograd through the two maxes
+    would split at each stage instead (ties 2 + 1 over two tiles: 1/4,
+    1/4, 1/2 where JAX gives 1/3 each)."""
+    return _TiledPool.apply(h_fm, node_mask_fm, tile_mem, tile_assign)
+
+
+class _AdjConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, adj):
+        a = adj.to(v.dtype)
+        ctx.save_for_backward(a)
+        return torch.bmm(a, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a,) = ctx.saved_tensors
+        return torch.bmm(a.transpose(1, 2), g), None
+
+
+def adj_conv(v: torch.Tensor, adj: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """Aggregation by a precomputed adjacency operator, ``adj [G,S,S] @ v
+    [G,S,F]``, in fp32 (TF32 off: the JAX package's "exact"); the backward
+    is ``adj^T @ g`` and ``adj`` gets no gradient (JAX
+    ``ops/dense.py:452-470``). The JAX package's non-exact mode (bf16
+    operands) is not ported yet."""
+    if not exact:
+        raise NotImplementedError(
+            "adj_conv(exact=False) is not ported yet: see ROADMAP.md, queue 1 "
+            "(scanned epochs, the executable cache and the fast mode)"
+        )
+    return _AdjConv.apply(v, adj)

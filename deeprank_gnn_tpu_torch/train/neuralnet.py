@@ -28,7 +28,9 @@ reference engine's API (reference `NeuralNet.py:18-26`)::
   ``precluster_mode``).
 
 ``layout="sparse"`` (default) runs the conv aggregations as kernel K1,
-``layout="dense"`` as kernel K3 (``models/ginet.py``). The engine runs on
+``layout="dense"`` as kernel K3 (``models/ginet.py``); ``device_cache``
+keeps the dense-collated dataset in device memory and, by default, takes
+the models' operator path (``data/device_store.py``). The engine runs on
 ``device`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain versions)
 in fp32 with TF32 off, every pass under
 ``torch.use_deterministic_algorithms(True)``, dropout drawing from a
@@ -72,8 +74,23 @@ CLASS_TARGETS = ("bin_class", "capri_classes")
 DROPOUT_KEY = "dropout_generator"
 
 
+# the ROADMAP.md queue 1 item of the store's options that are not ported yet
+_SCANNED = "scanned epochs, the executable cache and the fast mode"
+
+
 def _unported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({where})")
+
+
+def _pyplot():
+    """``matplotlib.pyplot`` on the Agg backend, imported on first use (the
+    card's machine has no matplotlib)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def _clusters_present(dataset: HDF5DataSet, method: str) -> bool:
@@ -141,26 +158,34 @@ class NeuralNet:
         'never' skips. ``num_buckets > 1`` batches graphs of similar size
         together in the sparse layout (see ``GraphLoader``).
 
+        ``device_cache`` (dense layout): ``True`` keeps the dense-collated
+        dataset in device memory and gathers every batch there,
+        ``"chunked"`` rotates it through the device in chunks; with the
+        cache on, batches carry the precomputed operators. A store whose
+        estimate exceeds ``device_cache_bytes`` (default: the loader's
+        2 GiB) streams instead, and says so. ``store_pack``: "lossless"
+        (default) or "bf16" (raw fp32 payloads of the store in bfloat16).
+        Every loader the engine builds gets these three.
+
         ``device``: ``"cuda"`` (default) or ``"cpu"``. With no CUDA device
         and no ``device="cpu"`` the constructor raises.
 
-        ``mesh``, ``layout="halo"``, ``executable_cache_dir``,
-        ``device_cache``, ``scan_epochs`` (and ``scan_unroll``), a
-        ``store_pack`` other than "lossless" and ``device_cache_bytes`` are
-        not ported yet and raise ``NotImplementedError``."""
+        ``mesh``, ``layout="halo"``, ``executable_cache_dir`` and
+        ``scan_epochs`` (and ``scan_unroll``) are not ported yet and raise
+        ``NotImplementedError``."""
         if layout not in ("sparse", "dense", "halo"):
             raise ValueError(f"unknown layout {layout!r}")
         if mesh is not None or layout == "halo":
             raise _unported("mesh and layout='halo'", "multi-device")
         if executable_cache_dir is not None:
-            raise _unported("executable_cache_dir", "the device store and scanned epochs")
-        if device_cache or store_pack != "lossless" or device_cache_bytes is not None:
-            raise _unported(
-                "device_cache, store_pack and device_cache_bytes",
-                "the device store and scanned epochs",
-            )
+            raise _unported("executable_cache_dir", _SCANNED)
         if scan_epochs or scan_unroll != 1:
-            raise _unported("scan_epochs and scan_unroll", "the device store and scanned epochs")
+            raise _unported("scan_epochs and scan_unroll", _SCANNED)
+        if device_cache and layout != "dense":
+            raise ValueError("device_cache requires layout='dense'")
+        self.device_cache = device_cache
+        self.store_pack = store_pack
+        self.device_cache_bytes = device_cache_bytes
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_fp32_numerics()
@@ -246,7 +271,13 @@ class NeuralNet:
         )
 
     def _loader(self, dataset, **kw) -> GraphLoader:
-        return GraphLoader(dataset, batch_size=self.batch_size, layout=self.layout, **kw)
+        """A loader of the engine's layout, batch size and store settings
+        (JAX ``train/neuralnet.py:316-385``)."""
+        if self.device_cache_bytes is not None:
+            kw["device_cache_bytes"] = self.device_cache_bytes
+        return GraphLoader(dataset, batch_size=self.batch_size, layout=self.layout,
+                           device_cache=self.device_cache, store_pack=self.store_pack,
+                           device=self.device, **kw)
 
     def load_model(self, database, Net, database_eval) -> None:
         """Datasets, loaders, model and loss for training (reference
@@ -402,6 +433,13 @@ class NeuralNet:
         self.optimizer.step()
         return loss.detach(), pred.detach()
 
+    def _eval_step(self, batch):
+        """Loss and predictions of ``batch`` in evaluation mode, without
+        gradients (the JAX package's jitted ``eval_step``)."""
+        self.model.eval()
+        with torch.inference_mode(), deterministic():
+            return self._loss_and_pred(batch.to(self.device))
+
     # ------------------------------------------------------------------
     # target/output mapping
 
@@ -496,9 +534,10 @@ class NeuralNet:
         ``validate``, checkpoints (``save_model`` "last" or "best") and the
         epoch-data export to ``hdf5`` in ``outdir`` (every epoch with
         ``save_epoch="all"``, every ``save_every`` with "intermediate", and
-        the last). ``profile`` is not ported yet and raises."""
-        if profile is not None:
-            raise _unported("train(profile=...)", "the CLI, the plots and train(profile=)")
+        the last). ``profile``: a directory; the second epoch's training
+        pass is recorded with ``torch.profiler`` (host activity, and the
+        card's on a card) and written there as a Chrome trace that
+        TensorBoard reads (JAX ``train/neuralnet.py:1078-1110``)."""
         import h5py
 
         fname = self.update_name(hdf5, self.outdir)
@@ -506,10 +545,13 @@ class NeuralNet:
             self.nepoch = nepoch
             self.data = {}
             for epoch in range(1, nepoch + 1):
+                recorder = (self._profiler(profile) if profile is not None and epoch == 2
+                            else contextlib.nullcontext())
                 t0 = time()
-                _out, _out_m, _y, _loss, self.data["train"] = self._run_pass(
-                    self.train_loader, training=True
-                )
+                with recorder:
+                    _out, _out_m, _y, _loss, self.data["train"] = self._run_pass(
+                        self.train_loader, training=True
+                    )
                 t = time() - t0
                 self.train_loss.append(_loss)
                 self.train_out = _out
@@ -548,6 +590,16 @@ class NeuralNet:
 
             if save_model == "last":
                 self.save_model(filename=self._ckpt_name(nepoch))
+
+    def _profiler(self, outdir: str):
+        """A ``torch.profiler`` recording that writes its trace into
+        ``outdir`` when it ends."""
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(outdir))
 
     def _ckpt_name(self, nepoch: int, epoch: Optional[int] = None) -> str:
         base = (
@@ -693,17 +745,70 @@ class NeuralNet:
         self._pending_model_state = state
 
     def plot_loss(self, name: str = "") -> None:
-        raise _unported("plot_loss", "the CLI, the plots and train(profile=)")
+        """Train and valid loss per epoch into ``loss_epoch{name}.png`` in
+        ``outdir`` (matplotlib, imported here, with the Agg backend)."""
+        self._plot_curves(self.train_loss, self.valid_loss, "Loss/ epoch", "Total loss",
+                          f"loss_epoch{name}.png")
 
     def plot_acc(self, name: str = "") -> None:
-        raise _unported("plot_acc", "the CLI, the plots and train(profile=)")
+        """Train and valid accuracy per epoch into ``acc_epoch{name}.png``."""
+        self._plot_curves(self.train_acc, self.valid_acc, "Accuracy/ epoch", "Accuracy",
+                          f"acc_epoch{name}.png")
+
+    def _plot_curves(self, train_vals, valid_vals, title, ylabel, fname):
+        plt = _pyplot()
+        # the x-axis follows the history's length (epochs restored from a
+        # checkpoint included), not only the last train() call
+        if len(valid_vals) > 1:
+            plt.plot(range(1, len(valid_vals) + 1), valid_vals, c="red", label="valid")
+        if len(train_vals) > 1:
+            plt.plot(range(1, len(train_vals) + 1), train_vals, c="blue", label="train")
+            plt.title(title)
+            plt.xlabel("Number of epoch")
+            plt.ylabel(ylabel)
+            plt.legend()
+            plt.savefig(os.path.join(self.outdir, fname))
+            plt.close()
 
     def plot_hit_rate(self, data: str = "eval", threshold: float = 4,
                       mode: str = "percentage", name: str = "") -> None:
-        raise _unported("plot_hit_rate", "the CLI, the plots and train(profile=)")
+        """The hit rate of ``data`` ("eval", "train" or "test") into
+        ``hitrate{name}.png``; prints instead when the task has none."""
+        plt = _pyplot()
+        try:
+            hitrate = self.get_metrics(data, threshold).hitrate()
+            X = range(1, len(hitrate) + 1)
+            if mode == "percentage":
+                hitrate = hitrate / max(hitrate.sum(), 1)
+            plt.plot(X, hitrate, c="blue", label="train")
+            plt.title("Hit rate")
+            plt.xlabel("Number of models")
+            plt.ylabel("Hit Rate")
+            plt.legend()
+            plt.savefig(os.path.join(self.outdir, f"hitrate{name}.png"))
+            plt.close()
+        except Exception:
+            print(f"No hit rate plot could be generated for you {self.task} task")
 
     def plot_scatter(self) -> None:
-        raise _unported("plot_scatter", "the CLI, the plots and train(profile=)")
+        """Predictions against targets of the train (blue) and valid (red)
+        loaders into ``scatter.png``. It iterates the loaders, so it draws
+        from their shuffle streams as the JAX package does."""
+        plt = _pyplot()
+        pred, truth = {"train": [], "valid": []}, {"train": [], "valid": []}
+        loaders = [("train", self.train_loader)]
+        if self.valid_loader is not None:
+            loaders.append(("valid", self.valid_loader))
+        for split, loader in loaders:
+            for batch, mols in loader:
+                _, p = self._eval_step(batch)
+                g = len(mols)
+                truth[split] += batch.y.cpu().numpy()[:g].tolist()
+                pred[split] += p.cpu().numpy().reshape(-1)[:g].tolist()
+        plt.scatter(truth["train"], pred["train"], c="blue")
+        plt.scatter(truth["valid"], pred["valid"], c="red")
+        plt.savefig(os.path.join(self.outdir, "scatter.png"))
+        plt.close()
 
     def _export_epoch_hdf5(self, epoch: int, data: dict) -> None:
         """Epoch data export (reference `NeuralNet.py:827-872`)."""

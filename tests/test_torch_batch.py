@@ -132,20 +132,25 @@ def test_loader_batches_match(h5_path, shuffle, num_buckets, drop_last):
 
 
 def test_loader_rejects_unported_options(h5_path):
-    """The dense layout is ported; the device store, precomputed dense
-    operators and multi-host slices are not and raise."""
+    """The dense layout, the device store and the precomputed operators are
+    ported (tests/test_torch_store.py); multi-host slices and a sharded
+    store are not and raise, and the store options need the dense
+    layout, as in the JAX package."""
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
     from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 
     _, tds = datasets(h5_path)
-    for kw in ({"device_cache": True}, {"host_batch_slice": slice(0, 2)},
-               {"layout": "dense", "precompute_ops": True}):
+    for kw in ({"host_batch_slice": slice(0, 2)}, {"store_sharding": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            GraphLoader(tds, **kw)
+    for kw in ({"device_cache": True, "device": "cpu"}, {"precompute_ops": True}):
+        with pytest.raises(ValueError, match="requires layout='dense'"):
             GraphLoader(tds, **kw)
     with pytest.raises(ValueError, match="unknown layout"):
         GraphLoader(tds, layout="halo")
     batch, mols = next(iter(GraphLoader(tds, batch_size=4, layout="dense")))
     assert isinstance(batch, DenseGraphBatch) and batch.num_graphs == 4 and len(mols) == 4
+    assert batch.agg_x is None
 
 
 def test_batch_to_keeps_static_fields(h5_path):

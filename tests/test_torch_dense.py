@@ -45,7 +45,12 @@ def h5_path(tmp_path_factory):
 
 
 def _assert_dense_equal(jb, tb):
-    assert [f.name for f in dataclasses.fields(tb)] == list(DENSE_FIELDS)
+    """The streamed fields bitwise; the operator fields (after them) absent,
+    as without ``precompute_ops``."""
+    names = [f.name for f in dataclasses.fields(tb)]
+    assert names[: len(DENSE_FIELDS)] == list(DENSE_FIELDS)
+    for name in names[len(DENSE_FIELDS):]:
+        assert getattr(tb, name) is None and getattr(jb, name) is None, name
     for name in DENSE_FIELDS:
         a, b = np.asarray(getattr(jb, name)), getattr(tb, name).numpy()
         assert a.dtype == b.dtype, name
@@ -76,8 +81,13 @@ def test_collate_dense_bitwise(h5_path, g_pad):
     # edges keep their file order: the rows of a graph are not sorted
     assert any((np.diff(tb.row[gi].numpy()[tb.edge_mask[gi].numpy()]) < 0).any()
                for gi in range(len(tds)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        collate_dense([tds.get(0)], precompute_ops=True)
+    # the operator fields come with precompute_ops (held against JAX in
+    # tests/test_torch_store.py)
+    ops, _ = collate_dense([tds.get(i) for i in range(len(tds))], g_pad=g_pad,
+                           precompute_ops=True)
+    _assert_dense_equal(jb, dataclasses.replace(
+        ops, **{f.name: None for f in dataclasses.fields(ops)[len(DENSE_FIELDS):]}))
+    assert ops.agg_x_fm.shape == (tb.num_graphs, 13, 8, tb.nodes_per_graph // 8)
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(False, False), (True, True)])
