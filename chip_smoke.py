@@ -12,7 +12,10 @@ Phases, each of which raises on failure:
    numerics with TF32 off; the cuBLAS workspace setting that
    deterministic mode needs;
 2. build: every CUDA kernel of the port, from ``ops/csrc`` in this
-   checkout, one ``nvcc`` per source, all started together;
+   checkout, one ``nvcc`` per source, all started together, into a
+   temporary directory set as the executable cache
+   (``train/aot.py``, every engine's ``executable_cache_dir`` here); a
+   second process pointed at it finds every library and runs no ``nvcc``;
 3. kernels: each kernel against its plain PyTorch version, and two
    launches bitwise equal. K1 (sorted segment sum) on the card at rtol 1e-5
    and atol 1e-5 against the plain version run there (``index_add_`` with
@@ -30,7 +33,12 @@ Phases, each of which raises on failure:
    edges than one shared-memory tile, every valid edge of a graph on one
    row, a graph whose [S, F] slab does not fit in shared memory, and S of
    70,000, far beyond one block's rows; its launch plan (slab staged, rows
-   per block, blocks resident per SM) is checked too. K2 (sorted
+   per block, blocks resident per SM) is checked too. K3's fast variant
+   (bf16 ``xw``, fp32 sums and output: ``exact=False``) forward and
+   backward bitwise equal to the fp32 plain version run on the CPU on the
+   bf16-rounded values, at both conv levels' shapes and three edge cases,
+   its slab in shared memory smaller than the exact kernel's, and timed
+   beside the exact kernel on the same inputs. K2 (sorted
    scatter-gather, the attention softmax's denominator) forward and
    backward on the card at rtol 1e-5 and atol 1e-5, and bitwise equal to
    the plain version run on the CPU, forward and backward, at the attention
@@ -98,7 +106,24 @@ Phases, each of which raises on failure:
    chunk's copy time on its side stream beside the host's time between
    uploads); ``store_pack="bf16"`` serving within ``BF16_TOL`` of
    lossless; and FoutNet and sGAT on the operator path (768 graphs),
-   against the CPU and their streaming dense runs.
+   against the CPU and their streaming dense runs;
+9. scanned epochs (``scan_epochs=True``) on the 2,048 graphs' store, in
+   the same process as the looped store path and from the same seed,
+   dropout 0.4 on: the operator path and store batches without the
+   operators (K3 inside the captured graph), three training and
+   validation epochs each, every loss, prediction, parameter, Adam state
+   and the dropout generator's state bitwise the looped run's; the graph
+   replays per epoch (one warm-up step, then one replay per batch); K3's
+   launches per epoch (the counts at capture times the replays) against
+   the kernels a profiled scanned epoch traces; warm graphs/s, the host's
+   ms per batch and the idle share beside the looped path's; the scanned
+   engine's checkpoint (Adam ``step`` a CPU scalar) reloads and trains
+   on; scanned serving bitwise the looped store serving, profiled;
+10. the fast mode (``dense_fast=True``) scanned on store batches without
+   the operators: K3's fast variant inside the graph (52 launches an
+   epoch, traced as the bf16 kernel), bitwise the looped fast epoch and
+   within ``BF16_TOL`` of the exact path's loss; the fast operator path
+   (``adj_conv`` with bf16 operands) scanned for one epoch.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -114,6 +139,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -134,6 +160,13 @@ NODES_PER_GRAPH = 130
 EDGES_PER_GRAPH = 250  # stored undirected; 500 directed after doubling
 BATCH = 128
 PARITY_STEPS = 4
+
+# K3's fast variant: the same source, built for bf16 input
+FAST_K3 = {
+    "route": "cuda",
+    "source": "deeprank_gnn_tpu_torch/ops/csrc/fused_gin_conv.cu",
+    "replaces": "deeprank_gnn_tpu/ops/pallas/__init__.py:178",
+}
 
 KERNELS = {
     "sorted_segment_sum": {
@@ -485,13 +518,14 @@ def k1_phase(first_batch, seed: int):
 # K3: per-graph GIN aggregation
 
 
-def k3_bound_ms(s: int, f: int, row, col) -> float:
+def k3_bound_ms(s: int, f: int, row, col, in_bytes: int = 4) -> float:
     """Least time of one K3 call ``out = fused_gin_conv(xw [G,S,F], row,
     col)`` on these indices: its bytes over the HBM rate, or one add per
     valid edge and column over the fp32 rate, whichever is longer. The
     bytes are the ``xw`` rows that a valid edge reads (each distinct
-    (graph, ``col``) pair once: run padding and sentinel slots are never
-    read), ``out`` written whole (G*S*F) and ``row`` and ``col`` read once.
+    (graph, ``col``) pair once, ``in_bytes`` an element: 4, or 2 for the
+    fast variant's bf16; run padding and sentinel slots are never read),
+    ``out`` written whole in fp32 (G*S*F) and ``row`` and ``col`` read once.
     For the backward pass ``col, row`` swapped: it reads the gradient rows
     that a valid ``row`` names."""
     import torch
@@ -500,7 +534,7 @@ def k3_bound_ms(s: int, f: int, row, col) -> float:
     valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
     goff = torch.arange(g, device=col.device)[:, None] * s
     sources = int(torch.unique((col.long() + goff)[valid]).numel())
-    moved = 4 * (sources * f + g * s * f + 2 * g * e)
+    moved = in_bytes * sources * f + 4 * (g * s * f + 2 * g * e)
     return 1e3 * max(moved / HBM_BYTES_PER_S, int(valid.sum()) * f / FP32_FLOPS)
 
 
@@ -585,6 +619,75 @@ def k3_case(name, xw, row, col, gen, timed: bool) -> dict:
     return res
 
 
+def k3_fast_case(name, xw, row, col, gen, timed: bool) -> dict:
+    """K3's fast variant (``exact=False``: bf16 ``xw``, fp32 sums and
+    output), forward and backward through its autograd Function, bitwise
+    equal to the fp32 plain version run on the CPU on the bf16-rounded
+    values (both sum in edge order); two launches bitwise equal; its launch
+    plan beside the exact kernel's. Timed when ``timed``: beside the exact
+    kernel on the same (unrounded) inputs in this call, the plain version
+    and the library pair on the rounded fp32 values, and both bounds."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import (
+        fused_gin_conv,
+        fused_gin_conv_forward,
+        fused_gin_conv_plain,
+        launch_plan,
+    )
+
+    g, s, f = xw.shape
+    e = row.shape[1]
+    cot = torch.randn(xw.shape, generator=gen, device=xw.device)
+    x = xw.clone().requires_grad_(True)
+    fwd = fused_gin_conv(x, row, col, exact=False)
+    fwd.backward(cot)
+    xb, cb = xw.bfloat16(), cot.bfloat16()
+    again = fused_gin_conv_forward(xb, row, col)
+    bwd_again = fused_gin_conv_forward(cb, col, row)
+    torch.cuda.synchronize()
+    if not (torch.equal(fwd, again) and torch.equal(x.grad, bwd_again)):
+        raise AssertionError(f"K3 fast {name}: two launches differ")
+    xr, cr = xb.float(), cb.float()  # the rounded values, in fp32
+    rc, cc = row.cpu(), col.cpu()
+    want, want_grad = fused_gin_conv_plain(xr.cpu(), rc, cc), fused_gin_conv_plain(cr.cpu(), cc, rc)
+    got, got_grad = fwd.detach().cpu(), x.grad.cpu()
+    fe, be = errors(got, want), errors(got_grad, want_grad)
+    if not (torch.equal(got, want) and torch.equal(got_grad, want_grad)):
+        raise AssertionError(f"K3 fast {name}: not bitwise the plain version on the rounded "
+                             f"values on the cpu: forward {fe}, backward {be}")
+    valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    res = {"case": name, "G": g, "S": s, "F": f, "E": e, "E_valid": int(valid.sum()),
+           **launch_plan(xw.device, s, f, e, bf16=True),
+           "exact_smem_bytes": launch_plan(xw.device, s, f, e)["smem_bytes"],
+           "max_abs_err": max(fe["max_abs_err"], be["max_abs_err"]),
+           "max_rel_err": max(fe["max_rel_err"], be["max_rel_err"]),
+           # how far the rounding moves the result from the exact kernel's
+           "vs_exact_max_abs": float((fwd.detach() - fused_gin_conv_forward(xw, row, col))
+                                     .abs().max())}
+    if timed:
+        lib_fwd, lib_bwd = k3_library_pair(xr, row, col), k3_library_pair(cr, col, row)
+        res.update(
+            ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xb, row, col)),
+            ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cb, col, row)),
+            exact_ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xw, row, col)),
+            exact_ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cot, col, row)),
+            plain_ms_fwd=cold_ms(lambda: fused_gin_conv_plain(xr, row, col)),
+            plain_ms_bwd=cold_ms(lambda: fused_gin_conv_plain(cr, col, row)),
+            library_ms_fwd=cold_ms(lib_fwd),
+            library_ms_bwd=cold_ms(lib_bwd),
+            l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xb, row, col)),
+            l2_warm_ms_bwd=l2_warm_ms(lambda: fused_gin_conv_forward(cb, col, row)),
+            exact_l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xw, row, col)),
+            exact_l2_warm_ms_bwd=l2_warm_ms(lambda: fused_gin_conv_forward(cot, col, row)),
+            bound_ms_fwd=k3_bound_ms(s, f, row, col, in_bytes=2),
+            bound_ms_bwd=k3_bound_ms(s, f, col, row, in_bytes=2),
+            exact_bound_ms_fwd=k3_bound_ms(s, f, row, col),
+            exact_bound_ms_bwd=k3_bound_ms(s, f, col, row),
+        )
+    return res
+
+
 def k3_phase(first_dense_batch, seed: int):
     """K3 at the dense path's first-batch shapes of both conv levels and at
     edge cases, all with random values: summation order shows in the bits."""
@@ -632,6 +735,15 @@ def k3_phase(first_dense_batch, seed: int):
     results += [k3_case(name, x, r, c, gen, timed=False) for name, x, r, c in edge]
     for res in results:
         log("K3 " + json.dumps(res))
+    # the fast variant on the same inputs
+    fast = [k3_fast_case(name, x, r, c, gen, timed=True) for name, x, r, c in main]
+    fast += [k3_fast_case(name, x, r, c, gen, timed=False) for name, x, r, c in edge
+             if name in ("edges-F17", "tiles-F32", "no-slab-F64")]
+    for res in fast:
+        log("K3 fast " + json.dumps(res))
+        if res["slab"] != (res["case"] != "no-slab-F64") or (
+                res["slab"] and res["smem_bytes"] >= res["exact_smem_bytes"]):
+            raise AssertionError(f"K3 fast {res['case']}: launch plan {res}")
     by_case = {r["case"]: r for r in results}
     for name in ("conv1", "conv2"):
         # the main shapes: slab staged, rows split at most 128 to a block, at
@@ -646,7 +758,7 @@ def k3_phase(first_dense_batch, seed: int):
             raise AssertionError(f"K3 {name}: the slab should not fit in shared memory")
     if by_case["wide-S-F8"]["blocks_per_graph"] != -(-70000 // 128):
         raise AssertionError(f"K3 wide-S-F8: launch plan {by_case['wide-S-F8']}")
-    return results
+    return results, fast
 
 
 # ---------------------------------------------------------------------------
@@ -1465,6 +1577,280 @@ def store_phase(dataset, zoo, tmp: str, seed: int, dense_parity: list, served_de
 
 
 # ---------------------------------------------------------------------------
+# scanned epochs and the fast mode
+
+
+def scan_engine(dataset, seed: int, tmp: str, name: str, kdir: str, ops: bool = True, **kw):
+    """Paper-mode GINet on the device store at batch 128, percent [0.8,
+    0.2], from ``seed``; ``ops=False`` gives it store loaders without the
+    precomputed operators, whose batches feed K3. ``kw``: ``scan_epochs``,
+    ``dense_fast``."""
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    nn = NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
+                   target="fnat", batch_size=BATCH, percent=[0.8, 0.2], layout="dense",
+                   seed=seed, device="cuda", device_cache=True, executable_cache_dir=kdir,
+                   outdir=os.path.join(tmp, f"scan_{name}"), **kw)
+    if not ops:
+        for attr in ("train_loader", "valid_loader"):
+            ld = getattr(nn, attr)
+            setattr(nn, attr, GraphLoader(ld.dataset, batch_size=BATCH, shuffle=True, seed=seed,
+                                          layout="dense", device_cache=True,
+                                          precompute_ops=False, device="cuda"))
+    return nn
+
+
+def run_pass(nn, training: bool, loader=None) -> dict:
+    """One ``_run_pass`` of ``nn`` (scanned when it scans) with the launch
+    counts cleared just before and read just after: its wall time, loss
+    and outputs; the hand-kernel launches counted, and those that ran
+    (counted outside a capture, plus each captured graph's launches times
+    its replays in this pass: a wrapper counts where it launches, and a
+    graph launches at capture); the graphs' replays and the host's
+    seconds issuing the steps."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+
+    loader = loader or (nn.train_loader if training else nn.valid_loader)
+    graphs_before = len(nn._scan.graph_stats())
+    nn._scan.reset_replays()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out, _out_m, _ys, loss, _data = nn._run_pass(loader, training=training)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counted = dict(LAUNCHES)
+    stats = nn._scan.graph_stats()
+    ran = Counter(counted)
+    for st in stats[graphs_before:]:
+        ran.subtract(st["launches"])
+    for st in stats:
+        for k, v in st["launches"].items():
+            ran[k] += v * st["replays"]
+    return {"wall": wall, "loss": loss, "out": out, "counted": counted, "ran": dict(+ran),
+            "replays": sum(st["replays"] for st in stats), "issue_s": nn._scan.last_issue_s,
+            "batches": len(loader), "graphs": len(loader.dataset)}
+
+
+def profile_run(run, patterns=()) -> dict:
+    """``run()`` under ``torch.profiler``: wall time, the device's busy time
+    and idle share (as ``profile_pass`` counts them), device operations,
+    and per name pattern the kernels whose name holds it: count and device
+    milliseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_ms = sum(e.device_time for e in on_card) / 1e3
+    res = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": len(on_card)}
+    for pat in patterns:
+        hits = [e for e in on_card if pat in e.name]
+        res[f"trace[{pat}]"] = {"count": len(hits),
+                                "device_ms": sum(e.device_time for e in hits) / 1e3}
+    return res
+
+
+def assert_same_training(label: str, a, b) -> None:
+    """Two engines trained alike (a looped and a scanned one): bitwise the
+    same parameters, Adam state and dropout generator state."""
+    import torch
+
+    for (name, x), y in zip(a.model.named_parameters(), b.model.parameters()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"scan {label}: parameter {name} differs from the looped run")
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    for k in sa:
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            if not torch.equal(sa[k][key], sb[k][key]):
+                raise AssertionError(f"scan {label}: Adam {key} of parameter {k} differs")
+    if not torch.equal(a._dropout_generator.get_state(), b._dropout_generator.get_state()):
+        raise AssertionError(f"scan {label}: the dropout generator's state differs")
+
+
+K3_EXACT_NAME = "fused_gin_conv_kernel<float"
+K3_FAST_NAME = "fused_gin_conv_kernel<__nv_bfloat16"
+
+
+def scan_training_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bool,
+                        epochs: int = 3, **kw) -> dict:
+    """A looped and a scanned engine from one seed, dropout 0.4 on, in this
+    process: ``epochs`` training and validation passes each, the scanned
+    ones bitwise the looped ones (losses, predictions, parameters, Adam
+    state, the dropout generator's state); each pass's walls, the scanned
+    graph replays and the hand-kernel launches that ran (``run_pass``);
+    then a profiled warm scanned epoch (idle share, device busy time, the
+    kernels traced by name) and a looped one."""
+    looped = scan_engine(dataset, seed, tmp, f"{label}_looped", kdir, ops, **kw)
+    scanned = scan_engine(dataset, seed, tmp, f"{label}_scanned", kdir, ops, scan_epochs=True,
+                          **kw)
+    runs = {"looped": [], "scanned": []}
+    for name, nn in (("looped", looped), ("scanned", scanned)):
+        for _ in range(epochs):
+            runs[name].append((run_pass(nn, True), run_pass(nn, False)))
+    for i, ((lt, lv), (st, sv)) in enumerate(zip(runs["looped"], runs["scanned"])):
+        if (lt["loss"], lv["loss"], lv["out"]) != (st["loss"], sv["loss"], sv["out"]):
+            raise AssertionError(f"scan {label} epoch {i}: losses {lt['loss']} {lv['loss']} "
+                                 f"looped, {st['loss']} {sv['loss']} scanned")
+        if lt["ran"] != st["ran"]:
+            raise AssertionError(f"scan {label} epoch {i}: kernels ran {lt['ran']} looped, "
+                                 f"{st['ran']} scanned")
+    assert_same_training(label, looped, scanned)
+    batches = runs["scanned"][0][0]["batches"]
+    # the first scanned epoch: one warm-up step, then a graph replay per
+    # batch; later epochs replay every batch
+    replays = [t["replays"] for t, _v in runs["scanned"]]
+    if replays != [batches - 1] + [batches] * (epochs - 1):
+        raise AssertionError(f"scan {label}: replays per epoch {replays}, {batches} batches")
+    patterns = (K3_EXACT_NAME, K3_FAST_NAME)
+    prof_scan = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
+                            patterns)
+    prof_loop = profile_run(lambda: looped._run_pass(looped.train_loader, training=True),
+                            patterns)
+    graphs = runs["scanned"][0][0]["graphs"]
+    res = {
+        "batches": batches, "graphs": graphs, "replays_per_epoch": replays,
+        "losses": [t["loss"] for t, _v in runs["scanned"]],
+        "valid_losses": [v["loss"] for _t, v in runs["scanned"]],
+        "looped_walls": [t["wall"] for t, _v in runs["looped"]],
+        "scanned_walls": [t["wall"] for t, _v in runs["scanned"]],
+        "looped_graphs_per_s": [graphs / t["wall"] for t, _v in runs["looped"]],
+        "scanned_graphs_per_s": [graphs / t["wall"] for t, _v in runs["scanned"]],
+        "scanned_host_ms_per_batch": [1e3 * t["issue_s"] / batches
+                                      for t, _v in runs["scanned"]],
+        "looped_ms_per_batch": [1e3 * t["wall"] / batches for t, _v in runs["looped"]],
+        "ran_per_epoch": [t["ran"] for t, _v in runs["scanned"]],
+        "counted_per_epoch": [t["counted"] for t, _v in runs["scanned"]],
+        "graph_stats": scanned._scan.graph_stats(),
+        "scanned_profile": prof_scan, "looped_profile": prof_loop,
+        "bitwise_with_dropout": True,
+    }
+    log(f"scan {label}: " + json.dumps(res))
+    return res, scanned
+
+
+def scan_phase(dataset, tmp: str, seed: int, kdir: str, store_pred) -> dict:
+    """Scanned epochs (``scan_epochs=True``) on the device store, in this
+    process beside the looped store path: the operator path (no hand
+    kernel) and store batches without the operators (K3 inside the
+    captured graph, 4 launches per batch), each with ``scan_training_check``
+    (the profiled scanned epoch must trace K3's launches as the counts
+    give them); the scanned engine's checkpoint (its Adam ``step`` a CPU
+    scalar that counts the steps taken) reloads and trains on scanned; then
+    scanned serving of the 2,048 graphs on the operator path, bitwise the
+    looped store serving, three passes and a profiled one."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    out = {}
+    t0 = time.perf_counter()
+    out["operators"], scanned = scan_training_check("operators", dataset, seed, tmp, kdir, True)
+    if any(out["operators"]["ran_per_epoch"]):
+        raise AssertionError(f"scan operators: hand kernels ran {out['operators']}")
+    path = os.path.join(tmp, "scan_operators_scanned", "scanned.pth.tar")
+    scanned.save_model(path)
+    steps = {float(s["step"]) for s in torch.load(path, weights_only=False)["optimizer"]
+             ["state"].values()}
+    want_steps = 4.0 * out["operators"]["batches"]  # 3 epochs and the profiled one
+    types = {type(s["step"]).__name__ + str(getattr(s["step"], "device", ""))
+             for s in torch.load(path, weights_only=False)["optimizer"]["state"].values()}
+    r = scan_engine(dataset, seed, tmp, "operators_reloaded", kdir, scan_epochs=True,
+                    pretrained_model=path)
+    resumed = run_pass(r, True)
+    log(f"scan operators: saved Adam steps {steps} ({types}), want {want_steps}; reloaded and "
+        f"trained on scanned, loss {resumed['loss']}")
+    if steps != {want_steps} or types != {"Tensorcpu"} or not np.isfinite(resumed["loss"]):
+        raise AssertionError(f"scan operators: checkpoint steps {steps} {types}, "
+                             f"resumed loss {resumed['loss']}")
+    out["checkpoint_steps"] = sorted(steps)
+    log(f"phase scan operators: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    out["k3"], _ = scan_training_check("k3", dataset, seed, tmp, kdir, False)
+    k3 = out["k3"]
+    want = {"fused_gin_conv": 4 * k3["batches"]}
+    trace = k3["scanned_profile"][f"trace[{K3_EXACT_NAME}]"]["count"]
+    log(f"scan k3: K3 launches ran per epoch {k3['ran_per_epoch']} (counted "
+        f"{k3['counted_per_epoch']}: the first epoch's warm-up step and capture), traced in "
+        f"the profiled scanned epoch {trace}; want {want}")
+    if any(ran != want for ran in k3["ran_per_epoch"]) or trace != want["fused_gin_conv"]:
+        raise AssertionError(f"scan k3: launches {k3['ran_per_epoch']}, traced {trace}, "
+                             f"want {want}")
+    log(f"phase scan k3: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
+    nn, pred, loss, walls, launches = serve(
+        dataset, ckpt, "cuda", os.path.join(tmp, "scan_serve"), 3, "dense", GINet,
+        device_cache=True, scan_epochs=True, executable_cache_dir=kdir)
+    batches = len(nn.test_loader)
+    issue_ms = 1e3 * nn._scan.last_issue_s / batches  # the last unprofiled pass
+    prof = profile_run(lambda: nn.eval(nn.test_loader))
+    if not np.array_equal(pred, store_pred) or any(launches):
+        raise AssertionError(f"scan serve: max abs {np.abs(pred - store_pred).max()} against "
+                             f"the looped store serving; launches {launches}")
+    out["serve"] = {"pred": pred, "walls": walls, "launches": launches[0], "where": prof,
+                    "models_per_s": [len(pred) / w for w in walls], "batches": batches,
+                    "host_ms_per_batch": issue_ms, "graph_stats": nn._scan.graph_stats()}
+    log("scan serve: " + json.dumps({k: v for k, v in out["serve"].items() if k != "pred"}))
+    log(f"phase scan serve: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list) -> dict:
+    """The fast mode (``dense_fast=True``) scanned on store batches without
+    the operators: a fresh engine's first epoch is the main path of K3's
+    fast variant (its launches: the warm-up step's, and the capture's
+    times the replays), held bitwise to the looped fast epoch and within
+    ``BF16_TOL`` of the exact K3 path's loss; a profiled epoch traces the
+    bf16 kernel once per launch and the fp32 one never. Then the fast
+    operator path (``adj_conv`` with bf16 operands in the graph) for one
+    scanned epoch."""
+    out = {}
+    looped = scan_engine(dataset, seed, tmp, "fast_looped", kdir, False, dense_fast=True)
+    scanned = scan_engine(dataset, seed, tmp, "fast_scanned", kdir, False, dense_fast=True,
+                          scan_epochs=True)
+    lt = run_pass(looped, True)
+    st = run_pass(scanned, True)
+    if st["loss"] != lt["loss"]:
+        raise AssertionError(f"fast k3: scanned {st['loss']} != looped {lt['loss']}")
+    assert_same_training("fast", looped, scanned)
+    want = {"fused_gin_conv_bf16": 4 * st["batches"]}
+    prof = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
+                       (K3_EXACT_NAME, K3_FAST_NAME))
+    traced = (prof[f"trace[{K3_FAST_NAME}]"]["count"], prof[f"trace[{K3_EXACT_NAME}]"]["count"])
+    log(f"fast k3: looped loss {lt['loss']} ran {lt['ran']}; scanned loss {st['loss']} ran "
+        f"{st['ran']} counted {st['counted']} replays {st['replays']}; exact K3 path's first "
+        f"loss {exact_k3_losses[0]}; traced bf16/fp32 K3 {traced}; profile {json.dumps(prof)}")
+    if st["ran"] != want or lt["ran"] != want or traced != (want["fused_gin_conv_bf16"], 0):
+        raise AssertionError(f"fast k3: launches scanned {st['ran']} looped {lt['ran']}, "
+                             f"traced {traced}, want {want}")
+    np.testing.assert_allclose(st["loss"], exact_k3_losses[0], **BF16_TOL)
+    out["k3"] = {"loss": st["loss"], "launches": st["ran"], "counted": st["counted"],
+                 "replays": st["replays"], "wall": st["wall"], "graphs": st["graphs"],
+                 "profile": prof}
+    ops = scan_engine(dataset, seed, tmp, "fast_operators", kdir, True, dense_fast=True,
+                      scan_epochs=True)
+    ot = run_pass(ops, True)
+    log(f"fast operators: scanned loss {ot['loss']}, ran {ot['ran']}, replays {ot['replays']}")
+    if not np.isfinite(ot["loss"]) or ot["ran"]:
+        raise AssertionError(f"fast operators: loss {ot['loss']}, launches {ot['ran']}")
+    out["operators"] = {"loss": ot["loss"], "wall": ot["wall"], "replays": ot["replays"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1482,6 +1868,29 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kernels_") as kdir:
+        return run(args, kdir)
+
+
+# a second process that points the build at the same directory: it must
+# find every library there and run no nvcc
+SECOND_PROCESS = """
+import json, sys
+from deeprank_gnn_tpu_torch.ops.kernels import build
+from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
+use_executable_cache(sys.argv[1])
+found = {n: build.library_path(n).is_file() for n in sys.argv[2:]}
+for n in sys.argv[2:]:
+    build.load(n)
+print(json.dumps(found))
+"""
+
+
+def run(args, kdir: str) -> int:
+    """The phases, with the hand kernels built in ``kdir`` (the
+    executable cache of every engine here)."""
+    import torch
+
     import deeprank_gnn_tpu_torch
 
     here = Path(__file__).resolve().parent
@@ -1495,6 +1904,7 @@ def main(argv=None) -> int:
     from deeprank_gnn_tpu_torch.device import set_fp32_numerics
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.ops.kernels import build
+    from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
 
     t_start = time.perf_counter()
     # 1. device
@@ -1508,7 +1918,8 @@ def main(argv=None) -> int:
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"capability {torch.cuda.get_device_capability(0)}")
 
-    # 2. build, one nvcc per source, all at once
+    # 2. build, one nvcc per source, all at once, into the executable cache
+    use_executable_cache(kdir)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         texts = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
@@ -1518,6 +1929,16 @@ def main(argv=None) -> int:
         for line in text.strip().splitlines():
             log(f"  nvcc {name}: {line.strip()}")
     log(f"build: {len(KERNELS)} sources in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    second = subprocess.run([sys.executable, "-c", SECOND_PROCESS, kdir, *KERNELS],
+                            capture_output=True, text=True, cwd=here, timeout=300)
+    second_s = time.perf_counter() - t0
+    if second.returncode != 0 or json.loads(second.stdout.strip().splitlines()[-1]) != {
+            name: True for name in KERNELS}:
+        raise AssertionError(f"executable cache: the second process {second.returncode} "
+                             f"{second.stdout} {second.stderr}")
+    log(f"executable cache: a second process with {kdir} found all {len(KERNELS)} libraries "
+        f"and loaded them without nvcc, {second_s:.2f} s with its start")
 
     # 3. kernels, at the shapes of the paths' first batches
     graphs = build_graphs(args.seed, max(args.graphs, args.zoo_graphs))
@@ -1527,7 +1948,7 @@ def main(argv=None) -> int:
     first_dense, _ = next(iter(GraphLoader(dataset, batch_size=BATCH, layout="dense")))
     t0 = time.perf_counter()
     k1 = k1_phase(first_batch, args.seed)
-    k3 = k3_phase(first_dense, args.seed)
+    k3, k3_fast = k3_phase(first_dense, args.seed)
     k2 = k2_phase(first_batch, args.seed)
     floor = launch_floor()
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
@@ -1556,6 +1977,11 @@ def main(argv=None) -> int:
         # 8. the device store
         store = store_phase(dataset, zoo, tmp, args.seed, trained["dense"]["parity_losses"],
                             served["dense"], zoo_out)
+        # 9. scanned epochs; 10. the fast mode
+        scan = scan_phase(dataset, tmp, args.seed, kdir, store["serve"]["pred"])
+        t0 = time.perf_counter()
+        fast = fast_phase(dataset, tmp, args.seed, kdir, scan["k3"]["losses"])
+        log(f"phase fast: {time.perf_counter() - t0:.1f} s")
 
     k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
     k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
@@ -1564,6 +1990,7 @@ def main(argv=None) -> int:
     k2_plans = ("path", "rows_per_block", "tile_edges", "blocks", "smem_bytes", "blocks_per_sm",
                 "threads")
     k3_main = [r for r in k3 if "ms_fwd" in r]
+    k3_fast_main = [r for r in k3_fast if "ms_fwd" in r]
     k2_path = [r for r in k2 if r["case"] in ("conv1", "conv2")]
     k2_bench = next(r for r in k2 if r["case"] == "bench")
     s_where, d_where = served["sparse"]["where"], served["dense"]["where"]
@@ -1641,6 +2068,15 @@ def main(argv=None) -> int:
             "store_train_launches": store["train_k3"]["launches"]["fused_gin_conv"],
             "served_ms_per_batch": d_where["fused_gin_conv_ms_per_batch"],
             "served_bound_ms_per_batch": d_where["fused_gin_conv_bound_ms_per_batch"],
+            # scanned epochs on store batches without the operators: the
+            # launches that ran per epoch inside the replayed graphs, and the
+            # profiled scanned epoch's traced launches and device time
+            "scan_train_launches": scan["k3"]["ran_per_epoch"][-1]["fused_gin_conv"],
+            "scan_trace_launches":
+                scan["k3"]["scanned_profile"][f"trace[{K3_EXACT_NAME}]"]["count"],
+            "scan_train_ms_per_batch":
+                scan["k3"]["scanned_profile"][f"trace[{K3_EXACT_NAME}]"]["device_ms"]
+                / scan["k3"]["batches"],
             "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
                                           "ms_bwd", "plain_ms_fwd", "plain_ms_bwd",
                                           "library_ms_fwd", "library_ms_bwd", "bound_ms_fwd",
@@ -1686,6 +2122,43 @@ def main(argv=None) -> int:
                                           *k2_plans)}
                        for r in k2_path],
         },
+        {
+            "name": "fused_gin_conv_bf16",
+            **FAST_K3,
+            # the fast mode's scanned training epoch on store batches without
+            # the operators, from a fresh engine: the warm-up step's 4
+            # launches and the captured 4 times each replay
+            "launches": fast["k3"]["launches"]["fused_gin_conv_bf16"],
+            "max_abs_err": max(r["max_abs_err"] for r in k3_fast),
+            # the 4 calls of one training batch at the first dense batch's
+            # shapes, L2 flushed before each call
+            "ms": sum(r["ms_fwd"] + r["ms_bwd"] for r in k3_fast_main),
+            "plain_ms": sum(r["plain_ms_fwd"] + r["plain_ms_bwd"] for r in k3_fast_main),
+            # bf16 source rows, fp32 output and indices
+            "bound_ms": sum(r["bound_ms_fwd"] + r["bound_ms_bwd"] for r in k3_fast_main),
+            "bound_by": "bytes",
+            # index_select + index_add_ on the bf16-rounded fp32 values
+            "library_ms": sum(r["library_ms_fwd"] + r["library_ms_bwd"] for r in k3_fast_main),
+            "library_call": "index_select + index_add_ on bf16-rounded fp32 (two calls)",
+            # the exact K3 on the same inputs in this call
+            "exact_ms": sum(r["exact_ms_fwd"] + r["exact_ms_bwd"] for r in k3_fast_main),
+            "exact_bound_ms": sum(r["exact_bound_ms_fwd"] + r["exact_bound_ms_bwd"]
+                                  for r in k3_fast_main),
+            "l2_warm_ms": sum(r["l2_warm_ms_fwd"] + r["l2_warm_ms_bwd"] for r in k3_fast_main),
+            "exact_l2_warm_ms": sum(r["exact_l2_warm_ms_fwd"] + r["exact_l2_warm_ms_bwd"]
+                                    for r in k3_fast_main),
+            "trace_launches": fast["k3"]["profile"][f"trace[{K3_FAST_NAME}]"]["count"],
+            "scan_train_ms_per_batch":
+                fast["k3"]["profile"][f"trace[{K3_FAST_NAME}]"]["device_ms"]
+                / (fast["k3"]["launches"]["fused_gin_conv_bf16"] / 4),
+            "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
+                                          "ms_bwd", "exact_ms_fwd", "exact_ms_bwd",
+                                          "plain_ms_fwd", "plain_ms_bwd", "library_ms_fwd",
+                                          "library_ms_bwd", "bound_ms_fwd", "bound_ms_bwd",
+                                          "l2_warm_ms_fwd", "l2_warm_ms_bwd", "smem_bytes",
+                                          "exact_smem_bytes", "blocks_per_sm")}
+                       for r in k3_fast_main],
+        },
     ]}
     passes = {f"serve_{k}": v for k, v in served.items()}
     passes.update({f"train_{k}": v for k, v in trained.items()})
@@ -1705,6 +2178,20 @@ def main(argv=None) -> int:
         if v["where"] is not None:
             summary[label]["device_idle_share"] = v["where"]["device_idle_share"]
     summary["store_bytes"] = store["batches"]
+    for label in ("operators", "k3"):
+        v = scan[label]
+        summary[f"scan_train_{label}"] = {
+            k: v[k] for k in ("looped_graphs_per_s", "scanned_graphs_per_s",
+                              "scanned_host_ms_per_batch", "looped_ms_per_batch",
+                              "replays_per_epoch", "ran_per_epoch")}
+        summary[f"scan_train_{label}"]["device_idle_share"] = {
+            "scanned": v["scanned_profile"]["device_idle_share"],
+            "looped": v["looped_profile"]["device_idle_share"]}
+    summary["scan_serve"] = {k: scan["serve"][k] for k in ("models_per_s", "host_ms_per_batch",
+                                                          "batches")}
+    summary["scan_serve"]["device_idle_share"] = scan["serve"]["where"]["device_idle_share"]
+    summary["fast"] = {"k3_loss": fast["k3"]["loss"], "operators_loss": fast["operators"]["loss"],
+                       "exact_k3_loss": scan["k3"]["losses"][0]}
     log("summary " + json.dumps(summary))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

@@ -3,8 +3,9 @@
     python -m deeprank_gnn_tpu_torch train --database g.hdf5 --target fnat ...
     python -m deeprank_gnn_tpu_torch test  --database g.hdf5 --checkpoint m.pth.tar
 
-with the JAX package's flags, defaults and printed lines, and one more:
-``--device`` (``cuda``, the default, or ``cpu``). ``graphgen``,
+with the JAX package's flags, defaults and printed lines, and two more:
+``--device`` (``cuda``, the default, or ``cpu``) and ``train``'s
+``--dense-fast`` (the JAX package's ``DRGNN_DENSE_FAST``). ``graphgen``,
 ``add-target`` and ``hdf5-to-csv`` take the JAX package's arguments and
 raise: the featurizer and the tools are not ported yet.
 """
@@ -48,6 +49,7 @@ def _common_nn(args, pretrained=None):
         device_cache=getattr(args, "device_cache", False),
         scan_epochs=getattr(args, "scan_epochs", False),
         store_pack=getattr(args, "store_pack", "lossless"),
+        dense_fast=getattr(args, "dense_fast", False),
         device=args.device,
     )
 
@@ -134,6 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument(
         "--store-pack", default="lossless", choices=("lossless", "bf16"),
         help="device-store payload packing (bf16 halves fp32 bytes)",
+    )
+    t.add_argument(
+        "--dense-fast", action="store_true",
+        help="GINet's dense aggregations with bf16 operands and fp32 "
+        "accumulation (requires --layout dense)",
     )
     t.set_defaults(fn=cmd_train)
 

@@ -690,12 +690,14 @@ class GraphLoader:
             self, chunk_bytes=max(1, self.device_cache_bytes // 2))
         return self._chunk_store is not None
 
-    def _count_store_batch(self, counts_from, sel, batch) -> None:
+    def _count_store_batch(self, counts_from, sel) -> None:
+        """Padding statistics of the store batch of slots ``sel``:
+        ``batch_size`` graphs at the store's capacities."""
         st = self._epoch_stats
         st["valid_edges"] += int(counts_from.edge_counts[sel].sum())
-        st["padded_edges"] += batch.edge_mask.numel()
+        st["padded_edges"] += self.batch_size * counts_from.caps["eg"]
         st["valid_nodes"] += int(counts_from.node_counts[sel].sum())
-        st["padded_nodes"] += batch.node_mask.numel()
+        st["padded_nodes"] += self.batch_size * counts_from.caps["ng"]
         st["num_batches"] += 1
 
     def _iter_chunked(self):
@@ -718,7 +720,7 @@ class GraphLoader:
                 if self.drop_last and len(sel) < self.batch_size:
                     break
                 batch, mols = cs.batch(cur, ci, sel, self.batch_size)
-                self._count_store_batch(cs, start + sel, batch)
+                self._count_store_batch(cs, start + sel)
                 yield batch, mols
             cur = nxt  # the chunk's matrices are freed once unreferenced
         self._finish_epoch_stats()
@@ -741,9 +743,98 @@ class GraphLoader:
             if len(slots) == 0:
                 continue
             batch, mols = store.batch(slots, self.batch_size)
-            self._count_store_batch(store, slots, batch)
+            self._count_store_batch(store, slots)
             yield batch, mols
         self._finish_epoch_stats()
+
+    def _new_epoch_stats(self) -> None:
+        self._epoch_stats = {
+            "valid_edges": 0,
+            "padded_edges": 0,
+            "valid_nodes": 0,
+            "padded_nodes": 0,
+            "num_batches": 0,
+        }
+
+    def device_epoch_plan(self):
+        """The plan of one epoch over the resident store, for a scanned
+        epoch (``train/scan.py``): ``(slots [B, batch_size] int32,
+        mols_per_batch)``, each row the store slots of one batch with the
+        store's pad slot after them, or None when there is no store (the
+        layout is not dense, ``device_cache`` is not True, the dataset is
+        empty or over the byte budget). It draws the loader's RNG as an
+        iterated epoch does, so a scanned and a looped run see the same
+        batches, and sets the same ``padding_stats`` (JAX
+        ``data/batch.py:728-781``)."""
+        if not (self.device_cache is True and self._maybe_build_store()):
+            return None
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(order)
+        self._new_epoch_stats()
+        store = self._store
+        rows, mols_per_batch = [], []
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start: start + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                break
+            slots = np.asarray(
+                [store.slot_of_index[int(i)] for i in idx if int(i) in store.slot_of_index],
+                dtype=np.int32,
+            )
+            if len(slots) == 0:
+                continue
+            row = np.full(self.batch_size, store.pad_slot, dtype=np.int32)
+            row[: len(slots)] = slots
+            rows.append(row)
+            mols_per_batch.append([store.mols[int(s)] for s in slots])
+            self._count_store_batch(store, slots)
+        self._finish_epoch_stats()
+        if not rows:
+            return None
+        return np.stack(rows), mols_per_batch
+
+    def chunk_epoch_plan(self):
+        """The plan of one epoch over the rotating chunk store: a list of
+        ``(ci, slots [B, batch_size] int32, mols_per_batch)`` in the epoch's
+        chunk order, slots local to chunk ``ci`` with its own pad slot
+        (``clen``) after them, or None when there is no chunk store. It draws
+        the loader's RNG as an iterated chunked epoch does (the chunk order,
+        then each chunk's order), and restores it when the plan comes out
+        empty, so that the looped epoch the caller falls back to draws what a
+        looped run would (JAX ``data/batch.py:812-875``)."""
+        if not (self.device_cache == "chunked" and self._maybe_build_chunks()):
+            return None
+        cs = self._chunk_store
+        rng_state = self._rng.get_state()
+        self._new_epoch_stats()
+        corder = np.arange(cs.num_chunks)
+        if self.shuffle:
+            self._rng.shuffle(corder)
+        plan = []
+        for ci in corder:
+            ci = int(ci)
+            start, clen = cs.chunk_ranges[ci]
+            local = np.arange(clen)
+            if self.shuffle:
+                self._rng.shuffle(local)
+            rows, mols_per_batch = [], []
+            for bstart in range(0, clen, self.batch_size):
+                sel = local[bstart: bstart + self.batch_size]
+                if self.drop_last and len(sel) < self.batch_size:
+                    break
+                row = np.full(self.batch_size, clen, dtype=np.int32)
+                row[: len(sel)] = sel
+                rows.append(row)
+                mols_per_batch.append([cs.mols[start + int(i)] for i in sel])
+                self._count_store_batch(cs, start + sel)
+            if rows:
+                plan.append((ci, np.stack(rows), mols_per_batch))
+        self._finish_epoch_stats()
+        if not plan:
+            self._rng.set_state(rng_state)
+            return None
+        return plan
 
     def _finish_epoch_stats(self) -> None:
         st = self._epoch_stats
@@ -753,13 +844,7 @@ class GraphLoader:
         self.padding_stats = st
 
     def __iter__(self) -> Iterator[Tuple[GraphBatch, List[str]]]:
-        self._epoch_stats = {
-            "valid_edges": 0,
-            "padded_edges": 0,
-            "valid_nodes": 0,
-            "padded_nodes": 0,
-            "num_batches": 0,
-        }
+        self._new_epoch_stats()
         if self.layout == "dense":
             if self.device_cache == "chunked" and self._maybe_build_chunks():
                 yield from self._iter_chunked()

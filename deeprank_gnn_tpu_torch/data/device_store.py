@@ -486,6 +486,41 @@ class ChunkedGraphStore:
             t.record_stream(consumer)
         return PackedStore(segments=out, layout=layout, ready=ready)
 
+    def empty_chunk(self) -> PackedStore:
+        """Uninitialized device matrices in the chunks' layout, with the rows
+        of the largest chunk and its pad slot: the fixed buffers a scanned
+        epoch's captured step reads (``train/scan.py``), which
+        :meth:`upload_into` fills chunk by chunk."""
+        segs, layout = self._host_chunks[0]
+        rows = max(clen for _, clen in self.chunk_ranges) + 1
+        return PackedStore(
+            segments={s: torch.empty((rows, m.shape[1]), dtype=m.dtype, device=self.device)
+                      for s, m in segs.items()},
+            layout=layout)
+
+    def upload_into(self, ci: int, dst: PackedStore, extra=(), after=None):
+        """Copy chunk ``ci`` (its rows and its pad slot) into the first rows
+        of ``dst``'s matrices, and each host tensor of the ``(host, device)``
+        pairs of ``extra`` into its device tensor. On a card the copies run
+        on the side stream, after the event ``after`` (when given: the last
+        read of ``dst``), and the event they record is returned, for the
+        reading stream to wait on; on the CPU they run at once (None)."""
+        segs, _ = self._host_chunks[ci]
+        pairs = [(m, dst.segments[s][: m.shape[0]]) for s, m in segs.items()] + list(extra)
+        if self.device.type != "cuda":
+            for src, out in pairs:
+                out.copy_(src)
+            return None
+        side = self.copy_stream()
+        with torch.cuda.stream(side):
+            if after is not None:
+                side.wait_event(after)
+            for src, out in pairs:
+                out.copy_(src, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return ready
+
     def batch(self, store: PackedStore, ci: int, local: np.ndarray,
               g_pad: int) -> Tuple[DenseGraphBatch, List[str]]:
         """Batch from an uploaded chunk: ``local`` are chunk-local slots;

@@ -33,6 +33,12 @@ operator path in paper mode: level 1 is one product of the stored
 aggregation with both towers' weights and a tiled pool, level 2 the stored
 pooled adjacency (``adj_conv``); no hand kernel runs there. Both layouts
 and both dense paths give the same numbers.
+
+``dense_fast`` (the engine's ``NeuralNet(dense_fast=True)``; the JAX
+package's ``DRGNN_DENSE_FAST`` environment variable, read at its
+``models/ginet.py:233, 310``) runs the paper-mode dense aggregations with
+bf16 operands and fp32 accumulation: K3's fast variant and
+``adj_conv(exact=False)``.
 """
 
 from __future__ import annotations
@@ -148,8 +154,10 @@ class GINet(nn.Module):
     (:meth:`_towers_fused`); ``fuse=False`` runs them one by one
     (:meth:`_tower`) — the same numbers, since segment ops are
     column-independent. ``attention`` or ``internal_tower`` always run the
-    towers one by one. Parameters are drawn on the CPU from ``generator``
-    and moved to ``device``.
+    towers one by one. ``dense_fast`` rounds the operands of the paper-mode
+    dense aggregations to bf16 (K3 and ``adj_conv`` with ``exact=False``).
+    Parameters are drawn on the CPU from ``generator`` and moved to
+    ``device``.
     """
 
     dropout_rate = 0.4  # reference `ginet.py:97`
@@ -163,6 +171,7 @@ class GINet(nn.Module):
         internal_tower: bool = False,
         *,
         fuse: bool = True,
+        dense_fast: bool = False,
         device="cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -170,6 +179,7 @@ class GINet(nn.Module):
         dev = resolve_device(device)
         if dev.type == "cuda":
             set_fp32_numerics()
+        self.dense_fast = dense_fast
         self.attention = attention
         self.internal_tower = internal_tower
         self.fuse = fuse and not (attention or internal_tower)
@@ -249,6 +259,7 @@ class GINet(nn.Module):
         the stored pooled adjacency ``adj1`` when the batch has it, else
         K3."""
         c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
+        exact = not self.dense_fast
         if batch.agg_x_fm is not None:
             w_cat = torch.cat([self.conv1.fc.weight, self.conv1_ext.fc.weight], dim=0)
             h = torch.relu(torch.einsum("of,gfrt->gort", w_cat, batch.agg_x_fm))
@@ -261,7 +272,7 @@ class GINet(nn.Module):
                 dim=-1,
             )
             if batch.agg_x is None:
-                h = fused_gin_conv(h, batch.row, batch.col)
+                h = fused_gin_conv(h, batch.row, batch.col, exact)
             h = torch.relu(h)
             hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
         hw = torch.cat(
@@ -270,9 +281,9 @@ class GINet(nn.Module):
             dim=-1,
         )
         if batch.adj1 is not None:
-            h2 = torch.relu(adj_conv(hw, batch.adj1))
+            h2 = torch.relu(adj_conv(hw, batch.adj1, exact))
         else:
-            h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
+            h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col, exact))
         hq = cluster_max_pool(h2, batch.assign1, c1g, batch.mem1_idx)
         return masked_mean(hq, batch.pool1_mask)
 
@@ -289,11 +300,12 @@ class GINet(nn.Module):
             hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
             h2 = torch.relu(ginet_conv_dense(conv2, hp, batch.pe_row, batch.pe_col, pe_attr, c0g))
         else:
+            exact = not self.dense_fast
             xw = linear(batch.x, conv1.fc.weight)
-            h = torch.relu(fused_gin_conv(xw, batch.row, batch.col))
+            h = torch.relu(fused_gin_conv(xw, batch.row, batch.col, exact))
             hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
             hw = linear(hp, conv2.fc.weight)
-            h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col))
+            h2 = torch.relu(fused_gin_conv(hw, batch.pe_row, batch.pe_col, exact))
         hq = cluster_max_pool(h2, batch.assign1, c1g, batch.mem1_idx)
         return masked_mean(hq, batch.pool1_mask)
 

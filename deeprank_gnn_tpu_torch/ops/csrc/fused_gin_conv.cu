@@ -55,6 +55,15 @@
 // Two launches are bitwise equal. Rows need not be sorted. S has no limit: a
 // block's counters cover its own rows only.
 //
+// The fast variant (fused_gin_conv_bf16) is the same kernel on bf16 xw, the
+// counterpart of the Pallas body's non-exact branch (a single bf16 MXU pass,
+// fp32 accumulation; deeprank_gnn_tpu/ops/pallas/__init__.py:178). The
+// caller rounds xw to bf16; the kernel widens each element to fp32 exactly
+// and sums in fp32 in edge order, so its result is bitwise the fp32 kernel's
+// on the rounded values, and it writes fp32. The slab in shared memory, and
+// the bytes read, halve: conv1's [272, 32] slab takes 17.4 KB instead of
+// 34.8 KB.
+//
 // Why not the tensor cores: the op is one add per edge and column. As a
 // one-hot product it would do S / degree times the work, and it would need
 // the TPU's three-way bf16 split to stay fp32-exact. Bytes and latency bound
@@ -63,6 +72,7 @@
 #include <climits>
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -79,9 +89,12 @@ constexpr int kBarBytes = 16;    // the mbarrier, padded to the slab's alignment
 static_assert(kMaxRows <= kThreads, "the row scan gives one row to a thread");
 static_assert(kEdgeTile <= 1 << 15, "a rank and a row share one int");
 
-// Floats of shared memory for a slab of `n` floats: room to start it at the
-// same offset modulo 16 bytes as in device memory, in whole 16-byte units.
-__host__ __device__ inline size_t slab_floats(size_t n) { return (n + 3 + 3) / 4 * 4; }
+// Elements of shared memory for a slab of `n` elements, `epv` of them to 16
+// bytes: room to start it at the same offset modulo 16 bytes as in device
+// memory, in whole 16-byte units.
+__host__ __device__ inline size_t slab_elems(size_t n, size_t epv) {
+  return (n + 2 * (epv - 1)) / epv * epv;
+}
 
 // Edges of a warp's segment of a tile of `tlen`: whole chunks, the tile's
 // first edges to warp 0.
@@ -96,7 +109,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // Thread 0 only: start copying `bytes` (a multiple of 16, both addresses
 // 16-byte aligned) from device memory into shared memory; `bar` completes
 // its phase 0 when they have landed.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
@@ -109,6 +122,25 @@ template <typename T> __device__ __forceinline__ T zero();
 template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <> __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// One element, or four consecutive ones, of xw widened to fp32, exactly: a
+// bf16 is the high half of the fp32 of the same value, so the widening is a
+// shift (measured a little faster than the cvt intrinsics here).
+template <typename T, typename In> __device__ __forceinline__ T load_as(const In* p);
+template <> __device__ __forceinline__ float load_as<float, float>(const float* p) { return *p; }
+template <> __device__ __forceinline__ float4 load_as<float4, float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float load_as<float, __nv_bfloat16>(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(*p)) << 16);
+}
+template <>
+__device__ __forceinline__ float4 load_as<float4, __nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ void add(float& a, float b) { a += b; }
@@ -152,11 +184,12 @@ __device__ __forceinline__ void load_edges(const int* row_g, const int* col_g, i
 // Sums of the runs of rows [0, n_rows) of a tile's CSR into out rows r0 +
 // lr, with T (float or float4) a lane's share of a row per pass: a group of
 // lanes (the next power of two of F / |T| floats, at most a warp) owns a row.
-// The run's source rows are loaded kUnroll at a time and added in edge order.
-// With `carry`, a row adds to what these lanes wrote on the last tile, and a
-// row without edges here is left alone.
-template <typename T>
-__device__ __forceinline__ void sum_runs(const float* xs, float* dst, const int* row_off,
+// The run's source rows (of In, float or bf16) are loaded kUnroll at a time,
+// widened to fp32 and added in edge order. With `carry`, a row adds to what
+// these lanes wrote on the last tile, and a row without edges here is left
+// alone.
+template <typename T, typename In>
+__device__ __forceinline__ void sum_runs(const In* xs, float* dst, const int* row_off,
                                          const int* csr, int r0, int n_rows, int n_cols,
                                          bool carry) {
   constexpr int kV = sizeof(T) / sizeof(float);
@@ -175,7 +208,7 @@ __device__ __forceinline__ void sum_runs(const float* xs, float* dst, const int*
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (j + u < hi) {
-            v[u] = *reinterpret_cast<const T*>(xs + static_cast<size_t>(csr[j + u]) * n_cols + f);
+            v[u] = load_as<T>(xs + static_cast<size_t>(csr[j + u]) * n_cols + f);
           }
         }
 #pragma unroll
@@ -188,17 +221,18 @@ __device__ __forceinline__ void sum_runs(const float* xs, float* dst, const int*
   }
 }
 
-template <bool kSlab>
+template <typename In, bool kSlab>
 __global__ void __launch_bounds__(kThreads)
-fused_gin_conv_kernel(const float* __restrict__ xw, const int* __restrict__ row,
+fused_gin_conv_kernel(const In* __restrict__ xw, const int* __restrict__ row,
                       const int* __restrict__ col, float* __restrict__ out, int n_slots,
                       int n_cols, int n_edges, int rows_per_block, int blocks_per_graph,
                       int edge_tile) {
+  constexpr int kEpv = 16 / sizeof(In);  // elements of xw in 16 bytes
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t slab = static_cast<size_t>(n_slots) * n_cols;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* slab_s = reinterpret_cast<float*>(smem + kBarBytes);
-  int* hist = reinterpret_cast<int*>(slab_s + (kSlab ? slab_floats(slab) : 0));  // [kWarps][R]
+  In* slab_s = reinterpret_cast<In*>(smem + kBarBytes);
+  int* hist = reinterpret_cast<int*>(slab_s + (kSlab ? slab_elems(slab, kEpv) : 0));  // [kWarps][R]
   int* row_off = hist + kWarps * rows_per_block;  // [R + 1]
   int* warp_sum = row_off + rows_per_block + 1;   // [kWarps]
   int* csr = warp_sum + kWarps;                   // [edge_tile]
@@ -206,7 +240,7 @@ fused_gin_conv_kernel(const float* __restrict__ xw, const int* __restrict__ row,
   const size_t g = blockIdx.x / blocks_per_graph;
   const int r0 = static_cast<int>(blockIdx.x % blocks_per_graph) * rows_per_block;
   const int n_rows = min(rows_per_block, n_slots - r0);
-  const float* src = xw + g * slab;
+  const In* src = xw + g * slab;
   float* dst = out + g * slab;
   const int* row_g = row + g * n_edges;
   const int* col_g = col + g * n_edges;
@@ -221,18 +255,18 @@ fused_gin_conv_kernel(const float* __restrict__ xw, const int* __restrict__ row,
   load_edges(row_g, col_g, 0, edge_tile, tile_seg(edge_tile), warp, lane, key, src_col);
 
   // 1. the slab: slab_g[i] is 16-byte aligned where src + i is
-  const int shift = static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) / 4);
-  float* slab_g = slab_s + shift;
+  const int shift = static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(In));
+  In* slab_g = slab_s + shift;
   if (kSlab) {
-    const size_t head_to_16 = static_cast<size_t>((4 - shift) & 3);
+    const size_t head_to_16 = static_cast<size_t>((kEpv - shift) & (kEpv - 1));
     const size_t head = slab < head_to_16 ? slab : head_to_16;
-    const size_t body = (slab - head) & ~static_cast<size_t>(3);
+    const size_t body = (slab - head) & ~static_cast<size_t>(kEpv - 1);
     if (tid == 0) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(smem_u32(bar)) : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       if (body > 0) {
-        bulk_copy(slab_g + head, src + head, static_cast<uint32_t>(body * sizeof(float)), bar);
+        bulk_copy(slab_g + head, src + head, static_cast<uint32_t>(body * sizeof(In)), bar);
       } else {
         asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
                      :: "r"(smem_u32(bar)) : "memory");
@@ -241,13 +275,15 @@ fused_gin_conv_kernel(const float* __restrict__ xw, const int* __restrict__ row,
     for (size_t i = tid; i < head; i += kThreads) slab_g[i] = src[i];
     for (size_t i = head + body + tid; i < slab; i += kThreads) slab_g[i] = src[i];
   }
-  const float* xs = kSlab ? slab_g : src;
+  const In* xs = kSlab ? slab_g : src;
 
   const unsigned lanes_below = (1u << lane) - 1;
   int* warp_hist = hist + warp * rows_per_block;
-  // whole float4s when every row of xs and out starts on 16 bytes
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(xs) | reinterpret_cast<uintptr_t>(dst);
-  const bool vec4 = n_cols % 4 == 0 && (bases & 15) == 0;
+  // four columns to a load when every row of xs starts on four elements'
+  // bytes and every row of out on 16 bytes
+  const bool vec4 = n_cols % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(xs) & (4 * sizeof(In) - 1)) == 0 &&
+                    (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
 
   for (int t0 = 0; t0 < n_edges; t0 += edge_tile) {
     const int tlen = min(edge_tile, n_edges - t0);
@@ -329,8 +365,9 @@ struct Plan {
   size_t smem;           // dynamic shared memory of one block, bytes
 };
 
-// The launch for these sizes (S, F, E > 0), from the device's shared memory.
-cudaError_t make_plan(int n_slots, int n_cols, int n_edges, Plan* p) {
+// The launch for these sizes (S, F, E > 0) and xw elements of `in_bytes`
+// (4 or 2), from the device's shared memory.
+cudaError_t make_plan(int n_slots, int n_cols, int n_edges, int in_bytes, Plan* p) {
   int dev = 0;
   int optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -345,48 +382,79 @@ cudaError_t make_plan(int n_slots, int n_cols, int n_edges, Plan* p) {
                       p->edge_tile;
   const size_t base = kBarBytes + ints * sizeof(int);
   const size_t slab_bytes =
-      slab_floats(static_cast<size_t>(n_slots) * n_cols) * sizeof(float);
+      slab_elems(static_cast<size_t>(n_slots) * n_cols, 16 / in_bytes) * in_bytes;
   p->slab = base + slab_bytes <= static_cast<size_t>(optin);
   p->smem = base + (p->slab ? slab_bytes : 0);
   return cudaSuccess;
 }
 
-using Kernel = void (*)(const float*, const int*, const int*, float*, int, int, int, int, int,
-                        int);
+template <typename In>
+using Kernel = void (*)(const In*, const int*, const int*, float*, int, int, int, int, int, int);
 
-Kernel kernel_of(const Plan& p) {
-  return p.slab ? fused_gin_conv_kernel<true> : fused_gin_conv_kernel<false>;
+template <typename In>
+Kernel<In> kernel_of(const Plan& p) {
+  return p.slab ? fused_gin_conv_kernel<In, true> : fused_gin_conv_kernel<In, false>;
 }
 
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+template <typename In>
+cudaError_t allow_smem(Kernel<In> kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-}  // namespace
-
-// The launch fused_gin_conv_f32 makes for these sizes (all > 0), into
-// plan[0..4]: 1 when the slab is staged in shared memory (else 0), rows per
-// block, blocks per graph, dynamic shared memory per block in bytes, and
-// blocks resident per SM. Returns a CUDA error code (0 on success).
-extern "C" int fused_gin_conv_plan(int n_slots, int n_cols, int n_edges, int* plan) {
+template <typename In>
+cudaError_t plan_of(int n_slots, int n_cols, int n_edges, int* plan) {
   Plan p;
-  cudaError_t err = make_plan(n_slots, n_cols, n_edges, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Kernel kernel = kernel_of(p);
+  cudaError_t err = make_plan(n_slots, n_cols, n_edges, sizeof(In), &p);
+  if (err != cudaSuccess) return err;
+  const Kernel<In> kernel = kernel_of<In>(p);
   int resident = 0;
   err = allow_smem(kernel, p.smem);
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads, p.smem);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   plan[0] = p.slab;
   plan[1] = p.rows_per_block;
   plan[2] = p.blocks_per_graph;
   plan[3] = static_cast<int>(p.smem);
   plan[4] = resident;
-  return 0;
+  return cudaSuccess;
+}
+
+template <typename In>
+cudaError_t launch(const In* xw, const int* row, const int* col, float* out, int n_graphs,
+                   int n_slots, int n_cols, int n_edges, cudaStream_t s) {
+  if (n_graphs == 0 || n_slots == 0 || n_cols == 0) return cudaSuccess;
+  if (n_edges == 0) {
+    const size_t bytes = static_cast<size_t>(n_graphs) * n_slots * n_cols * sizeof(float);
+    return cudaMemsetAsync(out, 0, bytes, s);
+  }
+  Plan p;
+  cudaError_t err = make_plan(n_slots, n_cols, n_edges, sizeof(In), &p);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(n_graphs) * p.blocks_per_graph;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const Kernel<In> kernel = kernel_of<In>(p);
+  err = allow_smem(kernel, p.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, p.smem, s>>>(
+      xw, row, col, out, n_slots, n_cols, n_edges, p.rows_per_block, p.blocks_per_graph,
+      p.edge_tile);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The launch fused_gin_conv_f32 (bf16 == 0) or fused_gin_conv_bf16 (bf16 ==
+// 1) makes for these sizes (all > 0), into plan[0..4]: 1 when the slab is
+// staged in shared memory (else 0), rows per block, blocks per graph, dynamic
+// shared memory per block in bytes, and blocks resident per SM. Returns a
+// CUDA error code (0 on success).
+extern "C" int fused_gin_conv_plan(int n_slots, int n_cols, int n_edges, int bf16, int* plan) {
+  return static_cast<int>(bf16 ? plan_of<__nv_bfloat16>(n_slots, n_cols, n_edges, plan)
+                               : plan_of<float>(n_slots, n_cols, n_edges, plan));
 }
 
 // xw [G, S, F] fp32, row and col [G, E] int32, out [G, S, F] fp32, all
@@ -395,22 +463,16 @@ extern "C" int fused_gin_conv_plan(int n_slots, int n_cols, int n_edges, int* pl
 extern "C" int fused_gin_conv_f32(const float* xw, const int* row, const int* col, float* out,
                                   int n_graphs, int n_slots, int n_cols, int n_edges,
                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_graphs == 0 || n_slots == 0 || n_cols == 0) return 0;
-  if (n_edges == 0) {
-    const size_t bytes = static_cast<size_t>(n_graphs) * n_slots * n_cols * sizeof(float);
-    return static_cast<int>(cudaMemsetAsync(out, 0, bytes, s));
-  }
-  Plan p;
-  cudaError_t err = make_plan(n_slots, n_cols, n_edges, &p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = static_cast<long long>(n_graphs) * p.blocks_per_graph;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const Kernel kernel = kernel_of(p);
-  err = allow_smem(kernel, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, p.smem, s>>>(
-      xw, row, col, out, n_slots, n_cols, n_edges, p.rows_per_block, p.blocks_per_graph,
-      p.edge_tile);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch(xw, row, col, out, n_graphs, n_slots, n_cols, n_edges,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The fast variant: xw [G, S, F] bf16, the rest as fused_gin_conv_f32; the
+// sums run in fp32 and out is fp32.
+extern "C" int fused_gin_conv_bf16(const void* xw, const int* row, const int* col, float* out,
+                                   int n_graphs, int n_slots, int n_cols, int n_edges,
+                                   void* stream) {
+  return static_cast<int>(launch(static_cast<const __nv_bfloat16*>(xw), row, col, out,
+                                 n_graphs, n_slots, n_cols, n_edges,
+                                 static_cast<cudaStream_t>(stream)));
 }

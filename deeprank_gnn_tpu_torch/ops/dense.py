@@ -233,28 +233,40 @@ def tiled_cluster_max_pool(h_fm: torch.Tensor, node_mask_fm: torch.Tensor,
     return _TiledPool.apply(h_fm, node_mask_fm, tile_mem, tile_assign)
 
 
+def _bmm_bf16(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``a @ v`` with both operands rounded to bfloat16 and an fp32 result
+    accumulated in fp32: on a card one cuBLAS product with bf16 inputs and
+    an fp32 output (``torch.bmm(..., out_dtype=torch.float32)``); on the CPU,
+    which has no such product, the fp32 product of the rounded operands,
+    whose products are exact in fp32 (8-bit significands)."""
+    ab, vb = a.to(torch.bfloat16), v.to(torch.bfloat16)
+    if v.device.type == "cpu":
+        return torch.bmm(ab.float(), vb.float())
+    return torch.bmm(ab, vb, out_dtype=torch.float32)
+
+
 class _AdjConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, v, adj):
+    def forward(ctx, v, adj, exact):
         a = adj.to(v.dtype)
         ctx.save_for_backward(a)
-        return torch.bmm(a, v)
+        ctx.exact = exact
+        return torch.bmm(a, v) if exact else _bmm_bf16(a, v)
 
     @staticmethod
     def backward(ctx, g):
         (a,) = ctx.saved_tensors
-        return torch.bmm(a.transpose(1, 2), g), None
+        at = a.transpose(1, 2)
+        return (torch.bmm(at, g) if ctx.exact else _bmm_bf16(at, g)), None, None
 
 
 def adj_conv(v: torch.Tensor, adj: torch.Tensor, exact: bool = True) -> torch.Tensor:
     """Aggregation by a precomputed adjacency operator, ``adj [G,S,S] @ v
     [G,S,F]``, in fp32 (TF32 off: the JAX package's "exact"); the backward
     is ``adj^T @ g`` and ``adj`` gets no gradient (JAX
-    ``ops/dense.py:452-470``). The JAX package's non-exact mode (bf16
-    operands) is not ported yet."""
-    if not exact:
-        raise NotImplementedError(
-            "adj_conv(exact=False) is not ported yet: see ROADMAP.md, queue 1 "
-            "(scanned epochs, the executable cache and the fast mode)"
-        )
-    return _AdjConv.apply(v, adj)
+    ``ops/dense.py:421-470``). ``exact=False`` is the JAX package's fast
+    mode: both products take bfloat16 operands (``v``, and the cotangent in
+    the backward, rounded to nearest even; ``adj``'s small integers are
+    exact) with fp32 accumulation and an fp32 result. The JAX package leaves
+    it to XLA, outside Pallas, so it is a library product here too."""
+    return _AdjConv.apply(v, adj, exact)

@@ -7,9 +7,11 @@ a plain C interface::
          -Xcompiler -fPIC -o ops/_build/lib<name>-<hash>.so ops/csrc/<name>.cu
 
 The build happens at first use on a CUDA tensor, never at import, and
-writes into ``ops/_build/`` (ignored by git). The library name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused.
+writes into ``ops/_build/`` (ignored by git), or into the directory that
+:func:`set_build_dir` names (the engine's ``executable_cache_dir``,
+``train/aot.py``). The library name carries a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused: a
+second process with the same directory runs no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict
 _OPS = Path(__file__).resolve().parent.parent
 CSRC = _OPS / "csrc"
 BUILD_DIR = _OPS / "_build"
+_build_dir = BUILD_DIR
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,9 +67,15 @@ _SIGNATURES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
+        "fused_gin_conv_bf16": (
+            ctypes.c_int,
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ),
         "fused_gin_conv_plan": (
             ctypes.c_int,
-            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.POINTER(ctypes.c_int)],
         ),
     },
 }
@@ -90,12 +99,24 @@ def nvcc() -> str:
     return found
 
 
+def set_build_dir(path) -> None:
+    """Build and find the libraries in ``path`` from now on (created at the
+    first build). Libraries this process has loaded already stay loaded."""
+    global _build_dir
+    _build_dir = Path(path).resolve()
+
+
+def build_dir() -> Path:
+    """The directory the libraries are built in and found in."""
+    return _build_dir
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return _build_dir / f"lib{name}-{digest}.so"
 
 
 def build(name: str) -> str:
@@ -106,7 +127,7 @@ def build(name: str) -> str:
     lib = library_path(name)
     if lib.is_file():
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -30,7 +30,10 @@ reference engine's API (reference `NeuralNet.py:18-26`)::
 ``layout="sparse"`` (default) runs the conv aggregations as kernel K1,
 ``layout="dense"`` as kernel K3 (``models/ginet.py``); ``device_cache``
 keeps the dense-collated dataset in device memory and, by default, takes
-the models' operator path (``data/device_store.py``). The engine runs on
+the models' operator path (``data/device_store.py``); ``scan_epochs`` runs
+each epoch over that store as replays of one captured step and reads the
+results back once (``train/scan.py``); ``dense_fast`` gives GINet's dense
+aggregations bf16 operands. The engine runs on
 ``device`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain versions)
 in fp32 with TF32 off, every pass under
 ``torch.use_deterministic_algorithms(True)``, dropout drawing from a
@@ -64,18 +67,16 @@ from deeprank_gnn_tpu_torch.device import (
     set_fp32_numerics,
 )
 from deeprank_gnn_tpu_torch.train import checkpoint as ckpt
+from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
 from deeprank_gnn_tpu_torch.train.losses import cross_entropy_loss, mse_loss
 from deeprank_gnn_tpu_torch.train.metrics import Metrics
+from deeprank_gnn_tpu_torch.train.scan import EpochSteps, gather_store_batch
 
 REG_TARGETS = ("irmsd", "lrmsd", "fnat", "dockQ")
 CLASS_TARGETS = ("bin_class", "capri_classes")
 # the checkpoint key of the dropout generator's state (the JAX package keeps
 # its PRNG key under "rng" and ignores this one)
 DROPOUT_KEY = "dropout_generator"
-
-
-# the ROADMAP.md queue 1 item of the store's options that are not ported yet
-_SCANNED = "scanned epochs, the executable cache and the fast mode"
 
 
 def _unported(what: str, where: str) -> NotImplementedError:
@@ -100,6 +101,16 @@ def _clusters_present(dataset: HDF5DataSet, method: str) -> bool:
     with h5py.File(fname, "r") as f:
         path = f"{mol}/clustering/{method}"
         return path in f and "depth_0" in f[path] and "depth_1" in f[path]
+
+
+def _epoch_loss(losses) -> float:
+    """An epoch's loss from its batches' losses: their sum in batch order,
+    in Python floats, as the per-batch loop adds them up (not ``sum()``,
+    which compensates its rounding since Python 3.12)."""
+    total = 0.0
+    for loss in losses:
+        total += float(loss)
+    return total
 
 
 class NeuralNet:
@@ -136,6 +147,7 @@ class NeuralNet:
         store_pack: str = "lossless",
         device_cache_bytes: Optional[int] = None,
         *,
+        dense_fast: bool = False,
         device="cuda",
     ):
         """The JAX engine's constructor (same arguments and defaults).
@@ -167,22 +179,55 @@ class NeuralNet:
         (default) or "bf16" (raw fp32 payloads of the store in bfloat16).
         Every loader the engine builds gets these three.
 
+        ``scan_epochs`` (with ``device_cache``): ``True`` runs each epoch
+        over the store as replays of one captured step and reads its
+        results back once (``train/scan.py``); ``"full"`` (with
+        ``device_cache=True``) runs a whole ``train()`` call so, validation
+        and best-model selection included, and reads back once at its end.
+        ``scan_unroll``: steps per captured graph. Without a store (empty
+        dataset, over the byte budget) an epoch runs the per-batch loop.
+
+        ``executable_cache_dir``: the directory the hand kernels are built
+        in and found in (``train/aot.py``).
+
+        ``dense_fast`` (dense layout, GINet): the paper-mode aggregations
+        with bf16 operands and fp32 accumulation, the JAX package's
+        ``DRGNN_DENSE_FAST``.
+
         ``device``: ``"cuda"`` (default) or ``"cpu"``. With no CUDA device
         and no ``device="cpu"`` the constructor raises.
 
-        ``mesh``, ``layout="halo"``, ``executable_cache_dir`` and
-        ``scan_epochs`` (and ``scan_unroll``) are not ported yet and raise
+        ``mesh`` and ``layout="halo"`` are not ported yet and raise
         ``NotImplementedError``."""
         if layout not in ("sparse", "dense", "halo"):
             raise ValueError(f"unknown layout {layout!r}")
         if mesh is not None or layout == "halo":
             raise _unported("mesh and layout='halo'", "multi-device")
-        if executable_cache_dir is not None:
-            raise _unported("executable_cache_dir", _SCANNED)
-        if scan_epochs or scan_unroll != 1:
-            raise _unported("scan_epochs and scan_unroll", _SCANNED)
         if device_cache and layout != "dense":
             raise ValueError("device_cache requires layout='dense'")
+        # the JAX engine's checks of the scan options (train/neuralnet.py:140-197)
+        if scan_epochs not in (False, True, "full"):
+            raise ValueError("scan_epochs must be False, True or 'full'")
+        if scan_epochs and not device_cache:
+            raise ValueError(
+                "scan_epochs requires device_cache=True or 'chunked'"
+            )
+        if scan_epochs == "full" and device_cache is not True:
+            raise ValueError(
+                "scan_epochs='full' requires the in-HBM store "
+                "(device_cache=True); the rotating 'chunked' store "
+                "supports scan_epochs=True (one dispatch per chunk)"
+            )
+        if int(scan_unroll) < 1:
+            raise ValueError("scan_unroll must be >= 1")
+        if dense_fast and layout != "dense":
+            raise ValueError("dense_fast requires layout='dense'")
+        self.scan_epochs = scan_epochs
+        self.scan_unroll = int(scan_unroll)
+        self.dense_fast = dense_fast
+        self.executable_cache_dir = executable_cache_dir
+        if executable_cache_dir is not None:
+            use_executable_cache(executable_cache_dir)
         self.device_cache = device_cache
         self.store_pack = store_pack
         self.device_cache_bytes = device_cache_bytes
@@ -342,10 +387,24 @@ class NeuralNet:
             num_features, output_shape, self.num_edge_features,
             device=self.device, generator=torch.Generator().manual_seed(self.seed),
         )
+        if self.dense_fast:
+            if not hasattr(self.model, "dense_fast"):
+                raise ValueError(f"dense_fast: {type(self.model).__name__} has no fast mode "
+                                 "(GINet's dense aggregations have)")
+            self.model.dense_fast = True
+        # on a card the step count and bias corrections stay on the device,
+        # so that a scanned epoch can capture the update; the per-batch loop
+        # takes the same optimizer, so both give the same numbers
         self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8
+            self.model.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+            capturable=self.device.type == "cuda",
         )
         self._dropout_generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self._scan = EpochSteps(
+            self._scan_step, unroll=self.scan_unroll,
+            generator=self._dropout_generator if self.device.type == "cuda" else None)
+        self._scan_targets = {}
+        self._chunk_buffers = {}
         payload = self._pending_model_state
         if payload is None:
             return
@@ -433,6 +492,14 @@ class NeuralNet:
         self.optimizer.step()
         return loss.detach(), pred.detach()
 
+    def _scan_step(self, store, y_all, idx, training: bool):
+        """One step of a scanned epoch on the store's slots ``idx``: the
+        gather, then an Adam step (``training``) or the forward pass."""
+        batch = gather_store_batch(store, y_all, idx)
+        if training:
+            return self._train_step(batch)
+        return self._loss_and_pred(batch)
+
     def _eval_step(self, batch):
         """Loss and predictions of ``batch`` in evaluation mode, without
         gradients (the JAX package's jitted ``eval_step``)."""
@@ -487,12 +554,299 @@ class NeuralNet:
             data["outputs"] += out
         data["raw_outputs"] += raw_outputs
 
+    def _mapped_store_targets(self, store) -> np.ndarray:
+        """The store's targets, slot by slot, with the class remap applied
+        (host numpy; the store keeps the file's targets)."""
+        mapped = np.asarray(store.y_host, dtype=np.float32)
+        if self.task == "class":
+            mapped = np.array([self.classes_to_idx.get(int(v), 0) for v in mapped],
+                              dtype=np.float32)
+        return mapped
+
+    def _store_targets(self, store, mapped: np.ndarray) -> torch.Tensor:
+        """``mapped`` on the device, uploaded once per store: the captured
+        steps read it by address."""
+        kept = self._scan_targets.get(id(store))
+        if kept is None or kept[0] is not store:
+            kept = (store, torch.from_numpy(mapped).to(self.device))
+            self._scan_targets[id(store)] = kept
+        return kept[1]
+
+    def _slots_on_device(self, slots: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _scan_buffers(self, batches: int):
+        """The device buffers of ``batches`` batches' losses and
+        predictions."""
+        per = (self.batch_size,) if self.task != "class" else (self.batch_size,
+                                                                 len(self.classes))
+        return (torch.empty(batches, device=self.device),
+                torch.empty((batches,) + per, device=self.device))
+
+    def _scan_context(self, training: bool):
+        self.model.train(training)
+        stack = contextlib.ExitStack()
+        if not training:
+            stack.enter_context(torch.inference_mode())
+        stack.enter_context(deterministic())
+        return stack
+
+    def _collect_scan_pass(self, store, mapped, slots, mols_per_batch, losses, preds):
+        """The host's bookkeeping of a scanned pass from its read-back
+        losses and predictions, as ``_run_pass`` does per batch (the epoch's
+        loss sums the batches' losses in order, as there)."""
+        out, out_m, raw_outputs, ys = [], [], [], []
+        data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
+        acc = (out, out_m, raw_outputs, ys, data)
+        for bi, mols in enumerate(mols_per_batch):
+            row = slots[bi]
+            self._collect_batch(acc, preds[bi], mols, mapped[row],
+                                np.asarray(store.y_mask_host[row], dtype=bool))
+        self._finish_pass_data(data, out, raw_outputs, ys)
+        return out, out_m, ys, _epoch_loss(losses), data
+
+    def _run_pass_scan(self, loader: GraphLoader, training: bool):
+        """One scanned epoch over the loader's store (``train/scan.py``):
+        the host plans the slot matrix, the steps run as graph replays and
+        the results are read back once. None when the loader has no store
+        (the caller runs the per-batch loop)."""
+        if loader.device_cache == "chunked":
+            return self._run_pass_scan_chunked(loader, training)
+        plan = loader.device_epoch_plan()
+        if plan is None:
+            return None
+        slots, mols_per_batch = plan
+        store = loader._store
+        mapped = self._mapped_store_targets(store)
+        y_all = self._store_targets(store, mapped)
+        losses, preds = self._scan_buffers(len(slots))
+        with self._scan_context(training):
+            self._scan.run(store.store, y_all, self._slots_on_device(slots), training,
+                           losses, preds)
+        self.model.eval()
+        return self._collect_scan_pass(store, mapped, slots, mols_per_batch,
+                                       losses.cpu().numpy(), preds.cpu().numpy())
+
+    def _chunk_sets(self, cs):
+        """Two sets of fixed device buffers (a chunk's matrices and its
+        targets) for the chunked store ``cs``, used in turn: a chunk's copy
+        into one overlaps the steps over the other, and each set's captured
+        graphs serve every chunk."""
+        kept = self._chunk_buffers.get(id(cs))
+        if kept is None or kept[0] is not cs:
+            sets = []
+            for _ in range(min(2, cs.num_chunks)):
+                buf = cs.empty_chunk()
+                rows = next(iter(buf.segments.values())).shape[0]
+                sets.append({"store": buf, "y": torch.zeros(rows, device=self.device),
+                             "released": None})
+            kept = (cs, sets)
+            self._chunk_buffers[id(cs)] = kept
+        return kept[1]
+
+    def _run_pass_scan_chunked(self, loader: GraphLoader, training: bool):
+        """One scanned epoch over the rotating chunk store: each chunk is
+        copied into one of two sets of fixed buffers on the side stream
+        while the steps over the other set run, and every chunk's steps are
+        replays of that set's graphs. The results of the whole epoch are
+        read back once. Batch order, dropout stream and numbers are those
+        of the looped chunked epoch. None when the loader has no chunk
+        store."""
+        plan = loader.chunk_epoch_plan()
+        if plan is None:
+            return None
+        cs = loader._chunk_store
+        mapped = self._mapped_store_targets(cs)
+        y_mask = np.asarray(cs.y_mask_host, dtype=bool)
+        sets = self._chunk_sets(cs)
+        counts = [len(slots) for _, slots, _ in plan]
+        losses, preds = self._scan_buffers(sum(counts))
+        slots_dev = self._slots_on_device(np.concatenate([slots for _, slots, _ in plan]))
+        cuda = self.device.type == "cuda"
+
+        def upload(pos):
+            ci = plan[pos][0]
+            start, clen = cs.chunk_ranges[ci]
+            y = torch.zeros(clen + 1, dtype=torch.float32)
+            y[:clen] = torch.from_numpy(mapped[start: start + clen])
+            if cuda:
+                y = y.pin_memory()
+            dst = sets[pos % len(sets)]
+            return cs.upload_into(ci, dst["store"], [(y, dst["y"][: clen + 1])],
+                                  after=dst["released"])
+
+        with self._scan_context(training):
+            ready = upload(0)
+            off = 0
+            for pos, (ci, slots, _mols) in enumerate(plan):
+                nxt = upload(pos + 1) if pos + 1 < len(plan) else None
+                cur = sets[pos % len(sets)]
+                if ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(ready)
+                n = counts[pos]
+                self._scan.run(cur["store"], cur["y"], slots_dev[off: off + n], training,
+                               losses[off: off + n], preds[off: off + n])
+                if cuda:
+                    cur["released"] = torch.cuda.Event()
+                    cur["released"].record(torch.cuda.current_stream(self.device))
+                ready, off = nxt, off + n
+        self.model.eval()
+        losses, preds = losses.cpu().numpy(), preds.cpu().numpy()
+        out, out_m, raw_outputs, ys = [], [], [], []
+        data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
+        acc = (out, out_m, raw_outputs, ys, data)
+        off = 0
+        for ci, slots, mols_per_batch in plan:
+            start, clen = cs.chunk_ranges[ci]
+            for bi, mols in enumerate(mols_per_batch):
+                row = slots[bi]
+                grow = np.minimum(start + row, len(cs.mols) - 1)
+                valid = (row < clen) & y_mask[grow]
+                self._collect_batch(acc, preds[off + bi], mols, mapped[grow], valid)
+            off += len(slots)
+        self._finish_pass_data(data, out, raw_outputs, ys)
+        return out, out_m, ys, _epoch_loss(losses), data
+
+    def _full_scan_plans(self, loader: GraphLoader, nepoch: int):
+        """``nepoch`` successive epoch plans, drawn as ``nepoch`` iterated
+        epochs draw them: the stacked slot matrices ``[E, B, batch]`` and
+        each epoch's molecules, or None without a store."""
+        slots_list, mols_list = [], []
+        for _ in range(nepoch):
+            plan = loader.device_epoch_plan()
+            if plan is None:
+                return None
+            s, m = plan
+            if slots_list and s.shape != slots_list[0].shape:
+                return None
+            slots_list.append(s)
+            mols_list.append(m)
+        return np.stack(slots_list), mols_list
+
+    def _train_full_scan(self, nepoch, validate, save_model, save_epoch, save_every) -> bool:
+        """A whole ``train()`` call of scanned epochs (JAX
+        ``make_train_scan``): every epoch's training pass, its validation
+        pass and the best-model selection run on the device with the
+        epochs' graphs, and the host reads the results back once, when the
+        run ends; then it replays each epoch's bookkeeping (metrics, prints,
+        epoch-data export). The best parameters so far are kept on the
+        device, replaced where the epoch's selection loss (the validation
+        losses' sum, else the training losses') is at most the best so far,
+        which starts at the least of any earlier ``train()`` call's
+        losses. ``save_model="best"`` writes one checkpoint, for the winning
+        epoch. False when a loader has no store (the caller runs the
+        per-epoch passes)."""
+        tplan = self._full_scan_plans(self.train_loader, nepoch)
+        if tplan is None:
+            return False
+        slots_te, mols_te = tplan
+        tstore = self.train_loader._store
+        mapped_t = self._mapped_store_targets(tstore)
+        y_t = self._store_targets(tstore, mapped_t)
+        track_best = save_model == "best"
+        if validate:
+            vplan = self._full_scan_plans(self.valid_loader, nepoch)
+            if vplan is None:
+                return False
+            slots_ve, mols_ve = vplan
+            vstore = self.valid_loader._store
+            mapped_v = self._mapped_store_targets(vstore)
+            y_v = self._store_targets(vstore, mapped_v)
+        prior = self.valid_loss if validate else self.train_loss
+        best_floor = float(min(prior)) if (track_best and prior) else np.inf
+        t0 = time()
+        params = list(self.model.parameters())
+        tl, tp = self._scan_buffers(nepoch * slots_te.shape[1])
+        tl, tp = tl.view(nepoch, -1), tp.view((nepoch, -1) + tp.shape[1:])
+        st = self._slots_on_device(slots_te)
+        if validate:
+            vl, vp = self._scan_buffers(nepoch * slots_ve.shape[1])
+            vl, vp = vl.view(nepoch, -1), vp.view((nepoch, -1) + vp.shape[1:])
+            sv = self._slots_on_device(slots_ve)
+        if track_best:
+            best = [p.detach().clone() for p in params]
+            best_loss = torch.tensor(best_floor, dtype=torch.float64, device=self.device)
+            best_epoch = torch.tensor(-1, dtype=torch.int64, device=self.device)
+        for e in range(nepoch):
+            with self._scan_context(True):
+                self._scan.run(tstore.store, y_t, st[e], True, tl[e], tp[e])
+            if validate:
+                with self._scan_context(False):
+                    self._scan.run(vstore.store, y_v, sv[e], False, vl[e], vp[e])
+            self.model.eval()
+            if track_best:
+                sel = (vl[e] if validate else tl[e]).to(torch.float64).sum()
+                improved = sel <= best_loss
+                with torch.no_grad():
+                    for b, p in zip(best, params):
+                        b.copy_(torch.where(improved, p, b))
+                best_loss = torch.where(improved, sel, best_loss)
+                best_epoch = torch.where(improved, torch.full_like(best_epoch, e), best_epoch)
+        tl, tp = tl.cpu().numpy(), tp.cpu().numpy()
+        if validate:
+            vl, vp = vl.cpu().numpy(), vp.cpu().numpy()
+        t_share = (time() - t0) / max(nepoch, 1)
+        for e in range(nepoch):
+            epoch = e + 1
+            _out, _out_m, _y, _loss, self.data["train"] = self._collect_scan_pass(
+                tstore, mapped_t, slots_te[e], mols_te[e], tl[e], tp[e])
+            self.train_loss.append(_loss)
+            self.train_out = _out
+            self._train_out_m = _out_m
+            self.train_y = _y
+            _acc = self.get_metrics("train", self.threshold).accuracy
+            self.train_acc.append(_acc)
+            self.print_epoch_data("train", epoch, _loss, _acc, t_share)
+            if validate:
+                _out, _out_m, _y, _val_loss, self.data["eval"] = self._collect_scan_pass(
+                    vstore, mapped_v, slots_ve[e], mols_ve[e], vl[e], vp[e])
+                self.valid_loss.append(_val_loss)
+                self.valid_out = _out
+                self._valid_out_m = _out_m
+                self.valid_y = _y
+                _val_acc = self.get_metrics("eval", self.threshold).accuracy
+                self.valid_acc.append(_val_acc)
+                self.print_epoch_data("valid", epoch, _val_loss, _val_acc, t_share)
+            elif track_best and min(self.train_loss) == _loss:
+                print(
+                    "WARNING: The training set is used both for "
+                    "learning and model selection."
+                )
+            if (save_epoch == "all") or (epoch == nepoch):
+                self._export_epoch_hdf5(epoch, self.data)
+            elif save_epoch == "intermediate" and epoch % save_every == 0:
+                self._export_epoch_hdf5(epoch, self.data)
+        if track_best:
+            be = int(best_epoch)
+            if be >= 0:
+                # the winner's parameters into the model for the save, in
+                # place (the graphs read them by address), then back
+                with torch.no_grad():
+                    current = [p.detach().clone() for p in params]
+                    for p, b in zip(params, best):
+                        p.copy_(b)
+                try:
+                    self.save_model(filename=self._ckpt_name(nepoch, be + 1))
+                finally:
+                    with torch.no_grad():
+                        for p, c in zip(params, current):
+                            p.copy_(c)
+        return True
+
     def _run_pass(self, loader: GraphLoader, training: bool = False):
         """One pass over ``loader``: host collation on a worker thread,
         asynchronous copies to the device, and per batch an Adam step
         (``training``) or a forward pass, under deterministic algorithms.
+        With ``scan_epochs`` and a store, the scanned epoch instead.
         Returns ``(out, out_m, ys, loss, data)``; ``loss`` sums the
         batches' losses."""
+        if self.scan_epochs:
+            res = self._run_pass_scan(loader, training)
+            if res is not None:
+                return res
         out, out_m, raw_outputs, ys = [], [], [], []
         data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
         running_loss = 0.0
@@ -537,13 +891,25 @@ class NeuralNet:
         the last). ``profile``: a directory; the second epoch's training
         pass is recorded with ``torch.profiler`` (host activity, and the
         card's on a card) and written there as a Chrome trace that
-        TensorBoard reads (JAX ``train/neuralnet.py:1078-1110``)."""
+        TensorBoard reads (JAX ``train/neuralnet.py:1078-1110``). With
+        ``scan_epochs="full"`` and no ``profile`` the whole call runs as
+        one scanned run (:meth:`_train_full_scan`)."""
         import h5py
 
         fname = self.update_name(hdf5, self.outdir)
         with h5py.File(fname, "w") as self.f5:
             self.nepoch = nepoch
             self.data = {}
+            if (
+                self.scan_epochs == "full"
+                and profile is None
+                and nepoch >= 1
+                and (not validate or self.valid_loader is not None)
+                and self._train_full_scan(nepoch, validate, save_model, save_epoch, save_every)
+            ):
+                if save_model == "last":
+                    self.save_model(filename=self._ckpt_name(nepoch))
+                return
             for epoch in range(1, nepoch + 1):
                 recorder = (self._profiler(profile) if profile is not None and epoch == 2
                             else contextlib.nullcontext())

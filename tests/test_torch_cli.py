@@ -7,9 +7,10 @@ reads HDF5 and ``train()`` writes its epoch file) nor ``matplotlib``.
   and its checkpoint loads in the JAX engine with the same predictions;
   ``main(["test", ...])`` on a JAX checkpoint prints JAX's predictions
   within tolerance; an unknown model exits with JAX's message;
-  ``--scan-epochs`` and the three host subcommands raise, naming their
-  ROADMAP items; the parsers take JAX's arguments and defaults (plus
-  ``--device``); ``python -m deeprank_gnn_tpu_torch`` runs;
+  ``--scan-epochs`` trains, and the three host subcommands raise, naming
+  their ROADMAP items; the parsers take JAX's arguments and defaults (plus
+  ``--device`` and ``train``'s ``--dense-fast``); ``python -m
+  deeprank_gnn_tpu_torch`` runs;
 - the four plots write JAX's file names, ``plot_hit_rate`` plots JAX's
   values, and after ``plot_scatter`` the next epoch's order is JAX's;
 - ``train(profile=dir)`` writes one trace that parses as JSON, and its
@@ -121,17 +122,24 @@ def test_cli_unknown_model_exits_as_jax(db):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--layout", "dense", "--device-cache", "--scan-epochs"],
-     "scanned epochs, the executable cache and the fast mode"),
+    (["train", "--layout", "dense", "--device-cache", "--scan-epochs"], None),
     (["graphgen", "--pdb", "x.pdb"], "the featurizer and the tools"),
     (["add-target", "g.hdf5", "name", "targets.lst"], "the featurizer and the tools"),
     (["hdf5-to-csv", "train_data.hdf5"], "the featurizer and the tools"),
 ], ids=["scan-epochs", "graphgen", "add-target", "hdf5-to-csv"])
-def test_cli_unported_raise(db, tmp_path, argv, item):
+def test_cli_unported_raise(db, tmp_path, argv, item, capsys):
+    """The host subcommands raise, naming their ROADMAP item; ``--scan-epochs``
+    (``item`` None) is ported and trains with scanned epochs."""
     from deeprank_gnn_tpu_torch.cli import main
 
     if argv[0] == "train":
-        argv = argv + ["--database", db, "--outdir", str(tmp_path), "--device", "cpu"]
+        argv = argv + ["--database", db, "--outdir", str(tmp_path), "--device", "cpu",
+                       "--node-feature", ",".join(FEATURE_NAMES), "--target", "fnat",
+                       "--epochs", "2", "--batch-size", "4"]
+    if item is None:
+        main(argv)
+        assert "final train loss:" in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 \\({item}\\)"):
         main(argv)
 
@@ -150,10 +158,12 @@ def test_cli_parsers_match_jax():
     from deeprank_gnn_tpu.cli import build_parser as jax_parser
     from deeprank_gnn_tpu_torch.cli import build_parser
 
-    assert parser_spec(build_parser()) == parser_spec(jax_parser())
+    assert (parser_spec(build_parser(), skip=("device", "dense_fast"))
+            == parser_spec(jax_parser()))
     spec = parser_spec(build_parser(), skip=())
     for cmd in ("train", "test"):
         assert (("--device",), "device", "cuda", ("cuda", "cpu"), False, None) in spec[cmd]
+    assert (("--dense-fast",), "dense_fast", False, None, False, None) in spec["train"]
 
 
 def test_python_m_trains(db, tmp_path):

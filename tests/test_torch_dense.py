@@ -458,7 +458,8 @@ def test_dense_ginet_routes_through_k3(batches, monkeypatch):
     calls = []
     real = ginet_module.fused_gin_conv
     monkeypatch.setattr(ginet_module, "fused_gin_conv",
-                        lambda xw, r, c: calls.append(xw.shape[2]) or real(xw, r, c))
+                        lambda xw, r, c, exact=True: calls.append(xw.shape[2])
+                        or real(xw, r, c, exact))
     with torch.inference_mode():
         GINet(tb.x.shape[2], 1, 1, device="cpu")(tb)
         assert calls == [32, 64]  # one K3 call per conv level, fused

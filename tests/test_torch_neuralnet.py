@@ -185,7 +185,8 @@ def test_in_memory_graphs_score_like_the_file(db, tmp_path):
 def test_no_silent_cpu_fallback_and_no_training(db, tmp_path):
     """Training is ported: the constructor without a checkpoint prepares
     it, and a pretrained engine trains on. What is not ported yet still
-    raises, and ``cuda`` without a card is refused."""
+    raises, ``scan_epochs`` without a device store is refused as in JAX,
+    and ``cuda`` without a card is refused."""
     from deeprank_gnn_tpu_torch import GINet, NeuralNet
 
     ckpt = torch_checkpoint(str(tmp_path / "model.pt"), "fnat", "reg", 1, 0.3)
@@ -195,7 +196,7 @@ def test_no_silent_cpu_fallback_and_no_training(db, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NeuralNet(db, GINet, target="fnat", layout="halo", device="cpu")
     nn = NeuralNet(db, GINet, pretrained_model=ckpt, outdir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="scan_epochs requires device_cache"):
         NeuralNet(db, GINet, pretrained_model=ckpt, scan_epochs=True, device="cpu")
     nn.train(nepoch=1, save_model=None)
     assert len(nn.train_loss) == 1 and np.isfinite(nn.train_loss).all()

@@ -9,7 +9,8 @@
 - cross-loading: a port checkpoint loads in the JAX engine with the same
   predictions and Adam moments, and a JAX checkpoint with its optimizer
   resumes in the port with the same losses;
-- the options that are not ported raise.
+- the options that are not ported raise, and the scan options and the
+  executable cache, ported since, take the JAX engine's checks.
 """
 
 import os
@@ -236,15 +237,36 @@ UNPORTED = [
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)) + "=" + str(
     next(iter(kw.values())))[:12])
-def test_unported_engine_options_raise(db, tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_engine(db, str(tmp_path), target="fnat", **kw)
+def test_unported_engine_options_raise(db, tmp_path, kw, monkeypatch):
+    """``mesh`` and ``layout="halo"`` are not ported and raise. The scan
+    options and ``executable_cache_dir`` are ported: ``scan_epochs``
+    without ``device_cache`` raises the JAX engine's error, and the other
+    two construct as in JAX (``executable_cache_dir`` sets the kernels'
+    build directory)."""
+    from deeprank_gnn_tpu_torch.ops.kernels import build
+
+    monkeypatch.setattr(build, "_build_dir", build.build_dir())
+    if "mesh" in kw or "layout" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_engine(db, str(tmp_path), target="fnat", **kw)
+    elif "scan_epochs" in kw:
+        with pytest.raises(ValueError) as want:
+            jax_engine(db, str(tmp_path / "j"), target="fnat", **kw)
+        with pytest.raises(ValueError) as got:
+            port_engine(db, str(tmp_path), target="fnat", **kw)
+        assert str(got.value) == str(want.value) and "device_cache" in str(got.value)
+    else:
+        t = port_engine(db, str(tmp_path), target="fnat", **kw)
+        assert t.scan_unroll == kw.get("scan_unroll", 1)
+        if "executable_cache_dir" in kw:
+            assert str(build.build_dir()) == os.path.abspath("cache")
 
 
 def test_unported_methods_raise(db, tmp_path):
     """The engine's methods that raised before (the plots and ``profile=``)
-    are ported: each runs on the CPU and writes its file. What is left of
-    the device store's ROADMAP item (the fast mode) raises, naming it."""
+    are ported: each runs on the CPU and writes its file. The fast mode,
+    the last of the device store's ROADMAP item, is ported too:
+    ``adj_conv(exact=False)`` multiplies the bf16-rounded operands."""
     from deeprank_gnn_tpu_torch.ops.dense import adj_conv
 
     t = port_engine(db, str(tmp_path), target="fnat", batch_size=4, percent=[0.8, 0.2])
@@ -253,8 +275,11 @@ def test_unported_methods_raise(db, tmp_path):
     for name in ("plot_loss", "plot_acc", "plot_hit_rate", "plot_scatter"):
         getattr(t, name)()
     assert {"loss_epoch.png", "acc_epoch.png", "scatter.png"} <= set(os.listdir(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*scanned epochs"):
-        adj_conv(torch.zeros(1, 2, 3), torch.zeros(1, 2, 2), exact=False)
+    v = torch.full((1, 2, 3), 1.0 + 2.0 ** -10)
+    adj = torch.ones(1, 2, 2)
+    torch.testing.assert_close(adj_conv(v, adj, exact=False), torch.full((1, 2, 3), 2.0),
+                               rtol=0, atol=0)
+    assert not torch.equal(adj_conv(v, adj), torch.full((1, 2, 3), 2.0))
 
 
 def zoo_nets(name):
