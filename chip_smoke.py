@@ -123,7 +123,32 @@ Phases, each of which raises on failure:
    the operators: K3's fast variant inside the graph (52 launches an
    epoch, traced as the bf16 kernel), bitwise the looped fast epoch and
    within ``BF16_TOL`` of the exact path's loss; the fast operator path
-   (``adj_conv`` with bf16 operands) scanned for one epoch.
+   (``adj_conv`` with bf16 operands) scanned for one epoch;
+11. multi-device (``parallel/``): two worker processes started with
+   ``torch.multiprocessing`` spawn form one gloo group over a ``file://``
+   store in the run's temporary directory, both on cuda:0 (NCCL refuses
+   two ranks on one card; gloo stages the CUDA tensors through the host),
+   and load the kernels from phase 2's cache (running ``nvcc`` fails
+   them). On 512 of the graphs (4 batches of 128) each rank runs
+   paper-mode GINet on three paths: the halo layout
+   (``layout="halo", mesh=make_halo_mesh()``; K1 3 launches per batch,
+   served and trained), the dense graph-parallel mesh (``make_mesh(dp=2,
+   ep=1)``; K3 2 per served batch, 4 per training batch, over 64 graphs)
+   and the sparse one (``make_mesh()``, dp=1 x ep=2; K1 2 per batch). Each
+   is served from phase 4's checkpoint against the single-process card run
+   at ``TOL``, its first 4 Adam steps (dropout off) against the
+   single-process card run at ``TOL``, and with dropout on the engine's
+   training pass (``_run_pass``) run twice from one seed, losses and
+   parameters bitwise equal, both ranks' parameters bitwise equal after
+   each epoch; the launch counts, walls and the profiled epoch are that
+   pass's. The same epoch taken a step at a time gives the pass's loss
+   bitwise, with both ranks' parameters equal after every step. One halo
+   training step's
+   collective bytes equal its plan and lie below an all-gather of the node
+   array. Each rank prints its graphs/s (gloo times, host staging
+   included). Then this process alone forms an NCCL group of one and runs
+   one halo and one dense-mesh training pass of one batch on NCCL's
+   collectives.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -1853,6 +1878,396 @@ def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list) -
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 11. multi-device: two gloo ranks on the one card, then an NCCL group of one
+
+MESH_GRAPHS = 512  # 4 batches of 128
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600
+# per batch and rank: K1 runs 3 times per halo forward (the local and remote
+# sums of the fused towers, the pooled conv; its gradient is plain torch)
+# and 2 times per sparse graph-parallel forward; K3 2 times per dense
+# forward and 2 more in the backward
+MESH_PATHS = {
+    "halo": ("sparse", {"sorted_segment_sum": 3}, {"sorted_segment_sum": 3}),
+    "dense_mesh": ("dense", {"fused_gin_conv": 2}, {"fused_gin_conv": 4}),
+    "sparse_mesh": ("sparse", {"sorted_segment_sum": 2}, {"sorted_segment_sum": 2}),
+}
+
+
+def _no_nvcc():
+    raise AssertionError("a mesh worker ran nvcc: it must load the kernels from the cache")
+
+
+def _mesh_of(path: str):
+    from deeprank_gnn_tpu_torch.parallel.mesh import make_halo_mesh, make_mesh
+
+    if path == "halo":
+        return make_halo_mesh()
+    return make_mesh(dp=2, ep=1) if path == "dense_mesh" else make_mesh()
+
+
+def _ranks_equal(model) -> bool:
+    """Whether every rank holds bitwise this rank's parameters (gathered
+    straight through torch.distributed, outside the byte counter)."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, flat)
+    return all(torch.equal(p, flat) for p in parts)
+
+
+def mesh_epoch(nn, steps=None, check_ranks: bool = False):
+    """Adam steps of a mesh engine over its training loader, one at a time
+    outside the engine's pass (``steps``: stop after that many), with the
+    ranks' parameters compared after every step (``check_ranks``): the
+    parity check and the per-step rank check beside the engine's
+    ``_run_pass``. Returns the losses and the wall time."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.device import deterministic
+
+    losses = []
+    t0 = time.perf_counter()
+    with deterministic():
+        for i, (batch, _mols) in enumerate(nn.train_loader):
+            if i == steps:
+                break
+            item = nn._shard(nn._map_targets_host(batch)).to(nn.device)
+            loss, _pred = nn._mesh_steps.train(item, nn._dropout_generator)
+            losses.append(float(loss))
+            if check_ranks and not _ranks_equal(nn.model):
+                raise AssertionError(f"step {i}: the ranks' parameters differ")
+    torch.cuda.synchronize()
+    nn.model.eval()
+    return losses, time.perf_counter() - t0
+
+
+def _train_engine(dataset, layout: str, seed: int, outdir: str, mesh=None):
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    return NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
+                     target="fnat", batch_size=BATCH, percent=[1.0, 0.0], seed=seed,
+                     layout=layout, mesh=mesh, device="cuda", outdir=outdir)
+
+
+def mesh_bounds(path: str, nn, loader, training: bool) -> dict:
+    """The hand kernel's bound per batch on this rank for ``loader``'s
+    batches as the mesh engine ``nn`` places them: K1 over the halo's local
+    and remote sums (32 columns) and its pooled conv (64), or over a sparse
+    range's two convs; K3 over a dense slice's two convs (and backward when
+    ``training``)."""
+    if path == "dense_mesh":
+        return {"fused_gin_conv": dense_bound_per_batch(loader, training)}
+    bounds = []
+    for batch, _ in loader:
+        item = nn._shard(nn._map_targets_host(batch))
+        if path == "halo":
+            bounds.append(k1_bound_ms(int(item.loc_rowptr[-1]), item.nl, 32)
+                          + k1_bound_ms(int(item.rem_rowptr[-1]), item.nl, 32)
+                          + k1_bound_ms(int(item.pe_rowptr[-1]), item.num_clusters0, 64))
+        else:
+            b = item.batch
+            bounds.append(k1_bound_ms(int(b.edge_rowptr[-1]), b.num_nodes, 32)
+                          + k1_bound_ms(int(b.pe_rowptr[-1]), b.num_clusters0, 64))
+    return {"sorted_segment_sum": float(np.mean(bounds))}
+
+
+def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> dict:
+    """One mesh path on this rank: served from ``ckpt`` against the
+    single-process card run (``ref``), K1/K3 launches per batch, then
+    trained: the first 4 Adam steps with dropout off against the
+    single-process card run, and with dropout on the engine's training
+    pass twice from one seed, bitwise equal, the ranks bitwise equal after
+    each epoch, and once a step at a time, the ranks bitwise equal after
+    every step."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+    from deeprank_gnn_tpu_torch.parallel import collectives
+    from deeprank_gnn_tpu_torch.parallel.distributed import process_index
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    rank = process_index()
+    ref_layout, serve_per_batch, train_per_batch = MESH_PATHS[path]
+    layout = "halo" if path == "halo" else ref_layout
+    out = {}
+    nn = NeuralNet(dataset, GINet, pretrained_model=ckpt, layout=layout, mesh=_mesh_of(path),
+                   device="cuda", outdir=os.path.join(tmp, f"{path}_serve{rank}"))
+    batches = len(nn.test_loader)
+    walls = []
+    for _ in range(2):
+        LAUNCHES.clear()
+        collectives.reset_collective_bytes()
+        t0 = time.perf_counter()
+        pred, _om, _ys, loss, data = nn.eval(nn.test_loader)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        if launches != per_pass(serve_per_batch, batches):
+            raise AssertionError(f"{path} serve: rank {rank} launched {launches} in {batches} "
+                                 f"batches, want {serve_per_batch} per batch")
+    want = np.array([ref["pred"][m] for m in data["mol"]])
+    pred = np.asarray(pred, dtype=np.float64)
+    if not np.isfinite(pred).all():
+        raise AssertionError(f"{path} serve: predictions not finite")
+    np.testing.assert_allclose(pred, want, **TOL)
+    np.testing.assert_allclose(loss, ref["loss"], **TOL)
+    out["serve"] = {"graphs": len(pred), "batches": batches, "walls": walls,
+                    "graphs_per_s": [len(pred) / w for w in walls], "launches": launches,
+                    "max_abs": float(np.abs(pred - want).max()),
+                    "collective_bytes": collectives.collective_bytes(),
+                    "where": profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader,
+                                          mesh_bounds(path, nn, nn.test_loader, False))}
+
+    rate = GINet.dropout_rate
+    GINet.dropout_rate = 0.0
+    try:
+        parity, _ = mesh_epoch(_train_engine(dataset, layout, seed,
+                                             os.path.join(tmp, f"{path}_p{rank}"),
+                                             _mesh_of(path)), PARITY_STEPS)
+    finally:
+        GINet.dropout_rate = rate
+    np.testing.assert_allclose(parity, ref["parity"], **TOL)
+
+    # the main path: the engine's training pass, dropout on (counts and
+    # byte counters cleared just before each epoch and read just after;
+    # the ranks' parameters compared after it)
+    def epoch(nn):
+        LAUNCHES.clear()
+        collectives.reset_collective_bytes()
+        t0 = time.perf_counter()
+        loss = nn._run_pass(nn.train_loader, training=True)[3]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, nbytes = dict(LAUNCHES), collectives.collective_bytes()
+        if not _ranks_equal(nn.model):
+            raise AssertionError(f"{path} train: the ranks' parameters differ after an epoch")
+        return loss, wall, launches, nbytes
+
+    def params(nn):
+        return {k: v.clone() for k, v in nn.model.state_dict().items()}
+
+    def same(pa, pb):
+        return all(torch.equal(v, pb[k]) for k, v in pa.items())
+
+    engines = [_train_engine(dataset, layout, seed, os.path.join(tmp, f"{path}_{name}{rank}"),
+                             _mesh_of(path)) for name in ("a", "b")]
+    (la, wa, launches, nbytes), (lb, _wb, _lcb, _nb) = [epoch(nn) for nn in engines]
+    pa, pb = params(engines[0]), params(engines[1])
+    if la != lb or not same(pa, pb):
+        raise AssertionError(f"{path} train: two runs from one seed differ: {la} {lb}")
+    nn = engines[1]
+    batches = len(nn.train_loader)
+    if launches != per_pass(train_per_batch, batches) or not np.isfinite(la):
+        raise AssertionError(f"{path} train: rank {rank} launched {launches} in {batches} "
+                             f"batches, want {train_per_batch} per batch; loss {la}")
+    # the same epoch a step at a time: the ranks' parameters equal after
+    # every step, and losses and parameters bitwise the engine pass's
+    c = _train_engine(dataset, layout, seed, os.path.join(tmp, f"{path}_c{rank}"),
+                      _mesh_of(path))
+    steps, _ = mesh_epoch(c, check_ranks=True)
+    if sum(steps) != la or not same(params(c), pa):
+        raise AssertionError(f"{path} train: step by step {steps}, engine pass {la}")
+    # run b's second epoch (warm), then a third under the profiler
+    graphs = len(nn.train_loader.dataset)
+    warm = epoch(nn)[1]
+    where = profile_pass(lambda: nn._run_pass(nn.train_loader, training=True), nn.train_loader,
+                         mesh_bounds(path, nn, nn.train_loader, True))
+    out["train"] = {"graphs": graphs, "batches": batches, "parity_losses": parity,
+                    "parity_max_abs": float(np.abs(np.subtract(parity, ref["parity"])).max()),
+                    "epoch_loss": la, "step_losses": steps, "walls": [wa, warm],
+                    "graphs_per_s": [graphs / wa, graphs / warm], "launches": launches,
+                    "collective_bytes": nbytes, "where": where}
+    return out
+
+
+def halo_bytes_check(dataset, seed: int, tmp: str) -> dict:
+    """One halo training step's collective bytes against its plan: ``D *
+    H * 32 * 4`` per boundary exchange each way (both towers, 32 wide, in
+    one exchange), the pooled combine's all-gather of ``C0 * 33 * 4`` and
+    its backward of ``D`` times that, one all-reduce of the gradients; the
+    exchange below an all-gather of the ``[Nl, 32]`` node array (forward
+    and backward) at the same batch."""
+    from deeprank_gnn_tpu_torch.parallel import collectives, halo
+
+    nn = _train_engine(dataset, "halo", seed, os.path.join(tmp, "bytes"), _mesh_of("halo"))
+    batch, _ = next(iter(nn.train_loader))
+    plan = halo.partition_batch(nn._map_targets_host(batch), MESH_RANKS)
+    d, h, nl, c0 = MESH_RANKS, plan.send_idx.shape[-1], plan.nl, plan.num_clusters0
+    n_params = sum(p.numel() for p in nn.model.parameters())
+    item = halo.shard_halo_batch(plan, nn._mesh_steps.mesh).to(nn.device)
+    collectives.reset_collective_bytes()
+    nn._mesh_steps.train(item, nn._dropout_generator)
+    counted = collectives.collective_bytes()
+    want = {"all_to_all/forward": d * h * 32 * 4, "all_to_all/backward": d * h * 32 * 4,
+            "all_gather/forward": c0 * 33 * 4, "all_gather/backward": d * c0 * 33 * 4,
+            "all_reduce/gradients": n_params * 4}
+    node_gather = nl * 32 * 4 + d * nl * 32 * 4
+    if counted != want or not counted["all_to_all/forward"] * 2 < node_gather:
+        raise AssertionError(f"halo bytes: counted {counted}, plan {want}, node all-gather "
+                             f"{node_gather}")
+    return {"counted": counted, "H": h, "Nl": nl, "C0": c0, "node_all_gather_bytes": node_gather}
+
+
+def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str) -> None:
+    """A spawned rank of phase 11: joins the gloo group over ``store`` on
+    cuda:0, loads the kernels from ``kdir`` (running ``nvcc`` fails it),
+    computes the single-process card references, runs every mesh path and
+    writes its results to ``results/rank<r>.json``."""
+    import datetime
+
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+    from deeprank_gnn_tpu_torch.device import set_fp32_numerics
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.ops.kernels import build
+    from deeprank_gnn_tpu_torch.parallel import distributed
+    from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
+
+    set_fp32_numerics()
+    build.nvcc = _no_nvcc
+    use_executable_cache(kdir)
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{store}", MESH_RANKS, rank, device="cuda:0",
+                           backend="gloo", timeout=datetime.timedelta(seconds=180))
+    try:
+        dataset = GraphListDataSet(build_graphs(seed, MESH_GRAPHS))
+        ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
+        out = {"start_s": time.perf_counter() - t0}
+        refs = {}
+        for ref_layout in ("sparse", "dense"):
+            nn, pred, loss, _w, _l = serve(dataset, ckpt, "cuda",
+                                           os.path.join(tmp, f"mref_{ref_layout}{rank}"), 1,
+                                           ref_layout, GINet)
+            rate = GINet.dropout_rate
+            GINet.dropout_rate = 0.0
+            try:
+                parity = first_steps(_train_engine(dataset, ref_layout, seed, os.path.join(
+                    tmp, f"mref_train_{ref_layout}{rank}")), PARITY_STEPS)
+            finally:
+                GINet.dropout_rate = rate
+            # the test loader keeps the dataset's order
+            mols = [g.mol for g in dataset.graphs]
+            refs[ref_layout] = {"pred": dict(zip(mols, pred)), "loss": loss, "parity": parity}
+        for path, (ref_layout, _s, _t) in MESH_PATHS.items():
+            t1 = time.perf_counter()
+            out[path] = mesh_path(path, dataset, ckpt, tmp, seed, refs[ref_layout])
+            out[path]["phase_s"] = time.perf_counter() - t1
+        out["halo_bytes"] = halo_bytes_check(dataset, seed, tmp)
+        out["worker_s"] = time.perf_counter() - t0
+        with open(os.path.join(results, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        distributed.shutdown()
+        torch.cuda.synchronize()
+
+
+def nccl_group_check(tmp: str, seed: int) -> dict:
+    """The parent alone as an NCCL group of one on the card: one halo and
+    one dense-mesh training pass of one batch (the engine's ``_run_pass``)
+    execute NCCL's collectives (the one-rank
+    all-to-all, all-gather, reduce-scatter and all-reduce), each step's
+    loss matching the single-process card run's first step."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.parallel import collectives, distributed
+    from deeprank_gnn_tpu_torch.parallel.mesh import make_halo_mesh, make_mesh
+
+    distributed.initialize(f"file://{os.path.join(tmp, 'nccl_store')}", 1, 0, device="cuda:0")
+    out = {}
+    try:
+        import torch.distributed as dist
+
+        out["backend"] = dist.get_backend()
+        dataset = GraphListDataSet(build_graphs(seed, BATCH))
+        for label, layout, mesh in (("halo", "halo", make_halo_mesh()),
+                                    ("dense_mesh", "dense", make_mesh())):
+            rate = GINet.dropout_rate
+            GINet.dropout_rate = 0.0
+            try:
+                ref = first_steps(_train_engine(dataset, "dense" if layout == "dense" else "sparse",
+                                                seed, os.path.join(tmp, f"nccl_ref_{label}")), 1)
+                nn = _train_engine(dataset, layout, seed, os.path.join(tmp, f"nccl_{label}"),
+                                   mesh)
+                collectives.reset_collective_bytes()
+                t0 = time.perf_counter()
+                # the engine's training pass over one batch: one step
+                loss = nn._run_pass(nn.train_loader, training=True)[3]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                GINet.dropout_rate = rate
+            np.testing.assert_allclose([loss], ref, **TOL)
+            out[label] = {"loss": loss, "single_process_loss": ref[0], "wall_s": wall,
+                          "collective_bytes": collectives.collective_bytes()}
+        if not out["halo"]["collective_bytes"].get("all_to_all/backward"):
+            raise AssertionError(f"nccl: the halo step issued no all-to-all: {out}")
+    finally:
+        distributed.shutdown()
+    return out
+
+
+def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
+    """Phase 11: two spawned gloo ranks on the card (``mesh_worker``), each
+    exit code checked, then the NCCL group of one in this process."""
+    import torch.multiprocessing as mp
+
+    results = os.path.join(tmp, "mesh_results")
+    os.makedirs(results)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_worker, args=(os.path.join(tmp, "mesh_store"), kdir, tmp, seed,
+                                                results),
+                             nprocs=MESH_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                raise AssertionError(f"mesh workers still running after {MESH_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in ctx.processes]
+    if codes != [0] * MESH_RANKS:
+        raise AssertionError(f"mesh workers exited {codes}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(results, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for path in MESH_PATHS:
+            s, t = res[path]["serve"], res[path]["train"]
+            log(f"mesh {path} rank {r} (gloo, CUDA tensors staged through the host): serve "
+                f"{s['graphs']} graphs in {s['batches']} batches, graphs/s {s['graphs_per_s']} "
+                f"(cold, warm), launches {s['launches']}, max abs vs single process "
+                f"{s['max_abs']}, collective bytes {s['collective_bytes']}; train "
+                f"{t['graphs']} graphs in {t['batches']} batches, graphs/s {t['graphs_per_s']} "
+                f"(the engine's training pass: first epoch, warm epoch), epoch loss "
+                f"{t['epoch_loss']} (step by step {t['step_losses']}), launches "
+                f"{t['launches']}, first {PARITY_STEPS} "
+                f"losses {t['parity_losses']} (max abs vs single process "
+                f"{t['parity_max_abs']}), collective bytes {t['collective_bytes']}")
+            log(f"mesh {path} rank {r} serve breakdown " + json.dumps(s["where"]))
+            log(f"mesh {path} rank {r} train breakdown " + json.dumps(t["where"]))
+        log(f"mesh halo bytes rank {r}: " + json.dumps(res["halo_bytes"]))
+        log(f"mesh rank {r}: start {res['start_s']:.1f} s, worker {res['worker_s']:.1f} s")
+    t1 = time.perf_counter()
+    nccl = nccl_group_check(tmp, seed)
+    log("mesh nccl group of one: " + json.dumps(nccl))
+    log(f"phase mesh: {time.perf_counter() - t0:.1f} s (spawned ranks {spawn_s:.1f} s, nccl "
+        f"{time.perf_counter() - t1:.1f} s)")
+    return {"ranks": ranks, "nccl": nccl}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1982,6 +2397,8 @@ def run(args, kdir: str) -> int:
         t0 = time.perf_counter()
         fast = fast_phase(dataset, tmp, args.seed, kdir, scan["k3"]["losses"])
         log(f"phase fast: {time.perf_counter() - t0:.1f} s")
+        # 11. multi-device
+        mesh = mesh_phase(tmp, kdir, args.seed)
 
     k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
     k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
@@ -1996,10 +2413,20 @@ def run(args, kdir: str) -> int:
     s_where, d_where = served["sparse"]["where"], served["dense"]["where"]
     t_sparse, t_dense = trained["sparse"]["where"], trained["dense"]["where"]
     a_serve, a_train = att["serve"]["where"], att["train"]["where"]
+
+    def mesh_launches(name: str) -> dict:
+        """A kernel's launches on rank 0 of phase 11 (both ranks are checked
+        against the same counts): each mesh path's serving pass and
+        training epoch of 4 batches."""
+        r0 = mesh["ranks"][0]
+        return {f"{path}_{kind}": r0[path][kind]["launches"].get(name, 0)
+                for path in MESH_PATHS for kind in ("serve", "train")}
+
     line = {"kernels": [
         {
             "name": "sorted_segment_sum",
             **KERNELS["sorted_segment_sum"],
+            "mesh_launches_per_rank": mesh_launches("sorted_segment_sum"),
             # the paper-mode sparse serving pass (slice 1's main path)
             "launches": served["sparse"]["launches"]["sorted_segment_sum"],
             "max_abs_err": max(r["max_abs_err"] for r in k1),
@@ -2045,6 +2472,7 @@ def run(args, kdir: str) -> int:
         {
             "name": "fused_gin_conv",
             **KERNELS["fused_gin_conv"],
+            "mesh_launches_per_rank": mesh_launches("fused_gin_conv"),
             # the dense training epoch (slice 2's main path): 2 forward
             # and 2 backward launches per batch
             "launches": trained["dense"]["launches"]["fused_gin_conv"],
@@ -2088,6 +2516,7 @@ def run(args, kdir: str) -> int:
         {
             "name": "sorted_scatter_gather",
             **KERNELS["sorted_scatter_gather"],
+            "mesh_launches_per_rank": mesh_launches("sorted_scatter_gather"),
             # the attention GINet's sparse serving pass (this slice's main
             # path): one launch per conv and tower, 4 per batch
             "launches": att["serve"]["launches"]["sorted_scatter_gather"],
@@ -2125,6 +2554,7 @@ def run(args, kdir: str) -> int:
         {
             "name": "fused_gin_conv_bf16",
             **FAST_K3,
+            "mesh_launches_per_rank": mesh_launches("fused_gin_conv_bf16"),
             # the fast mode's scanned training epoch on store batches without
             # the operators, from a fresh engine: the warm-up step's 4
             # launches and the captured 4 times each replay
@@ -2192,6 +2622,15 @@ def run(args, kdir: str) -> int:
     summary["scan_serve"]["device_idle_share"] = scan["serve"]["where"]["device_idle_share"]
     summary["fast"] = {"k3_loss": fast["k3"]["loss"], "operators_loss": fast["operators"]["loss"],
                        "exact_k3_loss": scan["k3"]["losses"][0]}
+    # per rank, under gloo with the CUDA tensors staged through the host:
+    # not NCCL numbers
+    summary["mesh_gloo_two_ranks_one_card"] = {
+        path: {kind: {"graphs_per_s": [r[path][kind]["graphs_per_s"] for r in mesh["ranks"]],
+                      "device_idle_share": [r[path][kind]["where"]["device_idle_share"]
+                                            for r in mesh["ranks"]]}
+               for kind in ("serve", "train")} for path in MESH_PATHS}
+    summary["mesh_halo_bytes"] = mesh["ranks"][0]["halo_bytes"]
+    summary["mesh_nccl_one_rank"] = mesh["nccl"]
     log("summary " + json.dumps(summary))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

@@ -15,7 +15,10 @@ Ported so far: scoring with a pretrained net,
 ``NeuralNet(db, GINet, ...).train()``, in the sparse and the dense layout,
 for the whole model zoo: GINet in paper mode, with attention
 (``functools.partial(GINet, attention=True)``) or with the internal tower
-(sparse layout only), FoutNet and sGAT (ROADMAP.md).
+(sparse layout only), FoutNet and sGAT (ROADMAP.md); the device store,
+scanned epochs and the fast mode; and multi-device training and serving
+over ``torch.distributed`` (``deeprank_gnn_tpu_torch.parallel``: the
+graph-parallel meshes and the halo layout).
 """
 
 __version__ = "0.1.0"

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -206,6 +206,9 @@ def collate(
     plans: Optional[Sequence[GraphPlan]] = None,
     m0: Optional[int] = None,
     m1: Optional[int] = None,
+    member_tables: bool = True,
+    num_features: Optional[int] = None,
+    num_edge_features: Optional[int] = None,
 ) -> Tuple[GraphBatch, List[str]]:
     """Collate graphs into one padded :class:`GraphBatch` of CPU tensors.
 
@@ -215,9 +218,12 @@ def collate(
     cluster renumbering + pooled-edge coalescing) are per-graph and
     batch-independent; pass precomputed ``plans`` (see
     :func:`make_graph_plan`) to make collation pure array assembly —
-    the loader caches them across epochs.
+    the loader caches them across epochs. ``member_tables=False`` leaves
+    the cluster member tables out (the loader does so for a mesh's store,
+    as the JAX package does). No ``graphs`` with ``g_pad`` and the two
+    feature widths give an all-padding batch (a mesh rank's empty range).
     """
-    if not graphs:
+    if not graphs and (g_pad is None or num_features is None):
         raise ValueError("empty batch")
     g = len(graphs)
     for s in graphs:
@@ -234,15 +240,17 @@ def collate(
     c0_tot = sum(p.k0 for p in plans)
     c1_tot = sum(p.k1 for p in plans)
 
-    n_pad = n_pad or _round_up(n_tot, node_mult)
-    e_pad = e_pad or _round_up(e_tot, edge_mult)
-    ie_pad = ie_pad or _round_up(ie_tot, edge_mult)
-    c0_pad = c0_pad or _round_up(c0_tot, node_mult)
-    c1_pad = c1_pad or _round_up(c1_tot, node_mult)
+    # an empty batch still gets one row of padding on every axis
+    least = 0 if graphs else 1
+    n_pad = n_pad or _round_up(max(n_tot, least), node_mult)
+    e_pad = e_pad or _round_up(max(e_tot, least), edge_mult)
+    ie_pad = ie_pad or _round_up(max(ie_tot, least), edge_mult)
+    c0_pad = c0_pad or _round_up(max(c0_tot, least), node_mult)
+    c1_pad = c1_pad or _round_up(max(c1_tot, least), node_mult)
     g_pad = g_pad or g
 
-    f = graphs[0].num_features
-    fe = graphs[0].edge_attr.shape[1]
+    f = graphs[0].num_features if graphs else num_features
+    fe = graphs[0].edge_attr.shape[1] if graphs else num_edge_features
 
     x = np.zeros((n_pad, f), dtype=np.float32)
     pos = np.zeros((n_pad, 3), dtype=np.float32)
@@ -337,8 +345,10 @@ def collate(
     # flat cluster member tables (see GraphBatch field docs): pooling
     # as row gathers. M comes from the caller's dataset-wide caps when
     # given (stable shapes across batches), else from this batch.
-    mem0_idx = _flat_member_table(assign0, c0_pad, n_pad, m0)
-    mem1_idx = _flat_member_table(assign1, c1_pad, c0_pad, m1)
+    mem0_idx = mem1_idx = None
+    if member_tables:
+        mem0_idx = torch.from_numpy(_flat_member_table(assign0, c0_pad, n_pad, m0))
+        mem1_idx = torch.from_numpy(_flat_member_table(assign1, c1_pad, c0_pad, m1))
 
     t = torch.from_numpy
     batch = GraphBatch(
@@ -370,10 +380,52 @@ def collate(
         pe_rowptr=t(_row_ptr(pe_index[0], c0_pad)),
         iedge_rowptr=t(_row_ptr(iedge_index[0], n_pad)),
         pie_rowptr=t(_row_ptr(pie_index[0], c0_pad)),
-        mem0_idx=t(mem0_idx),
-        mem1_idx=t(mem1_idx),
+        mem0_idx=mem0_idx,
+        mem1_idx=mem1_idx,
     )
     return batch, mols
+
+
+@dataclass(frozen=True)
+class RankBatch:
+    """A mesh rank's graphs ``[lo, hi)`` of a global batch of
+    ``num_graphs`` graphs, as a batch of their own (a sparse
+    ``GraphBatch`` or a ``DenseGraphBatch``). ``y`` and ``y_mask``, where
+    set, are the global batch's targets on the host (:func:`collate_range`),
+    for the metrics of every rank."""
+
+    batch: Any
+    lo: int
+    hi: int
+    num_graphs: int
+    y: Optional[torch.Tensor] = None
+    y_mask: Optional[torch.Tensor] = None
+
+    def to(self, device, non_blocking: bool = False) -> "RankBatch":
+        return dataclasses.replace(self, batch=self.batch.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "RankBatch":
+        return dataclasses.replace(self, batch=self.batch.pin_memory())
+
+
+def collate_range(graphs: Sequence[GraphSample], sl: slice, g_pad: int,
+                  plans: Optional[Sequence[GraphPlan]] = None, **collate_kw) -> RankBatch:
+    """Graphs ``sl`` of the global batch ``graphs`` (``g_pad`` slots) as a
+    :class:`RankBatch`: those graphs collated as a batch of ``sl.stop -
+    sl.start`` slots (an empty range gives an all-padding batch), with the
+    global batch's targets. A graph's collation does not depend on its
+    batch, so this is the rank's part of the global batch, re-based."""
+    lo, hi = sl.start, sl.stop
+    local, _ = collate(graphs[lo:hi], g_pad=hi - lo,
+                       plans=None if plans is None else plans[lo:hi],
+                       num_features=graphs[0].num_features,
+                       num_edge_features=graphs[0].edge_attr.shape[1], **collate_kw)
+    y = np.zeros(g_pad, dtype=np.float32)
+    y_mask = np.zeros(g_pad, dtype=bool)
+    for gi, s in enumerate(graphs):
+        if s.y is not None:
+            y[gi], y_mask[gi] = s.y, True
+    return RankBatch(local, lo, hi, g_pad, torch.from_numpy(y), torch.from_numpy(y_mask))
 
 
 def _flat_member_table(
@@ -438,8 +490,26 @@ class GraphLoader:
     (chunk order shuffled, then the order within each chunk; batches never
     span chunks). ``precompute_ops`` (default: on exactly when the cache
     is) adds the precomputed operators to dense batches; ``store_pack``
-    ("lossless" or "bf16") packs the store. ``store_sharding`` is
-    multi-device and not ported yet.
+    ("lossless" or "bf16") packs the store. ``store_sharding``: on a mesh,
+    this rank's device, where its store lives whole (every rank holds the
+    whole store, the port's form of the JAX package's replicated store);
+    it takes the place of ``device`` and leaves the member tables out of
+    sparse batches, as the JAX package does.
+
+    ``host_batch_slice`` (dense layout; multi-process ingest, JAX
+    ``data/batch.py:445-476``): the positions of every global batch that
+    this rank loads (``parallel.mesh.dense_local_slice``). Payloads outside
+    the slice are never read; every rank draws the same seeded shuffle, so
+    the slices are disjoint and cover each global batch. A rank whose slice
+    of the last batch is empty still yields an all-padding batch, so the
+    ranks stay in step.
+
+    ``graph_share`` (sparse layout; the engine's graph-parallel mesh): the
+    positions of every global batch that this rank collates
+    (``parallel.mesh.graph_range``). Each batch comes out as a
+    :class:`RankBatch` of those graphs (:func:`collate_range`, capacities
+    for the share's graph count) with the whole batch's molecules and
+    targets; every rank still reads every graph of the batch.
 
     Streamed batches come out as CPU tensors, which the engine moves to its
     device (`data/prefetch.py`); store batches are already on ``device``,
@@ -467,17 +537,27 @@ class GraphLoader:
         store_pack: str = "lossless",
         *,
         device="cuda",
+        graph_share: Optional[slice] = None,
     ):
         if layout not in ("sparse", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
-        if host_batch_slice is not None or store_sharding is not None:
-            raise NotImplementedError(
-                "host_batch_slice and store_sharding: see ROADMAP.md, queue 1 (multi-device)"
-            )
+        if graph_share is not None and layout != "sparse":
+            raise ValueError("graph_share requires layout='sparse'")
+        self.graph_share = graph_share
+        if host_batch_slice is not None and layout != "dense":
+            raise ValueError("host_batch_slice requires layout='dense'")
+        self.host_batch_slice = host_batch_slice
         if device_cache not in (False, True, "chunked"):
             raise ValueError("device_cache must be False, True or 'chunked'")
         if device_cache and layout != "dense":
             raise ValueError("device_cache requires layout='dense'")
+        if device_cache and host_batch_slice is not None:
+            raise ValueError(
+                "device_cache and multi-host ingest are exclusive"
+            )
+        self.store_sharding = store_sharding
+        if store_sharding is not None:
+            device = store_sharding
         if store_pack not in ("lossless", "bf16"):
             raise ValueError("store_pack must be 'lossless' or 'bf16'")
         # the device the store lives on: checked only when there is a store
@@ -544,12 +624,14 @@ class GraphLoader:
             self._dense_caps["pg"] = self._dense_caps["eg"]
         if static_shapes and layout == "sparse" and len(dataset) > 0:
             sizes, idx = _scan_sizes()
+            # the capacities hold the graphs that one batch collates
+            cap_g = batch_size if graph_share is None else len(range(batch_size)[graph_share])
             # one bucket needs at least batch_size graphs to be worth a
             # separate shape
             nb = max(1, min(num_buckets, len(sizes) // max(1, batch_size)))
             if nb <= 1:
                 self._caps = _caps_from_sizes(
-                    sizes, batch_size, node_mult, edge_mult
+                    sizes, cap_g, node_mult, edge_mult
                 )
             else:
                 order = np.argsort([s["n"] for s in sizes], kind="stable")
@@ -563,7 +645,7 @@ class GraphLoader:
                         (
                             idx[part],
                             _caps_from_sizes(
-                                bsizes, batch_size, node_mult, edge_mult
+                                bsizes, cap_g, node_mult, edge_mult
                             ),
                         )
                     )
@@ -604,16 +686,15 @@ class GraphLoader:
             return None
         graphs = [s for _, s in pairs]
         plans = [self._get_plan(i, s) for i, s in pairs]
-        out = collate(
-            graphs,
-            g_pad=self.batch_size,
-            node_mult=self.node_mult,
-            edge_mult=self.edge_mult,
-            plans=plans,
-            **(caps or {}),
-        )
+        kw = dict(node_mult=self.node_mult, edge_mult=self.edge_mult,
+                  member_tables=self.store_sharding is None, **(caps or {}))
+        if self.graph_share is not None:
+            rb = collate_range(graphs, self.graph_share, self.batch_size, plans, **kw)
+            out, batch = (rb, [s.mol for s in graphs]), rb.batch
+        else:
+            out = collate(graphs, g_pad=self.batch_size, plans=plans, **kw)
+            batch = out[0]
         st = self._epoch_stats
-        batch = out[0]
         st["valid_edges"] += int(batch.edge_mask.sum())
         st["padded_edges"] += batch.edge_mask.shape[0]
         st["valid_nodes"] += int(batch.node_mask.sum())
@@ -624,6 +705,12 @@ class GraphLoader:
     def _iter_dense(self):
         from deeprank_gnn_tpu_torch.data.dense_batch import collate_dense
 
+        hs = self.host_batch_slice
+        g_pad, dims = self.batch_size, {}
+        if hs is not None:
+            g_pad = len(range(self.batch_size)[hs])
+            nf, ef = self.dataset.feature_dims()
+            dims = {"num_features": nf, "num_edge_features": ef}
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(order)
@@ -631,16 +718,19 @@ class GraphLoader:
             idx = order[start : start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
+            if hs is not None:
+                idx = idx[hs]
             pairs = [(int(i), self._get_sample(int(i))) for i in idx]
             pairs = [(i, s) for i, s in pairs if s is not None]
-            if not pairs:
+            if not pairs and hs is None:
                 continue
             yield collate_dense(
                 [s for _, s in pairs],
-                g_pad=self.batch_size,
+                g_pad=g_pad,
                 plans=[self._get_plan(i, s) for i, s in pairs],
                 precompute_ops=self.precompute_ops,
                 **(self._dense_caps or {}),
+                **dims,
             )
 
     def _maybe_build_store(self) -> bool:

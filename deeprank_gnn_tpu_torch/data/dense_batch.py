@@ -87,6 +87,12 @@ class DenseGraphBatch(TensorFields):
     def nodes_per_graph(self) -> int:
         return self.x.shape[1]
 
+    def graph_slice(self, lo: int, hi: int) -> "DenseGraphBatch":
+        """Graphs ``[lo, hi)`` as a batch of their own: every field has
+        the graph axis first and indices local to their graph, so this is a
+        view of each field (on whatever device it lies)."""
+        return self._map(lambda t: t[lo:hi])
+
 
 def _round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult if mult > 1 else max(n, 1)

@@ -15,8 +15,9 @@ as fp32, or as bf16 under ``pack="bf16"`` (the one lossy option). The
 encoding of each field follows from the dense capacities alone
 (:func:`static_field_kinds`), so every chunk of a dataset packs to one
 layout and :func:`estimate_store_bytes` is exact; both return what the JAX
-package returns for the same capacities. ``store_sharding`` (the store
-replicated over a mesh) is multi-device and not ported yet.
+package returns for the same capacities. On a mesh every rank builds the
+whole store on its own device (the loader's ``store_sharding``), the
+port's form of the JAX package's store replicated over the mesh.
 
 :class:`ChunkedGraphStore` keeps a dataset beyond the byte budget packed in
 page-locked host memory and rotates it through the device two chunks at a

@@ -71,13 +71,24 @@ def dropout(
     rate: float,
     generator: Optional[torch.Generator],
     training: bool,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Inverted dropout matching `F.dropout` (reference `ginet.py:138`);
     the mask is drawn from ``generator`` (on x's device), or from torch's
-    default generator when it is None."""
+    default generator when it is None. ``rows = (num_rows, lo)``: ``x`` is
+    rows ``[lo, lo + len(x))`` of a ``[num_rows, ...]`` array whose other
+    rows lie on other ranks; the mask is drawn at the whole shape and these
+    rows are kept, so that a mesh with equal generators on every rank draws
+    the single-device mask (as JAX's draw at the global shape does)."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if rows is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    else:
+        num_rows, lo = rows
+        full = torch.rand((num_rows,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)
+        keep = full[lo: lo + x.shape[0]] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -107,12 +118,18 @@ class SingleTowerNet(nn.Module):
     def device(self) -> torch.device:
         return self.fc1.weight.device
 
-    def forward(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """[G, output_shape] scores of a sparse ``GraphBatch`` or a
-        ``DenseGraphBatch`` (moved to the model's device first).
-        ``generator`` is unused: the net has no dropout."""
+    def forward(self, batch, generator: Optional[torch.Generator] = None,
+                dropout_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """[G, output_shape] scores of a sparse ``GraphBatch``, a
+        ``DenseGraphBatch`` or a rank's ``parallel.halo.HaloBatch`` (moved to
+        the model's device first). ``generator`` and ``dropout_rows`` are
+        unused: the net has no dropout."""
         batch = batch.to(self.device)
-        if isinstance(batch, DenseGraphBatch):
+        if getattr(batch, "is_halo", False):
+            from deeprank_gnn_tpu_torch.parallel.halo import single_tower_pooled_halo
+
+            h = single_tower_pooled_halo(self, batch)
+        elif isinstance(batch, DenseGraphBatch):
             h = self._pooled_dense(batch)
         else:
             h = self._pooled(batch)

@@ -43,7 +43,7 @@ bf16 operands and fp32 accumulation: K3's fast variant and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -310,13 +310,22 @@ class GINet(nn.Module):
         return masked_mean(hq, batch.pool1_mask)
 
     def forward(
-        self, batch, generator: Optional[torch.Generator] = None
+        self, batch, generator: Optional[torch.Generator] = None,
+        dropout_rows: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """[G, output_shape] scores of a padded batch, a sparse
-        ``GraphBatch`` or a ``DenseGraphBatch`` (moved to the model's device
-        first). Dropout follows ``self.training`` and draws from
-        ``generator``."""
+        ``GraphBatch``, a ``DenseGraphBatch`` or a rank's
+        ``parallel.halo.HaloBatch`` (moved to the model's device first).
+        Dropout follows ``self.training`` and draws from ``generator``;
+        ``dropout_rows = (num_rows, lo)`` says that the batch's graphs are
+        rows ``lo...`` of a global batch of ``num_rows`` (a graph-parallel
+        mesh), so that the mask is drawn at the global shape
+        (``models.common.dropout``)."""
         batch = batch.to(self.device)
+        if getattr(batch, "is_halo", False):
+            from deeprank_gnn_tpu_torch.parallel.halo import ginet_apply_halo
+
+            return ginet_apply_halo(self, batch, generator)
         if isinstance(batch, DenseGraphBatch):
             if self.internal_tower:
                 # the dense batch carries no internal edges; going on would
@@ -338,5 +347,5 @@ class GINet(nn.Module):
             t2 = self._tower(self.conv1_ext, self.conv2_ext, batch, self.internal_tower)
             h = torch.cat([t1, t2], dim=1)
         h = torch.relu(linear(h, self.fc1.weight, self.fc1.bias))
-        h = dropout(h, self.dropout_rate, generator, self.training)
+        h = dropout(h, self.dropout_rate, generator, self.training, dropout_rows)
         return linear(h, self.fc2.weight, self.fc2.bias)

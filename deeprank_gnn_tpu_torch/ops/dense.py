@@ -121,6 +121,45 @@ def member_max_pool(h: torch.Tensor, mem_idx: torch.Tensor) -> torch.Tensor:
     return torch.where(empty[..., None], torch.zeros((), dtype=h.dtype, device=h.device), out)
 
 
+class _MemberMaxPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, mem_idx, assign):
+        g, s, f = h.shape
+        c, m = mem_idx.shape[1], mem_idx.shape[2]
+        vals = _flat_rows(h, float("-inf")).index_select(0, _flat_idx(mem_idx, s))
+        vals = vals.reshape(g, c, m, f)
+        out = vals.amax(dim=2)
+        # each slot's ties, counted while the member values are at hand
+        counts = (vals == out[:, :, None, :]).to(h.dtype).sum(dim=2)
+        ctx.save_for_backward(h, assign, out, counts)
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        # JAX ``_member_max_bwd``: each node equal to its slot's max takes
+        # an even share of the slot's cotangent; padding nodes take none
+        h, assign, out, counts = ctx.saved_tensors
+        g, s, f = h.shape
+        aidx = _flat_idx(assign, out.shape[1])
+        own_max = _flat_rows(out, float("inf")).index_select(0, aidx).reshape(g, s, f)
+        cnt = _flat_rows(counts, 1.0).index_select(0, aidx).reshape(g, s, f)
+        cot_n = _flat_rows(cot, 0.0).index_select(0, aidx).reshape(g, s, f)
+        share = cot_n / torch.clamp(cnt, min=1.0)
+        dh = torch.where(h == own_max, share, torch.zeros((), dtype=h.dtype, device=h.device))
+        return dh, None, None
+
+
+def member_max_partial(h: torch.Tensor, mem_idx: torch.Tensor,
+                       assign: torch.Tensor) -> torch.Tensor:
+    """:func:`member_max_pool` without the empty-slot zero fill (JAX
+    ``ops/dense.py:217-241``): an empty slot stays -inf, so the partial
+    maxes of several shards combine by a max (the halo layout's
+    cross-shard pooling, ``parallel/halo.py``). ``assign [G,S]`` maps each
+    node to its slot (pad >= C). The backward is JAX's ``_member_max_bwd``:
+    a slot's cotangent is split evenly among its nodes equal to the max."""
+    return _MemberMaxPartial.apply(h, mem_idx, assign)
+
+
 def slot_max_pool(h: torch.Tensor, assign: torch.Tensor, size: int) -> torch.Tensor:
     """Max-pool [G,S,F] rows into [G,size,F] by ``assign`` [G,S]; a slot
     out of ``[0, size)`` drops its row, and an empty slot gives 0.

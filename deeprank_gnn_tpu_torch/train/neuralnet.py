@@ -33,7 +33,10 @@ keeps the dense-collated dataset in device memory and, by default, takes
 the models' operator path (``data/device_store.py``); ``scan_epochs`` runs
 each epoch over that store as replays of one captured step and reads the
 results back once (``train/scan.py``); ``dense_fast`` gives GINet's dense
-aggregations bf16 operands. The engine runs on
+aggregations bf16 operands. ``mesh`` (``parallel/mesh.py``) trains and
+serves over the ranks of a process group: graph-parallel in the sparse and
+dense layouts (``parallel/step.py``), edge-parallel with the explicit halo
+exchange under ``layout="halo"`` (``parallel/halo.py``). The engine runs on
 ``device`` (default ``"cuda"``; ``"cpu"`` runs the kernels' plain versions)
 in fp32 with TF32 off, every pass under
 ``torch.use_deterministic_algorithms(True)``, dropout drawing from a
@@ -53,7 +56,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+from deeprank_gnn_tpu_torch.data.batch import GraphLoader, RankBatch
 from deeprank_gnn_tpu_torch.data.dataset import (
     DivideDataSet,
     GraphListDataSet,
@@ -197,12 +200,33 @@ class NeuralNet:
         ``device``: ``"cuda"`` (default) or ``"cpu"``. With no CUDA device
         and no ``device="cpu"`` the constructor raises.
 
-        ``mesh`` and ``layout="halo"`` are not ported yet and raise
+        ``mesh``: a :class:`~deeprank_gnn_tpu_torch.parallel.mesh.Mesh`
+        (``parallel.make_mesh()``) over the ranks of a process group
+        (``parallel.distributed.initialize``); every rank constructs the
+        engine with the same arguments (and its own ``outdir``), and the
+        engine runs on the mesh's device for this rank. The sparse and
+        dense layouts are graph-parallel over all ``dp * ep`` ranks: each
+        rank runs its contiguous range of each batch's graphs, the loss and
+        the gradients are summed over the ranks, every rank sees the whole
+        batch's predictions, and the numbers are the single-device ones. In
+        the dense layout a streaming rank loads only its slice of each batch
+        (``GraphLoader(host_batch_slice=...)``) and its ``*_out`` cover its
+        slice; with ``device_cache`` every rank holds the whole store on its
+        device. ``layout="halo"`` is the explicit halo-exchange edge
+        partition (``parallel/halo.py``; without ``mesh``, over every rank
+        of the process group, or this process alone). Scanned epochs and
+        the chunked store on a mesh are not ported yet and raise
         ``NotImplementedError``."""
+        from deeprank_gnn_tpu_torch.parallel.mesh import Mesh, make_halo_mesh
+
         if layout not in ("sparse", "dense", "halo"):
             raise ValueError(f"unknown layout {layout!r}")
-        if mesh is not None or layout == "halo":
-            raise _unported("mesh and layout='halo'", "multi-device")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("mesh must be a deeprank_gnn_tpu_torch.parallel.Mesh "
+                            f"(parallel.make_mesh()), not {type(mesh).__name__}")
+        if layout == "halo" and mesh is None:
+            mesh = make_halo_mesh(device=device)
+        self.mesh = mesh
         if device_cache and layout != "dense":
             raise ValueError("device_cache requires layout='dense'")
         # the JAX engine's checks of the scan options (train/neuralnet.py:140-197)
@@ -222,6 +246,10 @@ class NeuralNet:
             raise ValueError("scan_unroll must be >= 1")
         if dense_fast and layout != "dense":
             raise ValueError("dense_fast requires layout='dense'")
+        if mesh is not None and device_cache == "chunked":
+            raise _unported("device_cache='chunked' on a mesh", "scanned multi-device epochs")
+        if mesh is not None and scan_epochs:
+            raise _unported("scan_epochs on a mesh", "scanned multi-device epochs")
         self.scan_epochs = scan_epochs
         self.scan_unroll = int(scan_unroll)
         self.dense_fast = dense_fast
@@ -232,6 +260,10 @@ class NeuralNet:
         self.store_pack = store_pack
         self.device_cache_bytes = device_cache_bytes
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's device is {mesh.device}, not {device}")
+            self.device = mesh.device
         if self.device.type == "cuda":
             set_fp32_numerics()
         self.Net = Net
@@ -315,14 +347,52 @@ class NeuralNet:
             tqdm=False,
         )
 
+    @property
+    def _loader_layout(self) -> str:
+        """The loader's collation: the halo layout partitions sparse
+        batches (in :meth:`_shard`)."""
+        return "sparse" if self.layout == "halo" else self.layout
+
+    def _store_sharding(self):
+        """On a mesh with the store on: this rank's device, where its whole
+        store lives (JAX ``train/neuralnet.py:267-275``, which replicates
+        the store over the mesh); None otherwise."""
+        if not self.device_cache or self.mesh is None:
+            return None
+        return self.device
+
+    def _host_slice(self):
+        """Multi-process dense ingest: this rank's slice of every global
+        batch (``parallel.mesh.dense_local_slice``; JAX
+        ``train/neuralnet.py:277-290``). None single-rank, in the sparse and
+        halo layouts (every rank collates the whole batch) and with the
+        store (every rank holds it whole)."""
+        if (self.mesh is not None and self.mesh.size > 1 and self.layout == "dense"
+                and not self.device_cache):
+            from deeprank_gnn_tpu_torch.parallel.mesh import dense_local_slice
+
+            return dense_local_slice(self.batch_size, self.mesh)
+        return None
+
+    def _graph_share(self):
+        """Sparse graph-parallel mesh: the graphs of every global batch that
+        this rank collates (``parallel.mesh.graph_range``); None otherwise."""
+        if self.mesh is None or self.layout != "sparse":
+            return None
+        from deeprank_gnn_tpu_torch.parallel.mesh import graph_range
+
+        return graph_range(self.batch_size, self.mesh)
+
     def _loader(self, dataset, **kw) -> GraphLoader:
-        """A loader of the engine's layout, batch size and store settings
-        (JAX ``train/neuralnet.py:316-385``)."""
+        """A loader of the engine's layout, batch size, store and ingest
+        settings (JAX ``train/neuralnet.py:316-385``)."""
         if self.device_cache_bytes is not None:
             kw["device_cache_bytes"] = self.device_cache_bytes
-        return GraphLoader(dataset, batch_size=self.batch_size, layout=self.layout,
+        return GraphLoader(dataset, batch_size=self.batch_size, layout=self._loader_layout,
                            device_cache=self.device_cache, store_pack=self.store_pack,
-                           device=self.device, **kw)
+                           host_batch_slice=self._host_slice(),
+                           store_sharding=self._store_sharding(), device=self.device,
+                           graph_share=self._graph_share(), **kw)
 
     def load_model(self, database, Net, database_eval) -> None:
         """Datasets, loaders, model and loss for training (reference
@@ -405,6 +475,7 @@ class NeuralNet:
             generator=self._dropout_generator if self.device.type == "cuda" else None)
         self._scan_targets = {}
         self._chunk_buffers = {}
+        self._mesh_steps = None
         payload = self._pending_model_state
         if payload is None:
             return
@@ -433,16 +504,16 @@ class NeuralNet:
 
     def set_loss(self) -> None:
         """Select loss; compute inverse-frequency class weights if asked
-        (reference `NeuralNet.py:239-263`)."""
+        (reference `NeuralNet.py:239-263`). On a mesh, build the steps with
+        them."""
         self.weights = None
-        if self.task == "class":
+        if self.task == "class" and self.class_weights not in (None, False):
             if self.class_weights is True:
                 w = self.compute_class_weights()
-            elif self.class_weights not in (None, False):
-                w = np.array(self.class_weights, dtype=np.float32)
             else:
-                return
+                w = np.array(self.class_weights, dtype=np.float32)
             self.weights = torch.as_tensor(w, dtype=torch.float32, device=self.device)
+        self._build_mesh_steps()
 
     def compute_class_weights(self) -> np.ndarray:
         """Normalized inverse-frequency class weights over the training
@@ -465,6 +536,40 @@ class NeuralNet:
         w = w / w.sum()
         print(f"class weights: {w}")
         return w
+
+    def _build_mesh_steps(self) -> None:
+        """On a mesh, the steps of its layout (JAX ``_build_steps_sharded``
+        and ``_build_steps_halo``, ``train/neuralnet.py:543-679``), with the
+        loss's class weights; and the placement of a loader batch on this
+        rank (:meth:`_shard`). A halo layout over a ``(dp, ep)`` mesh runs
+        over the same ranks as a 1-D mesh."""
+        if self.mesh is None:
+            return
+        from deeprank_gnn_tpu_torch.parallel import halo, mesh as M
+        from deeprank_gnn_tpu_torch.parallel.step import MeshSteps
+
+        kw = dict(task=self.task, class_weights=self.weights,
+                  transform_sigmoid=self.transform_sigmoid)
+        self._pred_slice = self._host_slice()
+        if self.layout == "halo":
+            hmesh = self.mesh
+            if hmesh.axis_names != ("ep",):
+                hmesh = dataclasses.replace(hmesh, shape=(hmesh.size,), axis_names=("ep",))
+            self._mesh_steps = MeshSteps(self.model, self.optimizer, hmesh, halo=True, **kw)
+            self._shard = lambda b: halo.shard_halo_batch(
+                halo.partition_batch(b, hmesh.size), hmesh)
+            return
+        self._mesh_steps = MeshSteps(self.model, self.optimizer, self.mesh, **kw)
+        if self.layout == "sparse":
+            # the loader collated this rank's graphs (``_graph_share``)
+            self._shard = lambda b: b
+        elif self._pred_slice is not None:
+            # the loader loaded only this rank's slice; the predictions
+            # come back global, and the pass keeps this slice's
+            self._shard = lambda b: M.shard_dense_batch_from_local(b, self.mesh,
+                                                                   self.batch_size)
+        else:
+            self._shard = lambda b: M.shard_dense_batch(b, self.mesh)
 
     def _loss_and_pred(self, batch, generator: Optional[torch.Generator] = None):
         pred = self.model(batch, generator)
@@ -512,14 +617,19 @@ class NeuralNet:
 
     def _map_targets_host(self, batch):
         """classes_to_idx remap for class tasks (reference
-        `format_output`, `NeuralNet.py:616-631`), on the host."""
+        `format_output`, `NeuralNet.py:616-631`), on the host; a mesh
+        rank's batch has its own graphs' targets and the global batch's."""
         if self.task != "class":
             return batch
-        mapped = np.array(
-            [self.classes_to_idx.get(int(v), 0) for v in batch.y.numpy()],
-            dtype=np.float32,
-        )
-        return dataclasses.replace(batch, y=torch.from_numpy(mapped))
+
+        def mapped(y):
+            return torch.from_numpy(np.array(
+                [self.classes_to_idx.get(int(v), 0) for v in y.numpy()], dtype=np.float32))
+
+        if isinstance(batch, RankBatch):
+            local = dataclasses.replace(batch.batch, y=mapped(batch.batch.y))
+            return dataclasses.replace(batch, batch=local, y=mapped(batch.y))
+        return dataclasses.replace(batch, y=mapped(batch.y))
 
     # ------------------------------------------------------------------
     # passes
@@ -851,16 +961,26 @@ class NeuralNet:
         data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
         running_loss = 0.0
 
+        steps = self._mesh_steps
+
         def _prepared():
+            # on a mesh the worker thread also places the batch on this
+            # rank (the halo partition is host work)
             for batch, mols in loader:
                 hb = self._map_targets_host(batch)
-                yield hb, (mols, hb.y.numpy(), hb.y_mask.numpy())
+                meta = (mols, hb.y.numpy(), hb.y_mask.numpy())
+                yield (hb if steps is None else self._shard(hb)), meta
 
         self.model.train(training)
         grad_mode = contextlib.nullcontext() if training else torch.inference_mode()
         with grad_mode, deterministic():
             for batch, (mols, y_host, mask_host) in prefetch(_prepared(), self.device):
-                if training:
+                if steps is not None:
+                    loss, pred = (steps.train(batch, self._dropout_generator) if training
+                                  else steps.eval(batch))
+                    if self._pred_slice is not None:
+                        pred = pred[self._pred_slice]
+                elif training:
                     loss, pred = self._train_step(batch)
                 else:
                     loss, pred = self._loss_and_pred(batch)
@@ -1167,7 +1287,12 @@ class NeuralNet:
             loaders.append(("valid", self.valid_loader))
         for split, loader in loaders:
             for batch, mols in loader:
-                _, p = self._eval_step(batch)
+                if self._mesh_steps is None:
+                    _, p = self._eval_step(batch)
+                else:
+                    _, p = self._mesh_steps.eval(self._shard(batch).to(self.device))
+                    if self._pred_slice is not None:
+                        p = p[self._pred_slice]
                 g = len(mols)
                 truth[split] += batch.y.cpu().numpy()[:g].tolist()
                 pred[split] += p.cpu().numpy().reshape(-1)[:g].tolist()

@@ -133,16 +133,20 @@ def test_loader_batches_match(h5_path, shuffle, num_buckets, drop_last):
 
 def test_loader_rejects_unported_options(h5_path):
     """The dense layout, the device store and the precomputed operators are
-    ported (tests/test_torch_store.py); multi-host slices and a sharded
-    store are not and raise, and the store options need the dense
-    layout, as in the JAX package."""
+    ported (tests/test_torch_store.py), and so are multi-host slices
+    (tests/test_torch_parallel.py) and a mesh rank's store: the slices and
+    the store options need the dense layout, as in the JAX package, and a
+    mesh's loader (``store_sharding``) leaves the member tables out."""
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
     from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 
     _, tds = datasets(h5_path)
-    for kw in ({"host_batch_slice": slice(0, 2)}, {"store_sharding": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GraphLoader(tds, **kw)
+    with pytest.raises(ValueError, match="host_batch_slice requires layout='dense'"):
+        GraphLoader(tds, host_batch_slice=slice(0, 2))
+    sharded, _ = next(iter(GraphLoader(tds, batch_size=4, store_sharding=torch.device("cpu"))))
+    plain, _ = next(iter(GraphLoader(tds, batch_size=4)))
+    assert sharded.mem0_idx is None and sharded.mem1_idx is None
+    assert plain.mem0_idx is not None and torch.equal(sharded.x, plain.x)
     for kw in ({"device_cache": True, "device": "cpu"}, {"precompute_ops": True}):
         with pytest.raises(ValueError, match="requires layout='dense'"):
             GraphLoader(tds, **kw)

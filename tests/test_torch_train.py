@@ -238,17 +238,24 @@ UNPORTED = [
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)) + "=" + str(
     next(iter(kw.values())))[:12])
 def test_unported_engine_options_raise(db, tmp_path, kw, monkeypatch):
-    """``mesh`` and ``layout="halo"`` are not ported and raise. The scan
-    options and ``executable_cache_dir`` are ported: ``scan_epochs``
-    without ``device_cache`` raises the JAX engine's error, and the other
-    two construct as in JAX (``executable_cache_dir`` sets the kernels'
-    build directory)."""
+    """``mesh`` and ``layout="halo"`` are ported (tests/test_torch_parallel.py,
+    tests/test_torch_halo.py): a mesh that is not the port's ``Mesh`` is
+    refused, and ``layout="halo"`` without one runs over this process
+    alone. The scan options and ``executable_cache_dir`` are ported:
+    ``scan_epochs`` without ``device_cache`` raises the JAX engine's error,
+    and the other two construct as in JAX (``executable_cache_dir`` sets the
+    kernels' build directory)."""
     from deeprank_gnn_tpu_torch.ops.kernels import build
 
     monkeypatch.setattr(build, "_build_dir", build.build_dir())
-    if "mesh" in kw or "layout" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="mesh must be a deeprank_gnn_tpu_torch.parallel.Mesh"):
             port_engine(db, str(tmp_path), target="fnat", **kw)
+    elif "layout" in kw:
+        t = port_engine(db, str(tmp_path), target="fnat", batch_size=4, **kw)
+        assert (t.mesh.shape, t.mesh.axis_names, t.mesh.group) == ((1,), ("ep",), None)
+        t.train(nepoch=1)
+        assert np.isfinite(t.train_loss).all()
     elif "scan_epochs" in kw:
         with pytest.raises(ValueError) as want:
             jax_engine(db, str(tmp_path / "j"), target="fnat", **kw)
