@@ -22,7 +22,9 @@ Phases, each of which raises on failure:
    atomics; its edge cases use values whose sums are exact in fp32), and
    bitwise equal to the plain version run on the CPU (both sum each row in
    edge order), at the sparse serving path's shapes (F = 32 and 64), at
-   the attention path's (F = 16 and 32), and at edge cases (empty rows, a
+   the attention path's (F = 16 and 32), at ``coalesce_edges``' (the first
+   batch's interface edges mapped through its level-0 clusters and sorted
+   by key, F = 1), and at edge cases (empty rows, a
    run of thousands of edges, trailing padding, odd widths), with its
    launch plan (columns per load, lanes per row, rows per block), and its
    gradient against the plain version's. K3 (per-graph GIN aggregation) forward and backward
@@ -148,7 +150,23 @@ Phases, each of which raises on failure:
    array. Each rank prints its graphs/s (gloo times, host staging
    included). Then this process alone forms an NCCL group of one and runs
    one halo and one dense-mesh training pass of one batch on NCCL's
-   collectives.
+   collectives;
+12. featurize: 32 docking models of one synthetic complex written from the
+   seed (``write_docking_models``: chains of 300 and 250 residues with
+   their standard heavy atoms, ~4,700 atoms, 1ATN's scale; chain B moved
+   in each model; a PSSM per chain) become residue graphs through
+   ``ResidueGraph(..., device="cuda")``, each scored against the first
+   model. Four of them also run on the CPU path: node and edge lists and
+   ``pos`` bitwise, per-atom SASA, BSA, every feature and score within
+   rtol 1e-9 and atol 1e-9. It prints models/s on the card and on the CPU,
+   SASA and contact ms per model on both, the first model's cold time and
+   a profiled model. The graphs are clustered (MCL), converted
+   (``Graph.to_sample``, no HDF5: the card's machine has no ``h5py``) and
+   served from phase 4's checkpoint (K1 2 launches a batch, against the
+   CPU at ``TOL``); ``coalesce_edges`` on the card over the first batch's
+   interface edges mapped through ``cluster0`` gives the collate's pooled
+   edges bitwise, their summed attributes at ``KERNEL_TOL``, with one K1
+   launch, bitwise the CPU run.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -257,6 +275,168 @@ def build_graphs(seed: int, num_graphs: int):
             )
         )
     return graphs
+
+
+# the standard heavy atoms of each residue type, and its one-letter code
+RESIDUE_ATOMS = {
+    "ALA": ("A", "N CA C O CB"),
+    "ARG": ("R", "N CA C O CB CG CD NE CZ NH1 NH2"),
+    "ASN": ("N", "N CA C O CB CG OD1 ND2"),
+    "ASP": ("D", "N CA C O CB CG OD1 OD2"),
+    "CYS": ("C", "N CA C O CB SG"),
+    "GLN": ("Q", "N CA C O CB CG CD OE1 NE2"),
+    "GLU": ("E", "N CA C O CB CG CD OE1 OE2"),
+    "GLY": ("G", "N CA C O"),
+    "HIS": ("H", "N CA C O CB CG ND1 CD2 CE1 NE2"),
+    "ILE": ("I", "N CA C O CB CG1 CG2 CD1"),
+    "LEU": ("L", "N CA C O CB CG CD1 CD2"),
+    "LYS": ("K", "N CA C O CB CG CD CE NZ"),
+    "MET": ("M", "N CA C O CB CG SD CE"),
+    "PHE": ("F", "N CA C O CB CG CD1 CD2 CE1 CE2 CZ"),
+    "PRO": ("P", "N CA C O CB CG CD"),
+    "SER": ("S", "N CA C O CB OG"),
+    "THR": ("T", "N CA C O CB OG1 CG2"),
+    "TRP": ("W", "N CA C O CB CG CD1 CD2 NE1 CE2 CE3 CZ2 CZ3 CH2"),
+    "TYR": ("Y", "N CA C O CB CG CD1 CD2 CE1 CE2 CZ OH"),
+    "VAL": ("V", "N CA C O CB CG1 CG2"),
+}
+CA_SPACING = 5.1  # Å between lattice sites: ~133 Å^3 a residue, a protein's density
+
+
+def _unit(v):
+    return v / np.linalg.norm(v)
+
+
+def synthetic_chain(rng, n_res: int, center):
+    """``n_res`` residues of random types, their CAs on a jittered cubic
+    lattice filling a ball around ``center`` in serpentine order (so that
+    consecutive residues are neighbours), the backbone along the path and
+    each side chain a walk of 1.52 Å bonds pointing outwards. Returns
+    ``[(resname, [(atom name, xyz)])]``."""
+    radius = (3 * n_res / (4 * np.pi)) ** (1 / 3) * CA_SPACING
+    while True:
+        k = int(np.ceil(radius / CA_SPACING))
+        ax = np.arange(-k, k + 1)
+        sites = [(i, (j if i % 2 else -j), (m if (i + j) % 2 else -m))
+                 for i in ax for j in ax for m in ax]
+        sites = [s for s in sites if np.linalg.norm(s) * CA_SPACING <= radius]
+        if len(sites) >= n_res:
+            break
+        radius += 0.5
+    cas = np.asarray(sites[:n_res], dtype=np.float64) * CA_SPACING + np.asarray(center)
+    cas += 0.4 * rng.standard_normal(cas.shape)
+    names = list(RESIDUE_ATOMS)
+    chain = []
+    for r in range(n_res):
+        resname = names[rng.integers(len(names))]
+        ca = cas[r]
+        forward = _unit(cas[min(r + 1, n_res - 1)] - cas[max(r - 1, 0)]
+                        + 0.1 * rng.standard_normal(3))
+        outward = _unit(ca - np.asarray(center) + rng.standard_normal(3))
+        atoms = {"CA": ca, "N": ca - 1.46 * forward + 0.2 * rng.standard_normal(3),
+                 "C": ca + 1.52 * forward + 0.2 * rng.standard_normal(3)}
+        atoms["O"] = atoms["C"] + 1.23 * _unit(np.cross(forward, outward))
+        prev = ca
+        for name in RESIDUE_ATOMS[resname][1].split()[4:]:
+            prev = prev + 1.52 * _unit(outward + 0.8 * rng.standard_normal(3))
+            atoms[name] = prev
+        chain.append((resname, [(n, atoms[n]) for n in RESIDUE_ATOMS[resname][1].split()]))
+    return chain
+
+
+def _pdb_lines(chains) -> list:
+    """PDB ATOM records of ``{chain id: residues}`` (residue numbers from 1),
+    coordinates rounded to the format's 3 decimals."""
+    lines, serial = [], 1
+    for cid, residues in chains.items():
+        for resseq, (resname, atoms) in enumerate(residues, start=1):
+            for name, xyz in atoms:
+                pad = f" {name:<3s}" if len(name) < 4 else name
+                lines.append(
+                    f"ATOM  {serial:5d} {pad:<4s} {resname:>3s} {cid:1s}{resseq:4d}    "
+                    f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00          "
+                    f"{name[0]:>2s}\n")
+                serial += 1
+    return lines + ["END\n"]
+
+
+def _pssm_lines(rng, residues) -> list:
+    """A PSSM in the reference's text format (``tools/PSSM.py``): per
+    residue its number and one-letter code twice, 20 scores and the
+    information content."""
+    lines = ["Last position-specific scoring matrix computed\n",
+             "pdbresi pdbresn seqresi seqresn    A    R    N    D    C    Q    E    G    H"
+             "    I    L    K    M    F    P    S    T    W    Y    V   IC\n"]
+    for resseq, (resname, _) in enumerate(residues, start=1):
+        code = RESIDUE_ATOMS[resname][0]
+        scores = " ".join(f"{v:4d}" for v in rng.integers(-7, 10, 20))
+        lines.append(f"{resseq:7d} {code} {resseq:7d} {code} {scores} {rng.random() * 2:.2f}\n")
+    return lines
+
+
+def _rotation(rng, max_deg: float):
+    axis = _unit(rng.standard_normal(3))
+    t = np.deg2rad(rng.uniform(0.0, max_deg))
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(t) * k + (1 - np.cos(t)) * k @ k
+
+
+def write_docking_models(root: str, seed: int, n_models: int, res_a: int, res_b: int,
+                         tie: bool = False, name: str = "1SYN") -> dict:
+    """Docking models of one synthetic complex, made with numpy from
+    ``seed``: chain A of ``res_a`` residues and chain B of ``res_b`` in two
+    touching balls, as the PDB files ``<root>/pdb/<name>_<k>.pdb``, model 0
+    the unperturbed pose (also ``<root>/ref/<name>.pdb``) and each other
+    model chain B turned up to 12 degrees about its centre and moved ~1 Å;
+    a PSSM per chain (``<root>/pssm/<name>.<chain>.pdb.pssm``). With
+    ``tie``, chain A's outermost atom sits on exact binary coordinates and
+    every model ends chain B with a glycine whose CA lies exactly 8.5 Å
+    further along x and whose other atoms are farther from chain A: its
+    one contact is a pair of atoms at exactly the residue graph's cutoff."""
+    rng = np.random.default_rng(seed)
+    r_a = (3 * res_a / (4 * np.pi)) ** (1 / 3) * CA_SPACING
+    r_b = (3 * res_b / (4 * np.pi)) ** (1 / 3) * CA_SPACING
+    chain_a = synthetic_chain(rng, res_a, (0.0, 0.0, 0.0))
+    center_b = np.array([r_a + r_b - 2.0, 0.0, 0.0])
+    chain_b = synthetic_chain(rng, res_b, center_b)
+    if tie:
+        # chain A's outermost atom: a strict maximum of x, on a 1/8 Å grid
+        xs = [(xyz[0], ri, ai) for ri, (_, atoms) in enumerate(chain_a)
+              for ai, (_, xyz) in enumerate(atoms)]
+        top, ri, ai = max(xs)
+        second = max(x for x, r, a in xs if (r, a) != (ri, ai))
+        anchor = np.round(chain_a[ri][1][ai][1] * 8) / 8
+        anchor[0] = np.ceil(max(top, second + 0.125) * 8) / 8
+        chain_a[ri][1][ai] = (chain_a[ri][1][ai][0], anchor)
+        ca = anchor + np.array([8.5, 0.0, 0.0])
+        glycine = ("GLY", [("N", ca + (1.25, 1.0, 0.0)), ("CA", ca),
+                           ("C", ca + (1.25, -1.0, 0.0)), ("O", ca + (2.5, -1.0, 0.0))])
+    dirs = {sub: os.path.join(root, sub) for sub in ("pdb", "pssm", "ref")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    pdbs = []
+    for k in range(n_models):
+        turn = np.eye(3) if k == 0 else _rotation(rng, 12.0)
+        shift = np.zeros(3) if k == 0 else rng.standard_normal(3)
+        moved = [(rn, [(an, (xyz - center_b) @ turn.T + center_b + shift) for an, xyz in atoms])
+                 for rn, atoms in chain_b]
+        if tie:
+            moved.append(glycine)
+        lines = _pdb_lines({"A": chain_a, "B": moved})
+        pdbs.append(os.path.join(dirs["pdb"], f"{name}_{k}.pdb"))
+        with open(pdbs[-1], "w") as f:
+            f.writelines(lines)
+        if k == 0:
+            with open(os.path.join(dirs["ref"], f"{name}.pdb"), "w") as f:
+                f.writelines(lines)
+            chain_b_final = moved
+    pssm = {}
+    for cid, residues in (("A", chain_a), ("B", chain_b_final)):
+        pssm[cid] = os.path.join(dirs["pssm"], f"{name}.{cid}.pdb.pssm")
+        with open(pssm[cid], "w") as f:
+            f.writelines(_pssm_lines(rng, residues))
+    return {**dirs, "pdbs": pdbs, "pssm_files": pssm,
+            "ref_file": os.path.join(dirs["ref"], f"{name}.pdb")}
 
 
 def write_checkpoint(path: str, seed: int, Net=None) -> None:
@@ -476,11 +656,24 @@ def k1_plan_want(n: int, f: int) -> tuple:
     return vec, k1_lanes(f, vec), 4 if vec == 4 else 8
 
 
-def k1_phase(first_batch, seed: int):
-    """K1 at the sparse paper-mode path's two shapes and the attention
-    path's two (from the first collated batch), and at edge cases, forward
-    and backward; the launch plans."""
+def pooled_ends(b):
+    """A collated batch's interface edges mapped through its level-0
+    clusters, ``[2, E]`` int32, padding lanes at ``C0``: the input of
+    ``coalesce_edges`` whose output is the batch's pooled edges."""
     import torch
+
+    ends = b.assign0[b.edge_index.clamp(max=b.num_nodes - 1).long()]
+    return torch.where(b.edge_mask[None], ends, b.num_clusters0)
+
+
+def k1_phase(first_batch, seed: int):
+    """K1 at the sparse paper-mode path's two shapes, the attention path's
+    two and ``coalesce_edges``' (from the first collated batch), and at edge
+    cases, forward and backward; the launch plans."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.coalesce import coalesce_slots
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import rows_from_row_ptr
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -509,8 +702,13 @@ def k1_phase(first_batch, seed: int):
         ("attention-conv1", rand(b.edge_index.shape[1], 16), b.edge_rowptr, b.edge_index[0]),
         ("attention-conv2", rand(b.pe_index.shape[1], 32), b.pe_rowptr, b.pe_index[0]),
     ]
+    # coalesce_edges' sum: the batch's interface edges mapped through its
+    # level-0 clusters, sorted by key, their attributes summed into slots
+    order, _, _, _, cptr = coalesce_slots(pooled_ends(b), b.edge_mask, b.num_clusters0)
+    coalesce = ("coalesce", b.edge_attr[order].contiguous(), cptr,
+                rows_from_row_ptr(cptr, b.edge_attr.shape[0]))
     log(f"K1 event floor: {cold_ms(lambda: None)} ms between two events with no call")
-    results = [k1_case(name, d, p, r, timed=True) for name, d, p, r in main]
+    results = [k1_case(name, d, p, r, timed=True) for name, d, p, r in main + [coalesce]]
 
     n = 4000
     rows = np.sort(rng.choice(np.arange(0, n, 3), 20000))  # 2 of 3 rows empty
@@ -2268,6 +2466,171 @@ def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
     return {"ranks": ranks, "nccl": nccl}
 
 
+FEATURIZE_MODELS = 32
+FEATURIZE_CPU_MODELS = 4  # the models also featurized on the CPU path
+FEATURIZE_RESIDUES = (300, 250)  # chains A and B: ~4,700 heavy atoms, 1ATN's scale
+FEATURE_TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+def featurize_model(pdb: str, pssm: dict, ref: str, device: str):
+    """One docking model through ``ResidueGraph`` on ``device``, scored
+    against ``ref``; the graph and its wall seconds."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.featurize.residue_graph import ResidueGraph
+
+    t0 = time.perf_counter()
+    g = ResidueGraph(pdb=pdb, pssm=pssm, device=device)
+    g.get_score(ref)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return g, time.perf_counter() - t0
+
+
+def geometry_ms(g, device: str):
+    """A featurized model's geometry run again on ``device``: the SASA ms
+    (per-atom SASA of the complex and of both unbound chains, the three
+    its BSA takes), the contact ms (interface contacts and internal
+    edges), and the three SASA arrays."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.featurize.contacts import get_contact_residues, get_internal_edges
+    from deeprank_gnn_tpu_torch.featurize.sasa import addatom_radii, atom_sasa
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    s = g.struct
+    sync()
+    t0 = time.perf_counter()
+    sasa = [atom_sasa(s, device=device)]
+    for chain in ("A", "B"):
+        sub = s.select(s.chain == chain)
+        sasa.append(atom_sasa(sub, radii=addatom_radii(sub), device=device))
+    sync()
+    t1 = time.perf_counter()
+    get_contact_residues(s, device=device)
+    get_internal_edges(s, g.nodes, device=device)
+    sync()
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1), np.concatenate(sasa)
+
+
+def same_graph(k: int, card, cpu, card_sasa, cpu_sasa) -> dict:
+    """Model ``k`` featurized on the card against the CPU path: node and
+    edge lists and ``pos`` bitwise; per-atom SASA (complex and unbound
+    chains), BSA, every node and edge feature and the scores within
+    ``FEATURE_TOL``."""
+    if card.nodes != cpu.nodes or card.edges != cpu.edges:
+        raise AssertionError(f"featurize model {k}: node or edge lists differ from the cpu's")
+    if not np.array_equal(np.asarray(card.node_data["pos"]), np.asarray(cpu.node_data["pos"])):
+        raise AssertionError(f"featurize model {k}: pos differs from the cpu's")
+    err = {}
+    for name in cpu.node_data:
+        a = np.asarray(card.node_data[name], dtype=np.float64)
+        b = np.asarray(cpu.node_data[name], dtype=np.float64)
+        np.testing.assert_allclose(a, b, err_msg=f"model {k} {name}", **FEATURE_TOL)
+        err[name] = float(np.abs(a - b).max()) if a.size else 0.0
+    if card.edge_data["type"] != cpu.edge_data["type"]:
+        raise AssertionError(f"featurize model {k}: edge types differ")
+    np.testing.assert_allclose(card.edge_data["dist"], cpu.edge_data["dist"], **FEATURE_TOL)
+    np.testing.assert_allclose(card_sasa, cpu_sasa, err_msg=f"model {k} atom sasa",
+                               **FEATURE_TOL)
+    for name in ("irmsd", "lrmsd", "fnat", "dockQ"):
+        np.testing.assert_allclose(card.score[name], cpu.score[name], **FEATURE_TOL)
+    err["atom_sasa"] = float(np.abs(card_sasa - cpu_sasa).max())
+    err["dist"] = float(np.abs(np.subtract(card.edge_data["dist"], cpu.edge_data["dist"])).max())
+    return err
+
+
+def featurize_phase(tmp: str, seed: int, smi: str) -> dict:
+    """Phase 12: docking models written from ``seed`` become residue graphs
+    on the card (``ResidueGraph(..., device="cuda")``), 4 of them also on
+    the CPU path and held to it; the graphs are clustered (MCL), converted
+    (``Graph.to_sample``) and served from phase 4's checkpoint through the
+    engine (K1 2 launches a batch, against the CPU at ``TOL``); and
+    ``coalesce_edges`` on the card over the first batch's interface edges
+    mapped through ``cluster0`` gives the collate's pooled edges bitwise (one
+    K1 launch, bitwise the CPU run), their summed attributes at
+    ``KERNEL_TOL``."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet, cluster_sample
+    from deeprank_gnn_tpu_torch.models import GINet
+    from deeprank_gnn_tpu_torch.ops import coalesce_edges, segment_sum
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    cx = write_docking_models(os.path.join(tmp, "docking"), seed, FEATURIZE_MODELS,
+                              *FEATURIZE_RESIDUES)
+    write_s = time.perf_counter() - t0
+    run = lambda k, dev: featurize_model(cx["pdbs"][k], cx["pssm_files"], cx["ref_file"], dev)
+    card, card_s = zip(*(run(k, "cuda") for k in range(FEATURIZE_MODELS)))
+    cpu, cpu_s = zip(*(run(k, "cpu") for k in range(FEATURIZE_CPU_MODELS)))
+    geo_card = [geometry_ms(card[k], "cuda") for k in range(FEATURIZE_CPU_MODELS)]
+    geo_cpu = [geometry_ms(cpu[k], "cpu") for k in range(FEATURIZE_CPU_MODELS)]
+    errs = [same_graph(k, card[k], cpu[k], geo_card[k][2], geo_cpu[k][2])
+            for k in range(FEATURIZE_CPU_MODELS)]
+    where = profile_run(lambda: run(FEATURIZE_MODELS - 1, "cuda"))
+    atoms = [g.struct.natoms for g in card]
+    res = {
+        "models": FEATURIZE_MODELS, "atoms": [min(atoms), max(atoms)],
+        "nodes": [min(len(g.nodes) for g in card), max(len(g.nodes) for g in card)],
+        "edges": [min(len(g.edges) for g in card), max(len(g.edges) for g in card)],
+        "cold_first_model_s": card_s[0],
+        "card_models_per_s": (FEATURIZE_MODELS - 1) / sum(card_s[1:]),
+        "cpu_models_per_s": FEATURIZE_CPU_MODELS / sum(cpu_s),
+        "card_model_s": [min(card_s[1:]), max(card_s[1:])],
+        "cpu_model_s": [min(cpu_s), max(cpu_s)],
+        "card_sasa_ms": [g[0] for g in geo_card], "card_contact_ms": [g[1] for g in geo_card],
+        "cpu_sasa_ms": [g[0] for g in geo_cpu], "cpu_contact_ms": [g[1] for g in geo_cpu],
+        "cpu_max_abs": {k: max(e[k] for e in errs) for k in errs[0]},
+        "profiled_model": where, "write_pdb_s": write_s,
+    }
+    log(f"featurize ({smi}): {FEATURIZE_MODELS} models of {res['atoms']} atoms -> graphs of "
+        f"{res['nodes']} nodes and {res['edges']} edges; card {res['card_models_per_s']:.2f} "
+        f"models/s warm ({res['card_model_s']} s a model), cold first model "
+        f"{card_s[0]:.3f} s; cpu path {res['cpu_models_per_s']:.2f} models/s "
+        f"({res['cpu_model_s']} s a model)")
+    log(f"featurize ({smi}): SASA ms per model card {res['card_sasa_ms']} cpu "
+        f"{res['cpu_sasa_ms']}; contact ms per model card {res['card_contact_ms']} cpu "
+        f"{res['cpu_contact_ms']}; card vs cpu max abs {res['cpu_max_abs']}")
+    log("featurize profiled model " + json.dumps(where))
+
+    samples = [cluster_sample(g.to_sample(FOLD6_FEATURES, ["dist"], target="fnat"), "mcl")
+               for g in card]
+    dataset = GraphListDataSet(samples)
+    ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
+    res["serve"] = serve_check("featurized", GINet, dataset, ckpt, tmp, "sparse",
+                               {"sorted_segment_sum": 2},
+                               lambda ld: {"sorted_segment_sum": sparse_bound_per_batch(ld)})
+
+    b, _ = next(iter(GraphLoader(dataset, batch_size=BATCH)))
+    b = b.to("cuda")
+    ends = pooled_ends(b)
+    LAUNCHES.clear()
+    index, attr, mask = coalesce_edges(ends, b.edge_attr, b.edge_mask, b.num_clusters0)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    if launches != {"sorted_segment_sum": 1}:
+        raise AssertionError(f"coalesce_edges launched {launches}, want one K1")
+    m = int(mask.sum())
+    if m != int(b.pe_mask.sum()) or not torch.equal(index[:, :m], b.pe_index[:, b.pe_mask]):
+        raise AssertionError("coalesce_edges: not the collate's pooled interface edges")
+    want = segment_sum(b.edge_attr, b.edge_to_pe, b.edge_attr.shape[0])[b.pe_mask]
+    torch.testing.assert_close(attr[:m], want, **KERNEL_TOL, msg="coalesce_edges attributes")
+    on_cpu = coalesce_edges(ends.cpu(), b.edge_attr.cpu(), b.edge_mask.cpu(), b.num_clusters0)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip((index, attr, mask), on_cpu)):
+        raise AssertionError("coalesce_edges on the card is not bitwise the cpu run")
+    res["coalesce"] = {"E": int(ends.shape[1]), "E_valid": int(b.edge_mask.sum()),
+                       "C0": b.num_clusters0, "pooled_edges": m, "launches": launches,
+                       **errors(attr[:m], want)}
+    log("featurize coalesce: " + json.dumps(res["coalesce"]))
+    log(f"phase featurize: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2399,6 +2762,8 @@ def run(args, kdir: str) -> int:
         log(f"phase fast: {time.perf_counter() - t0:.1f} s")
         # 11. multi-device
         mesh = mesh_phase(tmp, kdir, args.seed)
+        # 12. the featurizer, its graphs served, coalesce_edges on the card
+        feat = featurize_phase(tmp, args.seed, smi)
 
     k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
     k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
@@ -2631,6 +2996,12 @@ def run(args, kdir: str) -> int:
                for kind in ("serve", "train")} for path in MESH_PATHS}
     summary["mesh_halo_bytes"] = mesh["ranks"][0]["halo_bytes"]
     summary["mesh_nccl_one_rank"] = mesh["nccl"]
+    summary["featurize"] = {k: v for k, v in feat.items() if k != "serve"}
+    summary["featurize"]["serve"] = {
+        "graphs_per_s": [len(feat["serve"]["pred"]) / w for w in feat["serve"]["walls"]],
+        "launches": feat["serve"]["launches"],
+        "device_idle_share": feat["serve"]["where"]["device_idle_share"],
+        "cpu_max_abs": feat["serve"]["cpu_max_abs"]}
     log("summary " + json.dumps(summary))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(line))

@@ -16,9 +16,12 @@ Ported so far: scoring with a pretrained net,
 for the whole model zoo: GINet in paper mode, with attention
 (``functools.partial(GINet, attention=True)``) or with the internal tower
 (sparse layout only), FoutNet and sGAT (ROADMAP.md); the device store,
-scanned epochs and the fast mode; and multi-device training and serving
+scanned epochs and the fast mode; multi-device training and serving
 over ``torch.distributed`` (``deeprank_gnn_tpu_torch.parallel``: the
-graph-parallel meshes and the halo layout).
+graph-parallel meshes and the halo layout); and the featurizer
+(``deeprank_gnn_tpu_torch.featurize``: PDB docking models to interface
+graphs, its geometry on the card), edge coalescing, on-line clustering
+(``community_pooling``), the tools and the rest of the CLI.
 """
 
 __version__ = "0.1.0"

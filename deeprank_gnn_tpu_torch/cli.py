@@ -1,13 +1,15 @@
 """Command-line interface of the port (the JAX package's ``cli.py``):
 
-    python -m deeprank_gnn_tpu_torch train --database g.hdf5 --target fnat ...
-    python -m deeprank_gnn_tpu_torch test  --database g.hdf5 --checkpoint m.pth.tar
+    python -m deeprank_gnn_tpu_torch graphgen  --pdb ... --ref ... --pssm ... --out g.hdf5
+    python -m deeprank_gnn_tpu_torch train     --database g.hdf5 --target fnat ...
+    python -m deeprank_gnn_tpu_torch test      --database g.hdf5 --checkpoint m.pth.tar
+    python -m deeprank_gnn_tpu_torch add-target  g.hdf5 name targets.lst
+    python -m deeprank_gnn_tpu_torch hdf5-to-csv train_data.hdf5
 
 with the JAX package's flags, defaults and printed lines, and two more:
-``--device`` (``cuda``, the default, or ``cpu``) and ``train``'s
-``--dense-fast`` (the JAX package's ``DRGNN_DENSE_FAST``). ``graphgen``,
-``add-target`` and ``hdf5-to-csv`` take the JAX package's arguments and
-raise: the featurizer and the tools are not ported yet.
+``--device`` (``cuda``, the default, or ``cpu``) on ``graphgen``, ``train``
+and ``test`` (where the featurizer's geometry or the model runs), and
+``train``'s ``--dense-fast`` (the JAX package's ``DRGNN_DENSE_FAST``).
 """
 
 from __future__ import annotations
@@ -23,10 +25,21 @@ def _model_cls(name: str):
     return MODELS[name]
 
 
-def _unported_cmd(args) -> None:
-    from deeprank_gnn_tpu_torch.train.neuralnet import _unported
+def cmd_graphgen(args) -> None:
+    from deeprank_gnn_tpu_torch.featurize.graphgen import GraphHDF5
 
-    raise _unported(f"the {args.cmd} subcommand", "the featurizer and the tools")
+    GraphHDF5(
+        pdb_path=args.pdb,
+        ref_path=args.ref,
+        pssm_path=args.pssm,
+        graph_type=args.graph_type,
+        outfile=args.out,
+        nproc=args.nproc,
+        biopython=args.biopython,
+        limit=args.limit,
+        device=args.device,
+    )
+    print(f"wrote {args.out}")
 
 
 def _common_nn(args, pretrained=None):
@@ -81,6 +94,26 @@ def cmd_test(args) -> None:
         print("test loss:", nn.test_loss)
 
 
+def cmd_add_target(args) -> None:
+    from deeprank_gnn_tpu_torch.tools import add_target
+
+    add_target(args.hdf5, args.name, args.target_list)
+
+
+def cmd_hdf5_to_csv(args) -> None:
+    from deeprank_gnn_tpu_torch.tools import hdf5_to_csv
+
+    print(hdf5_to_csv(args.hdf5))
+
+
+def _device_arg(s, what: str) -> None:
+    s.add_argument(
+        "--device", default="cuda", choices=("cuda", "cpu"),
+        help=f"where {what} runs: the CUDA card, or the CPU (where the "
+        "hand kernels run their plain versions)",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deeprank_gnn_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -98,17 +131,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     g.add_argument("--biopython", action="store_true")
     g.add_argument("--limit", type=int, default=None)
-    g.set_defaults(fn=_unported_cmd)
+    _device_arg(g, "the featurizer's geometry")
+    g.set_defaults(fn=cmd_graphgen)
 
     def nn_args(s):
         s.add_argument("--database", required=True)
         s.add_argument("--model", default="GINet")
         s.add_argument("--outdir", default="./")
-        s.add_argument(
-            "--device", default="cuda", choices=("cuda", "cpu"),
-            help="where the model runs: the CUDA card, or the CPU with the "
-            "kernels' plain versions",
-        )
+        _device_arg(s, "the model")
 
     t = sub.add_parser("train", help="train a model")
     nn_args(t)
@@ -154,11 +184,11 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("hdf5")
     a.add_argument("name")
     a.add_argument("target_list")
-    a.set_defaults(fn=_unported_cmd)
+    a.set_defaults(fn=cmd_add_target)
 
     c = sub.add_parser("hdf5-to-csv", help="convert epoch outputs to CSV")
     c.add_argument("hdf5")
-    c.set_defaults(fn=_unported_cmd)
+    c.set_defaults(fn=cmd_hdf5_to_csv)
     return p
 
 

@@ -405,90 +405,160 @@ class HDF5DataSet:
 
     __getitem__ = get
 
-    def _stack_features(
-        self, grp: h5py.Group, sub: str, names: Sequence[str]
-    ) -> np.ndarray:
-        cols = []
-        for feat in names:
-            vals = grp[f"{sub}/{feat}"][()]
-            if vals.ndim == 1:
-                vals = vals.reshape(-1, 1)
-            cols.append(vals)
-        return np.hstack(cols)
-
-    def _load_edges(
-        self, grp: h5py.Group, index_key: str, data_key: str
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        ind = grp[index_key][()]
-        # tolerate legacy (0,)-shaped empty edge lists
-        ind = ind.reshape(-1, 2)
-        # direction-doubling: (i,j) AND (j,i) (reference `DataSet.py:265-268`)
-        ind = np.vstack((ind, np.flip(ind, 1))).T.astype(np.int32)
-        if self.edge_feature is not None:
-            attr = self._stack_features(grp, data_key, self.edge_feature)
-            attr = np.vstack((attr, attr))
-            attr = self.edge_feature_transform(attr).astype(np.float32)
-        else:
-            attr = np.zeros((ind.shape[1], 0), dtype=np.float32)
-        return _row_sort(ind, attr)
-
     def load_one_graph(self, fname: str, mol: str) -> Optional[GraphSample]:
         import h5py
 
         with h5py.File(fname, "r") as f5:
             if mol not in f5:
                 return None
-            grp = f5[mol]
-            try:
-                x = self._stack_features(grp, "node_data", self.node_feature)
-                x = x.astype(np.float32)
-            except Exception:
-                print("node attributes not found in the file", fname)
-                return None
-            try:
-                edge_index, edge_attr = self._load_edges(
-                    grp, "edge_index", "edge_data"
-                )
-                iedge_index, iedge_attr = self._load_edges(
-                    grp, "internal_edge_index", "internal_edge_data"
-                )
-            except Exception:
-                print("edge features not found in the file", fname)
-                return None
-
-            y = None
-            if self.target is not None and "score" in grp:
-                if self.target in grp["score"]:
-                    raw = grp["score/" + self.target][()]
-                    if raw is not None:
-                        y = float(raw)
-
-            pos = grp["node_data/pos"][()].astype(np.float32)
-
-            cluster0 = cluster1 = None
-            cpath = f"clustering/{self.clustering_method}"
-            if (
-                cpath in grp
-                and "depth_0" in grp[cpath]
-                and "depth_1" in grp[cpath]
-            ):
-                cluster0 = grp[cpath + "/depth_0"][()].astype(np.int32)
-                cluster1 = grp[cpath + "/depth_1"][()].astype(np.int32)
-            else:
-                print("WARNING: no cluster detected")
-
-            return GraphSample(
-                mol=mol,
-                x=x,
-                pos=pos,
-                edge_index=edge_index,
-                edge_attr=edge_attr,
-                internal_edge_index=iedge_index,
-                internal_edge_attr=iedge_attr,
-                cluster0=cluster0,
-                cluster1=cluster1,
-                y=y,
+            sample = sample_from_group(
+                f5[mol], mol, self.node_feature, self.edge_feature, self.target,
+                self.clustering_method, self.edge_feature_transform, fname,
             )
+        if sample is not None and sample.cluster0 is None:
+            print("WARNING: no cluster detected")
+        return sample
+
+
+def _stack_features(grp, sub: str, names: Sequence[str]) -> np.ndarray:
+    cols = []
+    for feat in names:
+        vals = grp[f"{sub}/{feat}"][()]
+        if vals.ndim == 1:
+            vals = vals.reshape(-1, 1)
+        cols.append(vals)
+    return np.hstack(cols)
+
+
+def _load_edges(
+    grp, index_key: str, data_key: str, edge_feature, edge_feature_transform
+) -> Tuple[np.ndarray, np.ndarray]:
+    ind = grp[index_key][()]
+    # tolerate legacy (0,)-shaped empty edge lists
+    ind = ind.reshape(-1, 2)
+    # direction-doubling: (i,j) AND (j,i) (reference `DataSet.py:265-268`)
+    ind = np.vstack((ind, np.flip(ind, 1))).T.astype(np.int32)
+    if edge_feature is not None:
+        attr = _stack_features(grp, data_key, edge_feature)
+        attr = np.vstack((attr, attr))
+        attr = edge_feature_transform(attr).astype(np.float32)
+    else:
+        attr = np.zeros((ind.shape[1], 0), dtype=np.float32)
+    return _row_sort(ind, attr)
+
+
+def sample_from_group(
+    grp,
+    mol: str,
+    node_feature: Sequence[str],
+    edge_feature: Optional[Sequence[str]],
+    target: Optional[str],
+    clustering_method: str,
+    edge_feature_transform: Callable = default_edge_transform,
+    fname: str = "",
+) -> Optional[GraphSample]:
+    """One graph's sample from its group in the reference schema: an open
+    ``h5py`` group (:meth:`HDF5DataSet.load_one_graph`) or a
+    :class:`ArrayGroup` of the arrays ``Graph.nx2h5`` would write
+    (``Graph.to_sample``). None where the features are missing."""
+    try:
+        x = _stack_features(grp, "node_data", node_feature)
+        x = x.astype(np.float32)
+    except Exception:
+        print("node attributes not found in the file", fname)
+        return None
+    try:
+        edge_index, edge_attr = _load_edges(
+            grp, "edge_index", "edge_data", edge_feature, edge_feature_transform
+        )
+        iedge_index, iedge_attr = _load_edges(
+            grp, "internal_edge_index", "internal_edge_data", edge_feature,
+            edge_feature_transform,
+        )
+    except Exception:
+        print("edge features not found in the file", fname)
+        return None
+
+    y = None
+    if target is not None and "score" in grp:
+        if target in grp["score"]:
+            raw = grp["score/" + target][()]
+            if raw is not None:
+                y = float(raw)
+
+    pos = grp["node_data/pos"][()].astype(np.float32)
+
+    cluster0 = cluster1 = None
+    cpath = f"clustering/{clustering_method}"
+    if (
+        cpath in grp
+        and "depth_0" in grp[cpath]
+        and "depth_1" in grp[cpath]
+    ):
+        cluster0 = grp[cpath + "/depth_0"][()].astype(np.int32)
+        cluster1 = grp[cpath + "/depth_1"][()].astype(np.int32)
+
+    return GraphSample(
+        mol=mol,
+        x=x,
+        pos=pos,
+        edge_index=edge_index,
+        edge_attr=edge_attr,
+        internal_edge_index=iedge_index,
+        internal_edge_attr=iedge_attr,
+        cluster0=cluster0,
+        cluster1=cluster1,
+        y=y,
+    )
+
+
+class ArrayGroup:
+    """In-memory stand-in for an ``h5py`` group: ``{path: array}`` read
+    through the same ``grp[path][()]``, ``path in grp`` and sorted
+    ``keys()`` (h5py lists a group's members by name) that
+    :func:`sample_from_group` uses."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], prefix: str = ""):
+        self._arrays = arrays
+        self._prefix = prefix
+
+    def __getitem__(self, path: str):
+        full = self._prefix + path
+        if full in self._arrays:
+            return self._arrays[full]
+        if any(k.startswith(full + "/") for k in self._arrays):
+            return ArrayGroup(self._arrays, full + "/")
+        raise KeyError(path)
+
+    def __contains__(self, path: str) -> bool:
+        try:
+            self[path]
+        except KeyError:
+            return False
+        return True
+
+    def keys(self) -> List[str]:
+        n = len(self._prefix)
+        return sorted({k[n:].split("/")[0] for k in self._arrays if k.startswith(self._prefix)})
+
+
+def cluster_sample(sample: GraphSample, method: str) -> GraphSample:
+    """``sample`` with the two-level clusters :func:`PreCluster` would store
+    for it (clustering on the loaded internal edges; depth 1 clusters the
+    pooled graph), as the loader reads them back (int32)."""
+    from deeprank_gnn_tpu_torch.featurize.cluster import (
+        community_detection,
+        pool_graph_host,
+    )
+
+    cluster0 = community_detection(
+        sample.internal_edge_index, sample.num_nodes, method=method
+    )
+    pooled_iedge_index, pooled_num_nodes = pool_graph_host(
+        cluster0, sample.internal_edge_index
+    )
+    cluster1 = community_detection(pooled_iedge_index, pooled_num_nodes, method=method)
+    return replace(sample, cluster0=cluster0.astype(np.int32), cluster1=cluster1.astype(np.int32))
 
 
 def DivideDataSet(
@@ -528,11 +598,6 @@ def PreCluster(dataset: HDF5DataSet, method: str) -> None:
     """
     import h5py
 
-    from deeprank_gnn_tpu_torch.featurize.cluster import (
-        community_detection,
-        pool_graph_host,
-    )
-
     for fname, mol in list(dataset.index_complexes):
         data = dataset.load_one_graph(fname, mol)
         if data is None:
@@ -545,15 +610,7 @@ def PreCluster(dataset: HDF5DataSet, method: str) -> None:
             dataset.index_complexes.remove((fname, mol))
             continue
 
-        cluster0 = community_detection(
-            data.internal_edge_index, data.num_nodes, method=method
-        )
-        pooled_iedge_index, pooled_num_nodes = pool_graph_host(
-            cluster0, data.internal_edge_index
-        )
-        cluster1 = community_detection(
-            pooled_iedge_index, pooled_num_nodes, method=method
-        )
+        clustered = cluster_sample(data, method)
 
         with h5py.File(fname, "a") as f5:
             grp = f5[mol]
@@ -562,5 +619,5 @@ def PreCluster(dataset: HDF5DataSet, method: str) -> None:
                 print(f"Deleting previous data for mol {mol} method {method}")
                 del clust_grp[method.lower()]
             method_grp = clust_grp.create_group(method.lower())
-            method_grp.create_dataset("depth_0", data=cluster0.astype(np.int64))
-            method_grp.create_dataset("depth_1", data=cluster1.astype(np.int64))
+            method_grp.create_dataset("depth_0", data=clustered.cluster0.astype(np.int64))
+            method_grp.create_dataset("depth_1", data=clustered.cluster1.astype(np.int64))

@@ -6,6 +6,7 @@ the device-side math of the reference's community pooling (reference
 
 - node features are **max**-pooled over cluster members
   (`scatter_max`, `community_pooling.py:201`);
+- positions are **mean**-pooled (`community_pooling.py:213-214`);
 - the per-graph readout is a mean over nodes (`ginet.py:133-134`);
 - `max_pool_x` is a plain cluster max-pool (`ginet.py:114`).
 
@@ -34,6 +35,13 @@ def community_pooling_x(
     if mem_idx is not None:
         return member_max_pool(x[None], mem_idx[None])[0]
     return segment_max(x, assign, num_clusters)
+
+
+def community_pooling_pos(
+    pos: torch.Tensor, assign: torch.Tensor, num_clusters: int
+) -> torch.Tensor:
+    """Mean-pool node positions over cluster members. [N,3]x[N] -> [C,3]."""
+    return segment_mean(pos, assign, num_clusters)
 
 
 def max_pool_x(

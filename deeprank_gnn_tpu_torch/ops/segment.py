@@ -162,20 +162,36 @@ def segment_mean(
     return total / torch.clamp(count, min=1.0)
 
 
+def _segment_reduce_with_fill(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, reduce: str,
+    identity: float,
+) -> torch.Tensor:
+    """``scatter_reduce`` into ``num_segments`` rows plus the dump row,
+    started from ``identity``; empty segments give 0."""
+    ids = _dump_row(segment_ids, num_segments).to(torch.int64)
+    shape = (num_segments + 1,) + tuple(data.shape[1:])
+    idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    out = data.new_full(shape, identity)
+    out.scatter_reduce_(0, idx, data, reduce=reduce, include_self=True)
+    out = out[:num_segments]
+    count = segment_count(segment_ids, num_segments)
+    count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
+    return torch.where(count > 0, out, torch.zeros((), dtype=data.dtype, device=data.device))
+
+
 def segment_max(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
     """Per-segment max; empty segments give 0 (the reference's
     zero-initialized scatter_max buffer, `community_pooling.py:201`)."""
-    ids = _dump_row(segment_ids, num_segments).to(torch.int64)
-    shape = (num_segments + 1,) + tuple(data.shape[1:])
-    idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    out = data.new_full(shape, float("-inf"))
-    out.scatter_reduce_(0, idx, data, reduce="amax", include_self=True)
-    out = out[:num_segments]
-    count = segment_count(segment_ids, num_segments)
-    count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
-    return torch.where(count > 0, out, torch.zeros((), dtype=data.dtype, device=data.device))
+    return _segment_reduce_with_fill(data, segment_ids, num_segments, "amax", float("-inf"))
+
+
+def segment_min(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Per-segment min; empty segments give 0."""
+    return _segment_reduce_with_fill(data, segment_ids, num_segments, "amin", float("inf"))
 
 
 def segment_softmax(

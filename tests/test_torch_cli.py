@@ -7,10 +7,10 @@ reads HDF5 and ``train()`` writes its epoch file) nor ``matplotlib``.
   and its checkpoint loads in the JAX engine with the same predictions;
   ``main(["test", ...])`` on a JAX checkpoint prints JAX's predictions
   within tolerance; an unknown model exits with JAX's message;
-  ``--scan-epochs`` trains, and the three host subcommands raise, naming
-  their ROADMAP items; the parsers take JAX's arguments and defaults (plus
-  ``--device`` and ``train``'s ``--dense-fast``); ``python -m
-  deeprank_gnn_tpu_torch`` runs;
+  ``--scan-epochs`` trains; the parsers take JAX's arguments and defaults
+  (plus ``--device`` and ``train``'s ``--dense-fast``); ``python -m
+  deeprank_gnn_tpu_torch`` runs (``graphgen``, ``add-target`` and
+  ``hdf5-to-csv`` run in ``test_torch_tools.py``);
 - the four plots write JAX's file names, ``plot_hit_rate`` plots JAX's
   values, and after ``plot_scatter`` the next epoch's order is JAX's;
 - ``train(profile=dir)`` writes one trace that parses as JSON, and its
@@ -121,27 +121,20 @@ def test_cli_unknown_model_exits_as_jax(db):
     assert str(got.value) == str(want.value) and "NotAModel" in str(got.value)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["train", "--layout", "dense", "--device-cache", "--scan-epochs"], None),
-    (["graphgen", "--pdb", "x.pdb"], "the featurizer and the tools"),
-    (["add-target", "g.hdf5", "name", "targets.lst"], "the featurizer and the tools"),
-    (["hdf5-to-csv", "train_data.hdf5"], "the featurizer and the tools"),
-], ids=["scan-epochs", "graphgen", "add-target", "hdf5-to-csv"])
-def test_cli_unported_raise(db, tmp_path, argv, item, capsys):
-    """The host subcommands raise, naming their ROADMAP item; ``--scan-epochs``
-    (``item`` None) is ported and trains with scanned epochs."""
+@pytest.mark.parametrize("argv", [
+    ["train", "--layout", "dense", "--device-cache", "--scan-epochs"],
+], ids=["scan-epochs"])
+def test_cli_unported_raise(db, tmp_path, argv, capsys):
+    """``--scan-epochs`` is ported and trains with scanned epochs (the host
+    subcommands that raised here are ported too: ``test_torch_tools.py``
+    runs them)."""
     from deeprank_gnn_tpu_torch.cli import main
 
-    if argv[0] == "train":
-        argv = argv + ["--database", db, "--outdir", str(tmp_path), "--device", "cpu",
-                       "--node-feature", ",".join(FEATURE_NAMES), "--target", "fnat",
-                       "--epochs", "2", "--batch-size", "4"]
-    if item is None:
-        main(argv)
-        assert "final train loss:" in capsys.readouterr().out
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1 \\({item}\\)"):
-        main(argv)
+    argv = argv + ["--database", db, "--outdir", str(tmp_path), "--device", "cpu",
+                   "--node-feature", ",".join(FEATURE_NAMES), "--target", "fnat",
+                   "--epochs", "2", "--batch-size", "4"]
+    main(argv)
+    assert "final train loss:" in capsys.readouterr().out
 
 
 def parser_spec(parser, skip=("device",)):
@@ -161,7 +154,7 @@ def test_cli_parsers_match_jax():
     assert (parser_spec(build_parser(), skip=("device", "dense_fast"))
             == parser_spec(jax_parser()))
     spec = parser_spec(build_parser(), skip=())
-    for cmd in ("train", "test"):
+    for cmd in ("graphgen", "train", "test"):
         assert (("--device",), "device", "cuda", ("cuda", "cpu"), False, None) in spec[cmd]
     assert (("--dense-fast",), "dense_fast", False, None, False, None) in spec["train"]
 
