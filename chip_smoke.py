@@ -120,7 +120,12 @@ Phases, each of which raises on failure:
    the kernels a profiled scanned epoch traces; warm graphs/s, the host's
    ms per batch and the idle share beside the looped path's; the scanned
    engine's checkpoint (Adam ``step`` a CPU scalar) reloads and trains
-   on; scanned serving bitwise the looped store serving, profiled;
+   on; scanned serving bitwise the looped store serving, profiled; then
+   on the operator path ``scan_epochs="full"`` (a whole ``train(nepoch=3,
+   validate=True, save_model="best")`` call as one scanned run, its epoch
+   HDF5 and metrics left out) and the chunked scan (4 batches a chunk),
+   each bitwise its looped run, with replays, host ms per batch, warm
+   graphs/s and idle share;
 10. the fast mode (``dense_fast=True``) scanned on store batches without
    the operators: K3's fast variant inside the graph (52 launches an
    epoch, traced as the bf16 kernel), bitwise the looped fast epoch and
@@ -150,7 +155,18 @@ Phases, each of which raises on failure:
    array. Each rank prints its graphs/s (gloo times, host staging
    included). Then this process alone forms an NCCL group of one and runs
    one halo and one dense-mesh training pass of one batch on NCCL's
-   collectives;
+   collectives. Scanned dense mesh epochs (``scan_epochs=True``, 3
+   epochs and a scanned serving pass, dropout on): in the two gloo ranks on
+   the operator path and on store batches without the operators (K3 inside
+   the graphs), each training step two replays around the host's gradient
+   all-reduce; in the NCCL group of one on the K3 path with
+   ``scan_epochs=True``, ``"full"`` and the chunked store, the all-reduce
+   captured inside the step's graph. Each is bitwise the looped mesh run
+   (losses, predictions, parameters, Adam and generator state; the ranks'
+   parameters equal), its K3 launches (captured times replays) equal the
+   looped run's and the profiled trace, its collective bytes per epoch
+   equal the plan; the gloo runs also match the single-process scanned run
+   at ``TOL``;
 12. featurize: 32 docking models of one synthetic complex written from the
    seed (``write_docking_models``: chains of 300 and 250 residues with
    their standard heavy atoms, ~4,700 atoms, 1ATN's scale; chain B moved
@@ -166,7 +182,11 @@ Phases, each of which raises on failure:
    CPU at ``TOL``); ``coalesce_edges`` on the card over the first batch's
    interface edges mapped through ``cluster0`` gives the collate's pooled
    edges bitwise, their summed attributes at ``KERNEL_TOL``, with one K1
-   launch, bitwise the CPU run.
+   launch, bitwise the CPU run;
+13. the low-level API: ``example/custom_model_torch.py``'s ``CustomNet``
+   and ``train`` on 128 in-memory graphs at batch 4 for 3 epochs, K1 2
+   launches a batch, within ``TOL`` of the same function on the CPU, two
+   card runs from one seed bitwise equal.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -439,14 +459,18 @@ def write_docking_models(root: str, seed: int, n_models: int, res_a: int, res_b:
             "ref_file": os.path.join(dirs["ref"], f"{name}.pdb")}
 
 
-def write_checkpoint(path: str, seed: int, Net=None) -> None:
+def write_checkpoint(path: str, seed: int, Net=None, task: str = "reg",
+                     target: str = "fnat") -> None:
     """A reference-format torch checkpoint of a seeded random ``Net``
-    (default GINet) at the paper's width."""
+    (default GINet) at the paper's width: a regressor of ``target``, or
+    with ``task="class"`` a classifier of two classes."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
 
-    model = (Net or GINet)(48, 1, 1, device="cpu", generator=torch.Generator().manual_seed(seed))
+    outputs = 2 if task == "class" else 1
+    model = (Net or GINet)(48, outputs, 1, device="cpu",
+                           generator=torch.Generator().manual_seed(seed))
     torch.save(
         {
             "model": model.state_dict(),
@@ -454,8 +478,8 @@ def write_checkpoint(path: str, seed: int, Net=None) -> None:
             "net": type(model).__name__,
             "node": FOLD6_FEATURES,
             "edge": ["dist"],
-            "target": "fnat",
-            "task": "reg",
+            "target": target,
+            "task": task,
             "classes": [0, 1],
             "class_weight": None,
             "batch_size": BATCH,
@@ -1678,6 +1702,18 @@ def store_k3_check(dataset, seed: int, tmp: str, dense_parity: list) -> dict:
             "graphs": len(nn.train_loader.dataset)}
 
 
+def chunk_budget(dataset, batches: int) -> int:
+    """A ``device_cache_bytes`` whose chunks hold ``batches`` batches of
+    ``BATCH`` graphs (the operator path's store, the larger one)."""
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.device_store import estimate_store_bytes
+
+    nf, ef = dataset.feature_dims()
+    caps = GraphLoader(dataset, batch_size=BATCH, layout="dense")._dense_caps
+    per_slot = estimate_store_bytes(1, num_features=nf, num_edge_features=ef, **caps) // 2
+    return 2 * per_slot * (batches * BATCH + 1)
+
+
 def chunked_check(dataset, ckpt: str, tmp: str, seed: int, store_pred) -> dict:
     """``device_cache="chunked"`` with a budget of 4 batches a chunk (at
     least 3 chunks): unshuffled serving bitwise that of
@@ -1686,16 +1722,11 @@ def chunked_check(dataset, ckpt: str, tmp: str, seed: int, store_pred) -> dict:
     training epoch that sees every graph once."""
     import torch
 
-    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
-    from deeprank_gnn_tpu_torch.data.device_store import estimate_store_bytes
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    nf, ef = dataset.feature_dims()
-    caps = GraphLoader(dataset, batch_size=BATCH, layout="dense")._dense_caps
-    per_slot = estimate_store_bytes(1, num_features=nf, num_edge_features=ef, **caps) // 2
-    budget = 2 * per_slot * (4 * BATCH + 1)
+    budget = chunk_budget(dataset, 4)
     kw = dict(layout="dense", device="cuda", device_cache="chunked", device_cache_bytes=budget)
     nn = NeuralNet(dataset, GINet, pretrained_model=ckpt, outdir=os.path.join(tmp, "chunked"),
                    **kw)
@@ -1803,59 +1834,74 @@ def store_phase(dataset, zoo, tmp: str, seed: int, dense_parity: list, served_de
 # scanned epochs and the fast mode
 
 
-def scan_engine(dataset, seed: int, tmp: str, name: str, kdir: str, ops: bool = True, **kw):
-    """Paper-mode GINet on the device store at batch 128, percent [0.8,
-    0.2], from ``seed``; ``ops=False`` gives it store loaders without the
-    precomputed operators, whose batches feed K3. ``kw``: ``scan_epochs``,
-    ``dense_fast``."""
-    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+def scan_engine(dataset, seed: int, tmp: str, name: str, kdir: str, ops: bool = True,
+                percent=(0.8, 0.2), **kw):
+    """Paper-mode GINet on the device store at batch 128 from ``seed``;
+    ``ops=False`` gives it store loaders without the precomputed operators,
+    whose batches feed K3. ``kw``: ``scan_epochs``, ``dense_fast``,
+    ``mesh``, ``device_cache`` (default True) and ``device_cache_bytes``."""
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
+    kw.setdefault("device_cache", True)
     nn = NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
-                   target="fnat", batch_size=BATCH, percent=[0.8, 0.2], layout="dense",
-                   seed=seed, device="cuda", device_cache=True, executable_cache_dir=kdir,
+                   target="fnat", batch_size=BATCH, percent=list(percent), layout="dense",
+                   seed=seed, device="cuda", executable_cache_dir=kdir,
                    outdir=os.path.join(tmp, f"scan_{name}"), **kw)
     if not ops:
         for attr in ("train_loader", "valid_loader"):
             ld = getattr(nn, attr)
-            setattr(nn, attr, GraphLoader(ld.dataset, batch_size=BATCH, shuffle=True, seed=seed,
-                                          layout="dense", device_cache=True,
-                                          precompute_ops=False, device="cuda"))
+            if ld is not None:
+                setattr(nn, attr, nn._loader(ld.dataset, shuffle=True, seed=seed,
+                                             precompute_ops=False))
     return nn
 
 
 def run_pass(nn, training: bool, loader=None) -> dict:
     """One ``_run_pass`` of ``nn`` (scanned when it scans) with the launch
-    counts cleared just before and read just after: its wall time, loss
-    and outputs; the hand-kernel launches counted, and those that ran
-    (counted outside a capture, plus each captured graph's launches times
-    its replays in this pass: a wrapper counts where it launches, and a
-    graph launches at capture); the graphs' replays and the host's
-    seconds issuing the steps."""
+    and collective-byte counts cleared just before and read just after:
+    its wall time, loss and outputs; the hand-kernel launches counted, and
+    those that ran (counted outside a capture, plus each captured graph's
+    launches times its replays in this pass: a wrapper counts where it
+    launches, and a graph launches at capture), and the collective bytes
+    that ran, counted alike; the graphs' replays and the host's seconds
+    issuing the steps."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+    from deeprank_gnn_tpu_torch.parallel import collectives
 
     loader = loader or (nn.train_loader if training else nn.valid_loader)
     graphs_before = len(nn._scan.graph_stats())
     nn._scan.reset_replays()
     LAUNCHES.clear()
+    collectives.reset_collective_bytes()
     t0 = time.perf_counter()
     out, _out_m, _ys, loss, _data = nn._run_pass(loader, training=training)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counted = dict(LAUNCHES)
     stats = nn._scan.graph_stats()
+    ran = ran_counts(counted, stats, graphs_before, "launches")
+    nbytes = ran_counts(collectives.collective_bytes(), stats, graphs_before,
+                        "collective_bytes")
+    return {"wall": wall, "loss": loss, "out": out, "counted": counted, "ran": ran,
+            "bytes": nbytes, "replays": sum(st["replays"] for st in stats),
+            "issue_s": nn._scan.last_issue_s, "batches": len(loader),
+            "graphs": len(loader.dataset)}
+
+
+def ran_counts(counted: dict, stats: list, graphs_before: int, key: str) -> dict:
+    """What ran, from what the host ``counted`` (captures included) and the
+    graph stats: the captures of the graphs made since ``graphs_before``
+    taken out, every graph's ``key`` counts times its replays added."""
     ran = Counter(counted)
     for st in stats[graphs_before:]:
-        ran.subtract(st["launches"])
+        ran.subtract(st[key])
     for st in stats:
-        for k, v in st["launches"].items():
+        for k, v in st[key].items():
             ran[k] += v * st["replays"]
-    return {"wall": wall, "loss": loss, "out": out, "counted": counted, "ran": dict(+ran),
-            "replays": sum(st["replays"] for st in stats), "issue_s": nn._scan.last_issue_s,
-            "batches": len(loader), "graphs": len(loader.dataset)}
+    return dict(+ran)
 
 
 def profile_run(run, patterns=()) -> dict:
@@ -1930,10 +1976,13 @@ def scan_training_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops
                                  f"{st['ran']} scanned")
     assert_same_training(label, looped, scanned)
     batches = runs["scanned"][0][0]["batches"]
-    # the first scanned epoch: one warm-up step, then a graph replay per
+    # the first scanned epoch: one warm-up step per set of store buffers
+    # (two for the chunked store's chunks in turn), then a graph replay per
     # batch; later epochs replay every batch
+    cs = scanned.train_loader._chunk_store
+    warm = 1 if cs is None else min(2, cs.num_chunks)
     replays = [t["replays"] for t, _v in runs["scanned"]]
-    if replays != [batches - 1] + [batches] * (epochs - 1):
+    if replays != [batches - warm] + [batches] * (epochs - 1):
         raise AssertionError(f"scan {label}: replays per epoch {replays}, {batches} batches")
     patterns = (K3_EXACT_NAME, K3_FAST_NAME)
     prof_scan = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
@@ -1958,8 +2007,78 @@ def scan_training_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops
         "scanned_profile": prof_scan, "looped_profile": prof_loop,
         "bitwise_with_dropout": True,
     }
+    if cs is not None:
+        res["chunks"] = cs.num_chunks
     log(f"scan {label}: " + json.dumps(res))
     return res, scanned
+
+
+def skip_host_only_steps(nn) -> None:
+    """Leave out the epoch bookkeeping of ``_train_full_scan`` that needs
+    what the card's machine lacks: the epoch HDF5 export (``h5py``) and
+    the metrics (scikit-learn). The CPU tests run both."""
+    nn._export_epoch_hdf5 = lambda epoch, data: None
+    nn.get_metrics = lambda *args, **kw: argparse.Namespace(accuracy=None)
+
+
+def full_scan_check(dataset, seed: int, tmp: str, kdir: str, epochs: int = 3) -> dict:
+    """``scan_epochs="full"`` on the operator path: a whole
+    ``train(nepoch=3, validate=True, save_model="best")`` call as one
+    scanned run (``_train_full_scan``; ``skip_host_only_steps``) bitwise the looped engine's three
+    training and validation passes from the same seed, dropout on (losses,
+    the last epoch's outputs, parameters, Adam state, the dropout
+    generator's state), with one "best" checkpoint; then a warm call timed
+    and a third profiled. Each call's replays, host ms per batch (the
+    steps' issue time over every pass's batches) and graphs/s (training
+    and validation graphs over the call's wall)."""
+    import torch
+
+    looped = scan_engine(dataset, seed, tmp, "full_looped", kdir)
+    full = scan_engine(dataset, seed, tmp, "full_scanned", kdir, scan_epochs="full")
+    lt = [(run_pass(looped, True), run_pass(looped, False)) for _ in range(epochs)]
+    issue = []
+    steps_run = full._scan.run
+
+    def timed_run(*args, **kw):
+        steps_run(*args, **kw)
+        issue.append(full._scan.last_issue_s)
+
+    full._scan.run = timed_run
+    skip_host_only_steps(full)
+    batches = (len(full.train_loader) + len(full.valid_loader)) * epochs
+    graphs = (len(full.train_loader.dataset) + len(full.valid_loader.dataset)) * epochs
+
+    def call():
+        full.data = {}
+        full._scan.reset_replays()
+        issue.clear()
+        t0 = time.perf_counter()
+        if not full._train_full_scan(epochs, True, "best", "intermediate", 5):
+            raise AssertionError("full scan: no store")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return {"wall": wall, "graphs_per_s": graphs / wall,
+                "replays": sum(st["replays"] for st in full._scan.graph_stats()),
+                "host_ms_per_batch": 1e3 * sum(issue) / batches}
+
+    first = call()
+    want = ([t["loss"] for t, _v in lt], [v["loss"] for _t, v in lt])
+    if (full.train_loss, full.valid_loss) != want or full.valid_out != lt[-1][1]["out"]:
+        raise AssertionError(f"full scan: losses {full.train_loss} {full.valid_loss}, looped "
+                             f"{want}")
+    assert_same_training("full", looped, full)
+    ckpts = [f for f in os.listdir(full.outdir) if f.endswith(".pth.tar")]
+    best = int(np.argmin(full.valid_loss)) + 1
+    if ckpts != [full._ckpt_name(epochs, best)]:
+        raise AssertionError(f"full scan: checkpoints {ckpts}, best epoch {best}")
+    warm = call()
+    prof = profile_run(call)
+    res = {"epochs": epochs, "batches_per_call": batches, "graphs_per_call": graphs,
+           "losses": want[0], "valid_losses": want[1], "best_epoch": best,
+           "looped_graphs_per_s": [graphs / epochs / (t["wall"] + v["wall"]) for t, v in lt],
+           "first": first, "warm": warm, "profile": prof, "bitwise_with_dropout": True}
+    log("scan full: " + json.dumps(res))
+    return res
 
 
 def scan_phase(dataset, tmp: str, seed: int, kdir: str, store_pred) -> dict:
@@ -2028,6 +2147,18 @@ def scan_phase(dataset, tmp: str, seed: int, kdir: str, store_pred) -> dict:
                     "host_ms_per_batch": issue_ms, "graph_stats": nn._scan.graph_stats()}
     log("scan serve: " + json.dumps({k: v for k, v in out["serve"].items() if k != "pred"}))
     log(f"phase scan serve: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    out["full"] = full_scan_check(dataset, seed, tmp, kdir)
+    log(f"phase scan full: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["chunked"], _ = scan_training_check(
+        "chunked", dataset, seed, tmp, kdir, True, device_cache="chunked",
+        device_cache_bytes=chunk_budget(dataset, 4))
+    if out["chunked"]["chunks"] < 3 or any(out["chunked"]["ran_per_epoch"]):
+        raise AssertionError(f"scan chunked: {out['chunked']['chunks']} chunks, launches "
+                             f"{out['chunked']['ran_per_epoch']}")
+    log(f"phase scan chunked: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2312,6 +2443,169 @@ def halo_bytes_check(dataset, seed: int, tmp: str) -> dict:
     return {"counted": counted, "H": h, "Nl": nl, "C0": c0, "node_all_gather_bytes": node_gather}
 
 
+def _dense_mesh():
+    """The dense graph-parallel mesh over every rank of the group."""
+    import torch.distributed as dist
+
+    from deeprank_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(dp=dist.get_world_size(), ep=1)
+
+
+def scan_bytes_plan(batches: int, ranks: int, params: int, training: bool) -> dict:
+    """The collective bytes a rank issues in a scanned mesh pass over
+    ``batches`` batches of ``BATCH`` graphs (those of the looped pass):
+    the normalizers and the numerators of the losses, 4 bytes a batch
+    each; the predictions gathered, this rank's ``BATCH / ranks`` a batch;
+    when training, every gradient once a step."""
+    plan = {"all_reduce/loss": 8 * batches, "all_gather/outputs": batches * BATCH // ranks * 4}
+    if training:
+        plan["all_reduce/gradients"] = batches * params * 4
+    return plan
+
+
+def same_training(label: str, looped, scanned, world: int) -> None:
+    """A looped and a scanned mesh engine trained alike
+    (``assert_same_training``), and the ranks' parameters equal."""
+    assert_same_training(f"mesh {label}", looped, scanned)
+    if world > 1 and not _ranks_equal(scanned.model):
+        raise AssertionError(f"mesh scan {label}: the ranks' parameters differ")
+
+
+def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bool,
+                    variant: str = "epochs", epochs: int = 3) -> dict:
+    """Scanned dense mesh epochs on this rank beside the looped mesh engine
+    from one seed, dropout on, on the mesh of every rank of the group
+    (``percent=[1.0, 0.0]``; ``ops=False``: store batches without the
+    operators, K3 inside the graphs). ``variant``: ``"epochs"``
+    (``scan_epochs=True``: ``epochs`` training passes and a scanned serving
+    pass over the training store), ``"full"`` (``_train_full_scan`` over
+    ``epochs``, ``save_model="best"``) or ``"chunked"`` (the chunked store,
+    a batch a chunk, ``scan_epochs=True``; its looped engine is built
+    scanned and switched to the loop, since a mesh refuses the chunked
+    store without scanned epochs). Losses, predictions, parameters, Adam
+    state and the generator's state bitwise the looped run's, and the ranks'
+    parameters equal; the hand-kernel launches and the collective bytes
+    that ran (captures times replays, plus what the host issued) equal the
+    looped run's and the plan (``scan_bytes_plan``); a profiled scanned
+    epoch traces K3 as often as the counts say; whether the gradient
+    all-reduce ran inside a captured graph."""
+    import torch
+    import torch.distributed as dist
+
+    from deeprank_gnn_tpu_torch.parallel.distributed import process_index
+
+    rank, world = process_index(), dist.get_world_size()
+    kw = {}
+    if variant == "chunked":
+        kw = dict(device_cache="chunked", device_cache_bytes=chunk_budget(dataset, 1))
+    scan = "full" if variant == "full" else True
+
+    def engine(name, scanned):
+        nn = scan_engine(dataset, seed, tmp, f"mesh_{label}_{name}{rank}", kdir, ops,
+                         percent=(1.0, 0.0), mesh=_dense_mesh(),
+                         scan_epochs=scan if scanned or variant == "chunked" else False, **kw)
+        if not scanned:
+            nn.scan_epochs = False
+        return nn
+
+    looped, scanned = engine("looped", False), engine("scanned", True)
+    params = sum(p.numel() for p in scanned.model.parameters())
+    lt = [run_pass(looped, True) for _ in range(epochs)]
+    batches = lt[0]["batches"]
+    k3 = {} if ops else {"fused_gin_conv": 4 * batches}
+    plan = scan_bytes_plan(batches, world, params, True)
+    if any(t["ran"] != k3 or t["bytes"] != plan for t in lt):
+        raise AssertionError(f"mesh scan {label}: looped ran {[t['ran'] for t in lt]}, bytes "
+                             f"{[t['bytes'] for t in lt]}; want {k3} {plan}")
+    res = {"variant": variant, "ops": ops, "ranks": world, "batches": batches,
+           "graphs": lt[0]["graphs"], "looped_walls": [t["wall"] for t in lt],
+           "looped_bytes": [t["bytes"] for t in lt]}
+    if variant == "full":
+        from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+        from deeprank_gnn_tpu_torch.parallel import collectives
+
+        skip_host_only_steps(scanned)
+
+        def call():
+            scanned.data = {}
+            scanned._scan.reset_replays()
+            LAUNCHES.clear()
+            collectives.reset_collective_bytes()
+            graphs_before = len(scanned._scan.graph_stats())
+            t0 = time.perf_counter()
+            scanned._train_full_scan(epochs, False, "best", "intermediate", 5)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = scanned._scan.graph_stats()
+            return (wall, ran_counts(dict(LAUNCHES), stats, graphs_before, "launches"),
+                    ran_counts(collectives.collective_bytes(), stats, graphs_before,
+                               "collective_bytes"), sum(st["replays"] for st in stats))
+
+        wall, ran, nbytes, replays = call()
+        if scanned.train_loss != [t["loss"] for t in lt] or scanned.train_out != lt[-1]["out"]:
+            raise AssertionError(f"mesh scan {label}: losses {scanned.train_loss}, looped "
+                                 f"{[t['loss'] for t in lt]}")
+        want_ran = {k: v * epochs for k, v in k3.items()}
+        want_bytes = {k: v * epochs for k, v in plan.items()}
+        if ran != want_ran or nbytes != want_bytes:
+            raise AssertionError(f"mesh scan {label}: ran {ran} bytes {nbytes}, want "
+                                 f"{want_ran} {want_bytes}")
+        res.update(losses=list(scanned.train_loss), wall=wall, replays=replays, ran=ran,
+                   bytes=nbytes)
+        best = int(np.argmin(scanned.train_loss)) + 1
+        ckpts = [f for f in os.listdir(scanned.outdir) if f.endswith(".pth.tar")]
+        if ckpts != [scanned._ckpt_name(epochs, best)]:
+            raise AssertionError(f"mesh scan {label}: checkpoints {ckpts}, best epoch {best}")
+        same_training(label, looped, scanned, world)
+        # a second call (warm: every graph captured) goes on training
+        warm, warm_ran, warm_bytes, warm_replays = call()
+        if warm_ran != want_ran or warm_bytes != want_bytes or warm_replays != epochs * batches:
+            raise AssertionError(f"mesh scan {label}: warm call ran {warm_ran} {warm_bytes}, "
+                                 f"{warm_replays} replays")
+        res.update(graphs_per_s=[epochs * res["graphs"] / w for w in (wall, warm)],
+                   warm_replays=warm_replays,
+                   host_ms_per_batch=1e3 * scanned._scan.last_issue_s / batches)
+    else:
+        lt.append(run_pass(looped, False, looped.train_loader))
+        st = [run_pass(scanned, True) for _ in range(epochs)]
+        st.append(run_pass(scanned, False, scanned.train_loader))
+        for i, (a, b) in enumerate(zip(lt, st)):
+            if (a["loss"], a["out"], a["ran"], a["bytes"]) != (b["loss"], b["out"], b["ran"],
+                                                                b["bytes"]):
+                raise AssertionError(f"mesh scan {label} pass {i}: looped {a['loss']} "
+                                     f"{a['ran']} {a['bytes']}, scanned {b['loss']} {b['ran']} "
+                                     f"{b['bytes']}")
+        if any(t["ran"] != k3 or t["bytes"] != plan for t in st[:epochs]):
+            raise AssertionError(f"mesh scan {label}: ran {[t['ran'] for t in st]}, bytes "
+                                 f"{[t['bytes'] for t in st]}; want {k3} {plan}")
+        if st[-1]["bytes"] != scan_bytes_plan(batches, world, params, False):
+            raise AssertionError(f"mesh scan {label}: serving bytes {st[-1]['bytes']}")
+        same_training(label, looped, scanned, world)
+        # one more scanned epoch, profiled (the engines part here)
+        prof = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
+                           (K3_EXACT_NAME,))
+        traced = prof[f"trace[{K3_EXACT_NAME}]"]["count"]
+        if traced != k3.get("fused_gin_conv", 0):
+            raise AssertionError(f"mesh scan {label}: traced K3 {traced}, want {k3}")
+        res.update(losses=[t["loss"] for t in st[:epochs]], serve_loss=st[-1]["loss"],
+                   pred=st[-1]["out"], walls=[t["wall"] for t in st[:epochs]],
+                   graphs_per_s=[t["graphs"] / t["wall"] for t in st[:epochs]],
+                   looped_graphs_per_s=[t["graphs"] / t["wall"] for t in lt[:epochs]],
+                   host_ms_per_batch=[1e3 * t["issue_s"] / batches for t in st[:epochs]],
+                   replays_per_epoch=[t["replays"] for t in st[:epochs]],
+                   ran_per_epoch=[t["ran"] for t in st[:epochs]],
+                   bytes_per_epoch=[t["bytes"] for t in st[:epochs]], profile=prof,
+                   trace_k3=traced)
+    stats = scanned._scan.graph_stats()
+    res["graph_parts"] = sorted({(st["part"], st["training"]) for st in stats})
+    res["all_reduce_captured"] = any(st["collective_bytes"].get("all_reduce/gradients")
+                                     for st in stats)
+    res["bytes_plan"] = plan
+    res["bitwise_with_dropout"] = True
+    return res
+
+
 def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str) -> None:
     """A spawned rank of phase 11: joins the gloo group over ``store`` on
     cuda:0, loads the kernels from ``kdir`` (running ``nvcc`` fails it),
@@ -2358,6 +2652,21 @@ def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: 
             out[path] = mesh_path(path, dataset, ckpt, tmp, seed, refs[ref_layout])
             out[path]["phase_s"] = time.perf_counter() - t1
         out["halo_bytes"] = halo_bytes_check(dataset, seed, tmp)
+        for ops, label in ((True, "scan_operators"), (False, "scan_k3")):
+            t1 = time.perf_counter()
+            res = mesh_scan_check(label, dataset, seed, tmp, kdir, ops)
+            # the single-process scanned run from the same seed
+            single = scan_engine(dataset, seed, tmp, f"single_{label}{rank}", kdir, ops,
+                                 percent=(1.0, 0.0), scan_epochs=True)
+            sp = [run_pass(single, True) for _ in range(3)]
+            sp.append(run_pass(single, False, single.train_loader))
+            np.testing.assert_allclose(res["losses"], [p["loss"] for p in sp[:3]], **TOL)
+            np.testing.assert_allclose(res["pred"], sp[-1]["out"], **TOL)
+            res["single_process_losses"] = [p["loss"] for p in sp[:3]]
+            res["single_process_max_abs"] = float(np.abs(np.subtract(res["pred"],
+                                                                     sp[-1]["out"])).max())
+            res["phase_s"] = time.perf_counter() - t1
+            out[label] = res
         out["worker_s"] = time.perf_counter() - t0
         with open(os.path.join(results, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
@@ -2366,12 +2675,16 @@ def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: 
         torch.cuda.synchronize()
 
 
-def nccl_group_check(tmp: str, seed: int) -> dict:
+def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
     """The parent alone as an NCCL group of one on the card: one halo and
     one dense-mesh training pass of one batch (the engine's ``_run_pass``)
     execute NCCL's collectives (the one-rank
     all-to-all, all-gather, reduce-scatter and all-reduce), each step's
-    loss matching the single-process card run's first step."""
+    loss matching the single-process card run's first step. Then scanned
+    mesh epochs on the K3 store path over ``MESH_GRAPHS`` graphs
+    (``mesh_scan_check``: ``scan_epochs=True``, ``"full"`` and the chunked
+    store), each bitwise its looped mesh run, with the gradient all-reduce
+    captured inside the step's graph."""
     import torch
 
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
@@ -2408,6 +2721,15 @@ def nccl_group_check(tmp: str, seed: int) -> dict:
                           "collective_bytes": collectives.collective_bytes()}
         if not out["halo"]["collective_bytes"].get("all_to_all/backward"):
             raise AssertionError(f"nccl: the halo step issued no all-to-all: {out}")
+        dataset = GraphListDataSet(build_graphs(seed, MESH_GRAPHS))
+        for variant in ("epochs", "full", "chunked"):
+            t0 = time.perf_counter()
+            res = mesh_scan_check(f"nccl_{variant}", dataset, seed, tmp, kdir, False, variant)
+            res["phase_s"] = time.perf_counter() - t0
+            if not res["all_reduce_captured"]:
+                raise AssertionError(f"nccl scan {variant}: the all-reduce ran outside the "
+                                     f"graphs: {res['graph_parts']}")
+            out[f"scan_{variant}"] = res
     finally:
         distributed.shutdown()
     return out
@@ -2458,9 +2780,29 @@ def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
             log(f"mesh {path} rank {r} train breakdown " + json.dumps(t["where"]))
         log(f"mesh halo bytes rank {r}: " + json.dumps(res["halo_bytes"]))
         log(f"mesh rank {r}: start {res['start_s']:.1f} s, worker {res['worker_s']:.1f} s")
+    for r, res in enumerate(ranks):
+        for label in ("scan_operators", "scan_k3"):
+            sc = res[label]
+            parts = [tuple(p) for p in sc["graph_parts"]]
+            if sc["all_reduce_captured"] or ("gradients", True) not in parts or (
+                    "update", True) not in parts:
+                raise AssertionError(f"mesh {label} rank {r}: gloo graphs {parts}, all-reduce "
+                                     f"captured {sc['all_reduce_captured']}")
+            log(f"mesh {label} rank {r} (gloo; each training step two graph replays around "
+                f"the host's all-reduce, all-reduce captured: {sc['all_reduce_captured']}): "
+                + json.dumps({k: v for k, v in sc.items() if k not in ("pred", "profile")}))
+            log(f"mesh {label} rank {r} profiled scanned epoch " + json.dumps(sc["profile"]))
     t1 = time.perf_counter()
-    nccl = nccl_group_check(tmp, seed)
-    log("mesh nccl group of one: " + json.dumps(nccl))
+    nccl = nccl_group_check(tmp, seed, kdir)
+    for variant in ("epochs", "full", "chunked"):
+        sc = nccl[f"scan_{variant}"]
+        log(f"mesh nccl scan {variant} (NCCL group of one, K3 store path; all-reduce "
+            f"captured inside the step's graph: {sc['all_reduce_captured']}): "
+            + json.dumps({k: v for k, v in sc.items() if k not in ("pred", "profile")}))
+        if "profile" in sc:
+            log(f"mesh nccl scan {variant} profiled scanned epoch " + json.dumps(sc["profile"]))
+    log("mesh nccl group of one: " + json.dumps(
+        {k: v for k, v in nccl.items() if not k.startswith("scan_")}))
     log(f"phase mesh: {time.perf_counter() - t0:.1f} s (spawned ranks {spawn_s:.1f} s, nccl "
         f"{time.perf_counter() - t1:.1f} s)")
     return {"ranks": ranks, "nccl": nccl}
@@ -2631,6 +2973,67 @@ def featurize_phase(tmp: str, seed: int, smi: str) -> dict:
     return res
 
 
+CUSTOM_GRAPHS = 128  # 32 batches of 4
+CUSTOM_EPOCHS = 3
+
+
+def custom_model_phase(seed: int) -> dict:
+    """``example/custom_model_torch.py``'s ``CustomNet`` and ``train`` (the
+    low-level API, batch 4) on ``CUSTOM_GRAPHS`` in-memory graphs for
+    ``CUSTOM_EPOCHS`` epochs (the card's machine has no ``h5py`` for its
+    ``main``): K1 2 launches a batch (the counts cleared just before the
+    card run and read just after), the batch losses within ``TOL`` of the
+    same function on the CPU from the same weights, and two card runs from
+    one seed bitwise equal."""
+    import runpy
+
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+
+    script = runpy.run_path(str(Path(__file__).resolve().parent / "example"
+                                / "custom_model_torch.py"))
+    dataset = GraphListDataSet(build_graphs(seed, CUSTOM_GRAPHS))
+
+    def run(device):
+        loader = GraphLoader(dataset, batch_size=4, shuffle=True, seed=seed)
+        model = script["CustomNet"](dataset.get(0).num_features,
+                                    generator=torch.Generator().manual_seed(seed))
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        history = script["train"](model, loader, CUSTOM_EPOCHS, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (history, dict(LAUNCHES), wall, len(loader),
+                [p.detach().cpu() for p in model.parameters()])
+
+    t0 = time.perf_counter()
+    a, launches, wall_a, batches, params_a = run("cuda")
+    b, _lb, wall_b, _, params_b = run("cuda")
+    cpu, cpu_launches, wall_cpu, _, _ = run("cpu")
+    want = {"sorted_segment_sum": 2 * batches * CUSTOM_EPOCHS}
+    if launches != want or cpu_launches:
+        raise AssertionError(f"custom model: launches {launches} (cpu {cpu_launches}), "
+                             f"want {want}")
+    if a != b or not all(torch.equal(x, y) for x, y in zip(params_a, params_b)):
+        raise AssertionError("custom model: two card runs from one seed differ")
+    if not np.isfinite(a).all():
+        raise AssertionError(f"custom model: losses {a}")
+    np.testing.assert_allclose(a, cpu, **TOL)
+    graphs = CUSTOM_GRAPHS * CUSTOM_EPOCHS
+    res = {"graphs": CUSTOM_GRAPHS, "epochs": CUSTOM_EPOCHS, "batches_per_epoch": batches,
+           "launches": launches, "epoch_mean_losses": [float(np.mean(h)) for h in a],
+           "cpu_max_abs": float(np.abs(np.subtract(a, cpu)).max()),
+           "graphs_per_s": [graphs / wall_a, graphs / wall_b], "cpu_graphs_per_s":
+               graphs / wall_cpu, "bitwise_run_to_run": True}
+    log("custom model: " + json.dumps(res))
+    log(f"phase custom model: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2764,6 +3167,8 @@ def run(args, kdir: str) -> int:
         mesh = mesh_phase(tmp, kdir, args.seed)
         # 12. the featurizer, its graphs served, coalesce_edges on the card
         feat = featurize_phase(tmp, args.seed, smi)
+        # 13. the low-level API: example/custom_model_torch.py on the card
+        custom = custom_model_phase(args.seed)
 
     k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
     k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
@@ -2787,11 +3192,26 @@ def run(args, kdir: str) -> int:
         return {f"{path}_{kind}": r0[path][kind]["launches"].get(name, 0)
                 for path in MESH_PATHS for kind in ("serve", "train")}
 
+    def scan_mesh_launches(name: str) -> dict:
+        """A kernel's launches per training epoch of phase 11's scanned
+        mesh epochs: rank 0 of the two gloo ranks (operator path, K3 path)
+        and the NCCL group of one (K3 path; "full": its three epochs)."""
+        out = {label: mesh["ranks"][0][label]["ran_per_epoch"][0].get(name, 0)
+               for label in ("scan_operators", "scan_k3")}
+        for variant in ("epochs", "chunked"):
+            out[f"nccl_{variant}"] = mesh["nccl"][f"scan_{variant}"]["ran_per_epoch"][0].get(
+                name, 0)
+        out["nccl_full_three_epochs"] = mesh["nccl"]["scan_full"]["ran"].get(name, 0)
+        return out
+
     line = {"kernels": [
         {
             "name": "sorted_segment_sum",
             **KERNELS["sorted_segment_sum"],
             "mesh_launches_per_rank": mesh_launches("sorted_segment_sum"),
+            "scan_mesh_launches": scan_mesh_launches("sorted_segment_sum"),
+            # example/custom_model_torch.py's training: 2 a batch
+            "custom_model_launches": custom["launches"]["sorted_segment_sum"],
             # the paper-mode sparse serving pass (slice 1's main path)
             "launches": served["sparse"]["launches"]["sorted_segment_sum"],
             "max_abs_err": max(r["max_abs_err"] for r in k1),
@@ -2838,6 +3258,7 @@ def run(args, kdir: str) -> int:
             "name": "fused_gin_conv",
             **KERNELS["fused_gin_conv"],
             "mesh_launches_per_rank": mesh_launches("fused_gin_conv"),
+            "scan_mesh_launches": scan_mesh_launches("fused_gin_conv"),
             # the dense training epoch (slice 2's main path): 2 forward
             # and 2 backward launches per batch
             "launches": trained["dense"]["launches"]["fused_gin_conv"],
@@ -2882,6 +3303,7 @@ def run(args, kdir: str) -> int:
             "name": "sorted_scatter_gather",
             **KERNELS["sorted_scatter_gather"],
             "mesh_launches_per_rank": mesh_launches("sorted_scatter_gather"),
+            "scan_mesh_launches": scan_mesh_launches("sorted_scatter_gather"),
             # the attention GINet's sparse serving pass (this slice's main
             # path): one launch per conv and tower, 4 per batch
             "launches": att["serve"]["launches"]["sorted_scatter_gather"],
@@ -2920,6 +3342,7 @@ def run(args, kdir: str) -> int:
             "name": "fused_gin_conv_bf16",
             **FAST_K3,
             "mesh_launches_per_rank": mesh_launches("fused_gin_conv_bf16"),
+            "scan_mesh_launches": scan_mesh_launches("fused_gin_conv_bf16"),
             # the fast mode's scanned training epoch on store batches without
             # the operators, from a fresh engine: the warm-up step's 4
             # launches and the captured 4 times each replay
@@ -2982,6 +3405,16 @@ def run(args, kdir: str) -> int:
         summary[f"scan_train_{label}"]["device_idle_share"] = {
             "scanned": v["scanned_profile"]["device_idle_share"],
             "looped": v["looped_profile"]["device_idle_share"]}
+    summary["scan_train_chunked"] = {
+        k: scan["chunked"][k] for k in ("looped_graphs_per_s", "scanned_graphs_per_s",
+                                         "scanned_host_ms_per_batch", "looped_ms_per_batch",
+                                         "replays_per_epoch", "chunks")}
+    summary["scan_train_chunked"]["device_idle_share"] = {
+        "scanned": scan["chunked"]["scanned_profile"]["device_idle_share"],
+        "looped": scan["chunked"]["looped_profile"]["device_idle_share"]}
+    summary["scan_full"] = {"first": scan["full"]["first"], "warm": scan["full"]["warm"],
+                            "looped_graphs_per_s": scan["full"]["looped_graphs_per_s"],
+                            "device_idle_share": scan["full"]["profile"]["device_idle_share"]}
     summary["scan_serve"] = {k: scan["serve"][k] for k in ("models_per_s", "host_ms_per_batch",
                                                           "batches")}
     summary["scan_serve"]["device_idle_share"] = scan["serve"]["where"]["device_idle_share"]
@@ -2995,7 +3428,22 @@ def run(args, kdir: str) -> int:
                                             for r in mesh["ranks"]]}
                for kind in ("serve", "train")} for path in MESH_PATHS}
     summary["mesh_halo_bytes"] = mesh["ranks"][0]["halo_bytes"]
-    summary["mesh_nccl_one_rank"] = mesh["nccl"]
+    scan_keys = ("graphs_per_s", "looped_graphs_per_s", "host_ms_per_batch", "replays_per_epoch",
+                 "bytes_per_epoch", "all_reduce_captured", "wall", "replays")
+    summary["mesh_scan_gloo_two_ranks_one_card"] = {
+        label: [{k: r[label][k] for k in scan_keys if k in r[label]}
+                | {"device_idle_share": r[label]["profile"]["device_idle_share"]}
+                for r in mesh["ranks"]] for label in ("scan_operators", "scan_k3")}
+    summary["mesh_scan_nccl_one_rank"] = {
+        variant: {k: v for k, v in mesh["nccl"][f"scan_{variant}"].items()
+                  if k in scan_keys or k == "profile"} for variant in ("epochs", "full",
+                                                                      "chunked")}
+    for v in summary["mesh_scan_nccl_one_rank"].values():
+        if "profile" in v:
+            v["device_idle_share"] = v.pop("profile")["device_idle_share"]
+    summary["mesh_nccl_one_rank"] = {k: v for k, v in mesh["nccl"].items()
+                                     if not k.startswith("scan_")}
+    summary["custom_model"] = custom
     summary["featurize"] = {k: v for k, v in feat.items() if k != "serve"}
     summary["featurize"]["serve"] = {
         "graphs_per_s": [len(feat["serve"]["pred"]) / w for w in feat["serve"]["walls"]],

@@ -21,7 +21,9 @@ over ``torch.distributed`` (``deeprank_gnn_tpu_torch.parallel``: the
 graph-parallel meshes and the halo layout); and the featurizer
 (``deeprank_gnn_tpu_torch.featurize``: PDB docking models to interface
 graphs, its geometry on the card), edge coalescing, on-line clustering
-(``community_pooling``), the tools and the rest of the CLI.
+(``community_pooling``), the tools and the rest of the CLI; scanned epochs
+and the chunked store on a mesh. The example and paper scripts have
+counterparts beside them (``example/*_torch.py``, ``paper/*_torch.py``).
 """
 
 __version__ = "0.1.0"

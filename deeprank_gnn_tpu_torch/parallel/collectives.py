@@ -29,7 +29,12 @@ backward, the reduce-scatter, the ``[D, ...]`` cotangent), with role ``forward``
 ``gradients``, ``outputs``) for the others. It is the port's counterpart of
 ``parallel/hlo_bytes.py``: there is no compiled program to read here, so
 the port counts what it issues. :func:`collective_bytes` reads it and
-:func:`reset_collective_bytes` clears it.
+:func:`reset_collective_bytes` clears it. It counts on the host when a
+collective is issued, so a collective captured in a CUDA graph counts once,
+at capture, and not at the graph's replays: ``train/scan.py`` records each
+graph's bytes at capture beside its launches (``EpochSteps.graph_stats``),
+and a scanned epoch's bytes are those times the replays, plus what the
+epoch issues outside its graphs.
 """
 
 from __future__ import annotations
@@ -59,9 +64,16 @@ def group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
+def stages_through_host(group, device) -> bool:
+    """Whether ``group``'s collectives on tensors of ``device`` run on host
+    copies (gloo with a CUDA device), which no CUDA graph can capture."""
+    return (group is not None and torch.device(device).type == "cuda"
+            and dist.get_backend(group) == "gloo")
+
+
 def _staged(x: torch.Tensor, group) -> bool:
     """Gloo with a CUDA tensor: the collective runs on a host copy."""
-    return x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    return stages_through_host(group, x.device)
 
 
 def _count(op: str, role: str, x: torch.Tensor) -> None:

@@ -23,6 +23,18 @@ itself:
 :class:`MeshSteps` also takes the halo layout's steps
 (``parallel/halo.py``), which differ only in the loss's normalization and
 in needing no gather of the predictions.
+
+For scanned epochs on a mesh (``train/scan.py``; JAX's sharded
+``lax.scan``) it also gives the step in parts, so that the gradient
+all-reduce is the step's only collective, as in JAX: the loss normalizers
+of a pass's batches, summed by one all-reduce before its first step
+(:meth:`MeshSteps.scan_normalizers`); per step the forward and backward on
+this rank's graphs into one flat gradient buffer
+(:meth:`MeshSteps.scan_gradients`), its all-reduce
+(:meth:`MeshSteps.reduce_gradients`) and the update
+(:meth:`MeshSteps.apply_gradients`); and after the last step the loss
+numerators summed and the predictions gathered
+(:meth:`MeshSteps.scan_finish`). The numbers are the looped step's.
 """
 
 from __future__ import annotations
@@ -40,6 +52,25 @@ from deeprank_gnn_tpu_torch.parallel.collectives import (
 from deeprank_gnn_tpu_torch.parallel.mesh import Mesh, RankBatch
 
 
+def _class_weights_of(y: torch.Tensor, y_mask: torch.Tensor,
+                      class_weights: Optional[torch.Tensor], num_classes: int):
+    """``(y_safe, w)``: the class indices clamped into range and each
+    graph's weight in the cross-entropy (0 where masked)."""
+    y_safe = torch.clamp(y.long(), 0, num_classes - 1)
+    w = (torch.ones(y.shape, dtype=torch.float32, device=y.device) if class_weights is None
+         else class_weights[y_safe])
+    return y_safe, torch.where(y_mask, w, torch.zeros_like(w))
+
+
+def loss_normalizer(task: str, y: torch.Tensor, y_mask: torch.Tensor,
+                    class_weights: Optional[torch.Tensor], num_classes: int) -> torch.Tensor:
+    """The normalizer of :func:`loss_terms` from the targets alone: the
+    valid targets' count, or their class weights' sum."""
+    if task == "class":
+        return _class_weights_of(y, y_mask, class_weights, num_classes)[1].sum()
+    return y_mask.sum().to(torch.float32)
+
+
 def loss_terms(task: str, pred: torch.Tensor, y: torch.Tensor, y_mask: torch.Tensor,
                class_weights: Optional[torch.Tensor], transform_sigmoid: bool):
     """``(numerator, normalizer, pred)`` of the masked loss: MSE (``pred``
@@ -48,52 +79,33 @@ def loss_terms(task: str, pred: torch.Tensor, y: torch.Tensor, y_mask: torch.Ten
     ``numerator / max(normalizer, floor)`` with :func:`normalizer_floor`."""
     if task == "class":
         logp = torch.log_softmax(pred, dim=-1)
-        y_safe = torch.clamp(y.long(), 0, pred.shape[-1] - 1)
+        y_safe, w = _class_weights_of(y, y_mask, class_weights, pred.shape[-1])
         nll = -logp.gather(1, y_safe[:, None])[:, 0]
-        w = torch.ones_like(nll) if class_weights is None else class_weights[y_safe]
-        w = torch.where(y_mask, w, torch.zeros_like(w))
         return (w * nll).sum(), w.sum(), pred
     p = pred.reshape(-1)
     if transform_sigmoid:
         p = torch.sigmoid(p)
     sq = (p - y) ** 2
-    return torch.where(y_mask, sq, torch.zeros_like(sq)).sum(), y_mask.sum().to(p.dtype), p
+    return (torch.where(y_mask, sq, torch.zeros_like(sq)).sum(),
+            loss_normalizer(task, y, y_mask, None, 1), p)
 
 
 def normalizer_floor(task: str) -> float:
     return 1e-12 if task == "class" else 1.0
 
 
-def sum_gradients(params, group) -> None:
-    """Every parameter's gradient summed over the ranks by one all-reduce
-    (a parameter without one gets zeros first, as the engine's step gives
-    quirk Q1's dead parameters)."""
-    params = list(params)
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if group is None:
-        return
-    flat = all_reduce_values(torch.cat([p.grad.reshape(-1) for p in params]), group,
-                             "gradients")
-    off = 0
-    for p in params:
-        n = p.numel()
-        p.grad.copy_(flat[off: off + n].view_as(p))
-        off += n
-
-
-def _gather_rows(local: torch.Tensor, rb: RankBatch, group) -> torch.Tensor:
-    """Every rank's rows of ``local [hi - lo, ...]`` in rank order,
-    ``[num_graphs, ...]`` (ranges may differ by one row: each is padded to
-    the longest for the gather)."""
+def gather_columns(local: torch.Tensor, num_graphs: int, group) -> torch.Tensor:
+    """Every rank's graphs of ``local [B, hi - lo, ...]`` (this rank's
+    range of ``B`` batches of ``num_graphs`` graphs) in rank order,
+    ``[B, num_graphs, ...]``, by one all-gather (ranges may differ by one
+    graph: each is padded to the longest for the gather)."""
     d = group_size(group)
-    q, rem = divmod(rb.num_graphs, d)
+    q, rem = divmod(num_graphs, d)
     width = q + (1 if rem else 0)
-    padded = local.new_zeros((width,) + tuple(local.shape[1:]))
-    padded[: local.shape[0]] = local
+    padded = local.new_zeros((local.shape[0], width) + tuple(local.shape[2:]))
+    padded[:, : local.shape[1]] = local
     parts = all_gather_values(padded, group, "outputs")
-    return torch.cat([parts[r, : q + (1 if r < rem else 0)] for r in range(d)])
+    return torch.cat([parts[r, :, : q + (1 if r < rem else 0)] for r in range(d)], dim=1)
 
 
 class MeshSteps:
@@ -123,6 +135,7 @@ class MeshSteps:
         self.class_weights = class_weights
         self.transform_sigmoid = transform_sigmoid
         self.halo = halo
+        self._flat = None  # the flat gradients, one buffer for every step
 
     def _forward(self, batch, generator):
         """``(objective, loss, pred)``: this rank's term to differentiate,
@@ -141,7 +154,8 @@ class MeshSteps:
         sums = all_reduce_values(torch.stack([num.detach(), den.detach()]), self.mesh.group,
                                  "loss")
         norm = torch.clamp(sums[1], min=floor)
-        return num / norm, sums[0] / norm, _gather_rows(p.detach(), rb, self.mesh.group)
+        return (num / norm, sums[0] / norm,
+                gather_columns(p.detach()[None], rb.num_graphs, self.mesh.group)[0])
 
     def train(self, batch, generator: Optional[torch.Generator] = None):
         """One optimizer step on the global batch that ``batch`` is this
@@ -152,8 +166,9 @@ class MeshSteps:
             self.optimizer.zero_grad(set_to_none=False)
             objective, loss, p = self._forward(batch, generator)
             objective.backward()
-            sum_gradients(self.model.parameters(), self.mesh.group)
-            self.optimizer.step()
+            self._flatten_gradients()
+            self.reduce_gradients()
+            self.apply_gradients()
             return loss.detach(), p.detach()
 
     def eval(self, batch):
@@ -161,6 +176,79 @@ class MeshSteps:
             self.model.eval()
             _objective, loss, p = self._forward(batch, None)
             return loss, p
+
+    # -- the scanned epoch's step (``train/scan.py``): the loss normalizers
+    # of every batch are summed over the ranks before the epoch's first
+    # step and the numerators after its last, so that the gradient
+    # all-reduce is the step's only collective, as in JAX's sharded scan
+
+    def scan_normalizers(self, y: torch.Tensor, y_mask: torch.Tensor,
+                         num_classes: int) -> torch.Tensor:
+        """``[B]``: each batch's global normalizer, clamped, from this
+        rank's targets ``y [B, hi - lo]`` and ``y_mask``; one all-reduce."""
+        local = torch.stack([loss_normalizer(self.task, y[i], y_mask[i], self.class_weights,
+                                             num_classes) for i in range(y.shape[0])])
+        sums = all_reduce_values(local, self.mesh.group, "loss")
+        return torch.clamp(sums, min=normalizer_floor(self.task))
+
+    def _scan_terms(self, rb: RankBatch, generator):
+        pred = self.model(rb.batch, generator, dropout_rows=(rb.num_graphs, rb.lo))
+        return loss_terms(self.task, pred, rb.batch.y, rb.batch.y_mask, self.class_weights,
+                          self.transform_sigmoid)
+
+    def scan_gradients(self, rb: RankBatch, generator, norm: torch.Tensor):
+        """This rank's part of a scanned training step up to its
+        collective: forward and backward of ``numerator / norm`` (``norm``:
+        the batch's global normalizer), the gradients copied into one flat
+        buffer (the same buffer at every call). Returns the loss numerator
+        and this rank's predictions, detached."""
+        self.optimizer.zero_grad(set_to_none=False)
+        num, _den, p = self._scan_terms(rb, generator)
+        (num / norm).backward()
+        self._flatten_gradients()
+        return num.detach(), p.detach()
+
+    def _flatten_gradients(self) -> None:
+        """Every parameter's gradient into the flat buffer (a parameter
+        without one, quirk Q1's dead ones, gets zeros first, as the engine's
+        step gives them)."""
+        params = list(self.model.parameters())
+        for q in params:
+            if q.grad is None:
+                q.grad = torch.zeros_like(q)
+        flat = torch.cat([q.grad.reshape(-1) for q in params])
+        if self._flat is None:
+            self._flat = torch.empty_like(flat)
+        self._flat.copy_(flat)
+
+    def reduce_gradients(self) -> None:
+        """The flat gradients summed over the ranks, in place (the step's
+        one collective)."""
+        if self.mesh.group is not None:
+            self._flat.copy_(all_reduce_values(self._flat, self.mesh.group, "gradients"))
+
+    def apply_gradients(self) -> None:
+        """The flat gradients into the parameters' gradients, then the
+        optimizer step."""
+        off = 0
+        for q in self.model.parameters():
+            n = q.numel()
+            q.grad.copy_(self._flat[off: off + n].view_as(q))
+            off += n
+        self.optimizer.step()
+
+    def scan_eval(self, rb: RankBatch):
+        """The loss numerator and this rank's predictions of ``rb``."""
+        num, _den, p = self._scan_terms(rb, None)
+        return num, p
+
+    def scan_finish(self, nums: torch.Tensor, norms: torch.Tensor, preds: torch.Tensor,
+                    num_graphs: int):
+        """A scanned pass's global ``[B]`` losses and ``[B, num_graphs,
+        ...]`` predictions from this rank's numerators and predictions: one
+        all-reduce, one all-gather."""
+        sums = all_reduce_values(nums, self.mesh.group, "loss")
+        return sums / norms, gather_columns(preds, num_graphs, self.mesh.group)
 
 
 def make_sharded_train_step(model, optimizer, mesh: Mesh, task: str = "reg",

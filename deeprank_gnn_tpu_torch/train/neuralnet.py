@@ -41,8 +41,12 @@ exchange under ``layout="halo"`` (``parallel/halo.py``). The engine runs on
 in fp32 with TF32 off, every pass under
 ``torch.use_deterministic_algorithms(True)``, dropout drawing from a
 generator on the engine's device seeded from ``seed``: the same seed gives
-the same run. Options of the JAX engine that are not ported raise
-``NotImplementedError`` naming ROADMAP.md.
+the same run. Scanned epochs and the chunked store also run on a dense
+mesh: each rank holds the whole store and steps over its columns of every
+batch's slots, and the gradient all-reduce is the step's only collective.
+On a card the step is captured with its all-reduce under NCCL, and split
+around it (two graphs, the all-reduce issued by the host) under gloo,
+whose collectives stage CUDA tensors through the host.
 """
 
 from __future__ import annotations
@@ -80,10 +84,6 @@ CLASS_TARGETS = ("bin_class", "capri_classes")
 # the checkpoint key of the dropout generator's state (the JAX package keeps
 # its PRNG key under "rng" and ignores this one)
 DROPOUT_KEY = "dropout_generator"
-
-
-def _unported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, queue 1 ({where})")
 
 
 def _pyplot():
@@ -214,9 +214,25 @@ class NeuralNet:
         slice; with ``device_cache`` every rank holds the whole store on its
         device. ``layout="halo"`` is the explicit halo-exchange edge
         partition (``parallel/halo.py``; without ``mesh``, over every rank
-        of the process group, or this process alone). Scanned epochs and
-        the chunked store on a mesh are not ported yet and raise
-        ``NotImplementedError``."""
+        of the process group, or this process alone).
+
+        ``scan_epochs`` on a mesh (JAX's scanned multi-chip epochs) needs
+        ``layout="dense"`` and a ``batch_size`` divisible by the mesh's
+        ranks, and ``device_cache="chunked"`` on a mesh needs
+        ``scan_epochs``, as in JAX. Each rank holds the whole store (or
+        uploads each chunk whole) and steps over its columns of every
+        batch's slots (``parallel.mesh.dense_local_slice``): before a
+        pass's first step one all-reduce sums every batch's loss
+        normalizer, the step's only collective is the gradient all-reduce,
+        and after the last step one all-reduce sums the loss numerators and
+        one all-gather collects the predictions, so every number is the
+        looped mesh pass's. On a card the backend decides the capture:
+        under NCCL a graph holds whole steps, the all-reduce included; under
+        gloo, which stages CUDA tensors through the host, each training
+        step is two replays around the host's all-reduce and
+        ``scan_unroll`` does not join training steps. JAX's check that a
+        store is single-process does not apply: one process is one rank
+        here, and each rank holds its own store."""
         from deeprank_gnn_tpu_torch.parallel.mesh import Mesh, make_halo_mesh
 
         if layout not in ("sparse", "dense", "halo"):
@@ -229,7 +245,14 @@ class NeuralNet:
         self.mesh = mesh
         if device_cache and layout != "dense":
             raise ValueError("device_cache requires layout='dense'")
-        # the JAX engine's checks of the scan options (train/neuralnet.py:140-197)
+        # the JAX engine's checks of the store and scan options
+        # (train/neuralnet.py:140-197)
+        if device_cache == "chunked" and mesh is not None and not scan_epochs:
+            raise ValueError(
+                "device_cache='chunked' on a mesh requires "
+                "scan_epochs=True (each chunk uploads replicated and "
+                "runs as one scanned multi-chip dispatch)"
+            )
         if scan_epochs not in (False, True, "full"):
             raise ValueError("scan_epochs must be False, True or 'full'")
         if scan_epochs and not device_cache:
@@ -242,14 +265,18 @@ class NeuralNet:
                 "(device_cache=True); the rotating 'chunked' store "
                 "supports scan_epochs=True (one dispatch per chunk)"
             )
+        if scan_epochs and mesh is not None:
+            if layout != "dense":
+                raise ValueError("scan_epochs on a mesh needs layout='dense'")
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"scan_epochs on a mesh needs batch_size ({batch_size}) "
+                    f"divisible by device count ({mesh.size})"
+                )
         if int(scan_unroll) < 1:
             raise ValueError("scan_unroll must be >= 1")
         if dense_fast and layout != "dense":
             raise ValueError("dense_fast requires layout='dense'")
-        if mesh is not None and device_cache == "chunked":
-            raise _unported("device_cache='chunked' on a mesh", "scanned multi-device epochs")
-        if mesh is not None and scan_epochs:
-            raise _unported("scan_epochs on a mesh", "scanned multi-device epochs")
         self.scan_epochs = scan_epochs
         self.scan_unroll = int(scan_unroll)
         self.dense_fast = dense_fast
@@ -476,6 +503,9 @@ class NeuralNet:
         self._scan_targets = {}
         self._chunk_buffers = {}
         self._mesh_steps = None
+        # the columns of a batch's slots that a scanned step gathers: on a
+        # mesh this rank's (``_build_mesh_steps``), else all of them
+        self._scan_cols = slice(None)
         payload = self._pending_model_state
         if payload is None:
             return
@@ -546,6 +576,7 @@ class NeuralNet:
         if self.mesh is None:
             return
         from deeprank_gnn_tpu_torch.parallel import halo, mesh as M
+        from deeprank_gnn_tpu_torch.parallel.collectives import stages_through_host
         from deeprank_gnn_tpu_torch.parallel.step import MeshSteps
 
         kw = dict(task=self.task, class_weights=self.weights,
@@ -560,6 +591,13 @@ class NeuralNet:
                 halo.partition_batch(b, hmesh.size), hmesh)
             return
         self._mesh_steps = MeshSteps(self.model, self.optimizer, self.mesh, **kw)
+        if self.scan_epochs:
+            # this rank's columns of every batch's slots; the backend
+            # decides whether a card captures the step's all-reduce
+            self._scan_cols = M.dense_local_slice(self.batch_size, self.mesh)
+            if stages_through_host(self.mesh.group, self.device):
+                self._scan.split = (self._scan_gradients, self._mesh_steps.reduce_gradients,
+                                    self._mesh_steps.apply_gradients)
         if self.layout == "sparse":
             # the loader collated this rank's graphs (``_graph_share``)
             self._shard = lambda b: b
@@ -597,13 +635,37 @@ class NeuralNet:
         self.optimizer.step()
         return loss.detach(), pred.detach()
 
-    def _scan_step(self, store, y_all, idx, training: bool):
+    def _scan_step(self, store, y_all, idx, training: bool, norm=None):
         """One step of a scanned epoch on the store's slots ``idx``: the
-        gather, then an Adam step (``training``) or the forward pass."""
-        batch = gather_store_batch(store, y_all, idx)
-        if training:
-            return self._train_step(batch)
-        return self._loss_and_pred(batch)
+        gather, then an Adam step (``training``) or the forward pass. On a
+        mesh ``idx`` are this rank's columns of the batch's slots and
+        ``norm`` the batch's global loss normalizer: the step returns this
+        rank's loss numerator and predictions, and its gradients are summed
+        over the ranks before the update (``parallel/step.py``)."""
+        if self.mesh is None:
+            batch = gather_store_batch(store, y_all, idx)
+            if training:
+                return self._train_step(batch)
+            return self._loss_and_pred(batch)
+        if not training:
+            return self._mesh_steps.scan_eval(self._scan_rank_batch(store, y_all, idx))
+        out = self._scan_gradients(store, y_all, idx, training, norm)
+        self._mesh_steps.reduce_gradients()
+        self._mesh_steps.apply_gradients()
+        return out
+
+    def _scan_rank_batch(self, store, y_all, idx) -> RankBatch:
+        """This rank's columns ``idx`` of a batch's slots, gathered, as its
+        part of the global batch."""
+        cols = self._scan_cols
+        return RankBatch(gather_store_batch(store, y_all, idx), cols.start, cols.stop,
+                         self.batch_size)
+
+    def _scan_gradients(self, store, y_all, idx, training: bool, norm):
+        """A mesh step's part before its all-reduce (``EpochSteps``'s
+        ``split``)."""
+        return self._mesh_steps.scan_gradients(self._scan_rank_batch(store, y_all, idx),
+                                               self._dropout_generator, norm)
 
     def _eval_step(self, batch):
         """Loss and predictions of ``batch`` in evaluation mode, without
@@ -688,13 +750,42 @@ class NeuralNet:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _scan_buffers(self, batches: int):
+    def _scan_buffers(self, batches: int, width: Optional[int] = None):
         """The device buffers of ``batches`` batches' losses and
-        predictions."""
-        per = (self.batch_size,) if self.task != "class" else (self.batch_size,
-                                                                 len(self.classes))
+        predictions (``width`` graphs a batch, default ``batch_size``)."""
+        width = width or self.batch_size
+        per = (width,) if self.task != "class" else (width, len(self.classes))
         return (torch.empty(batches, device=self.device),
                 torch.empty((batches,) + per, device=self.device))
+
+    def _mesh_scan_begin(self, y_rows: np.ndarray, mask_rows: np.ndarray):
+        """Before a scanned mesh pass over ``B`` batches whose slots'
+        targets and masks are ``y_rows`` / ``mask_rows [B, batch_size]``
+        (host): the buffers of this rank's losses and predictions, and the
+        batches' global loss normalizers (one all-reduce)."""
+        cols = self._scan_cols
+        y = torch.from_numpy(np.ascontiguousarray(y_rows[:, cols], dtype=np.float32))
+        mask = torch.from_numpy(np.ascontiguousarray(mask_rows[:, cols], dtype=bool))
+        norms = self._mesh_steps.scan_normalizers(
+            y.to(self.device), mask.to(self.device),
+            len(self.classes) if self.task == "class" else 1)
+        return (*self._scan_buffers(len(y_rows), cols.stop - cols.start), norms)
+
+    def _scan_into(self, store, y_all, slots_dev, training: bool, y_rows, mask_rows,
+                   losses, preds) -> None:
+        """One scanned pass over a resident ``store`` and its slot rows
+        ``slots_dev`` (this rank's columns, on the device), the global
+        losses and predictions into ``losses`` and ``preds``; on a mesh
+        with the pass's collectives (:meth:`_mesh_scan_begin`, then
+        ``MeshSteps.scan_finish``)."""
+        if self.mesh is None:
+            self._scan.run(store, y_all, slots_dev, training, losses, preds)
+            return
+        local_l, local_p, norms = self._mesh_scan_begin(y_rows, mask_rows)
+        self._scan.run(store, y_all, slots_dev, training, local_l, local_p, norms)
+        glob_l, glob_p = self._mesh_steps.scan_finish(local_l, norms, local_p, self.batch_size)
+        losses.copy_(glob_l)
+        preds.copy_(glob_p)
 
     def _scan_context(self, training: bool):
         self.model.train(training)
@@ -734,8 +825,9 @@ class NeuralNet:
         y_all = self._store_targets(store, mapped)
         losses, preds = self._scan_buffers(len(slots))
         with self._scan_context(training):
-            self._scan.run(store.store, y_all, self._slots_on_device(slots), training,
-                           losses, preds)
+            self._scan_into(store.store, y_all,
+                            self._slots_on_device(slots[:, self._scan_cols]), training,
+                            mapped[slots], store.y_mask_host[slots], losses, preds)
         self.model.eval()
         return self._collect_scan_pass(store, mapped, slots, mols_per_batch,
                                        losses.cpu().numpy(), preds.cpu().numpy())
@@ -773,8 +865,19 @@ class NeuralNet:
         y_mask = np.asarray(cs.y_mask_host, dtype=bool)
         sets = self._chunk_sets(cs)
         counts = [len(slots) for _, slots, _ in plan]
-        losses, preds = self._scan_buffers(sum(counts))
-        slots_dev = self._slots_on_device(np.concatenate([slots for _, slots, _ in plan]))
+        # each slot's row of the dataset (a chunk's pad slot: its last
+        # graph's) and whether it holds a target
+        grows = np.concatenate([np.minimum(cs.chunk_ranges[ci][0] + slots, len(cs.mols) - 1)
+                                for ci, slots, _ in plan])
+        valids = np.concatenate([slots < cs.chunk_ranges[ci][1] for ci, slots, _ in plan])
+        valids &= y_mask[grows]
+        slots_all = np.concatenate([slots for _, slots, _ in plan])
+        slots_dev = self._slots_on_device(slots_all[:, self._scan_cols])
+        if self.mesh is None:
+            losses, preds = self._scan_buffers(sum(counts))
+            norms = None
+        else:
+            losses, preds, norms = self._mesh_scan_begin(mapped[grows], valids)
         cuda = self.device.type == "cuda"
 
         def upload(pos):
@@ -798,25 +901,25 @@ class NeuralNet:
                     torch.cuda.current_stream(self.device).wait_event(ready)
                 n = counts[pos]
                 self._scan.run(cur["store"], cur["y"], slots_dev[off: off + n], training,
-                               losses[off: off + n], preds[off: off + n])
+                               losses[off: off + n], preds[off: off + n],
+                               None if norms is None else norms[off: off + n])
                 if cuda:
                     cur["released"] = torch.cuda.Event()
                     cur["released"].record(torch.cuda.current_stream(self.device))
                 ready, off = nxt, off + n
         self.model.eval()
+        if norms is not None:
+            losses, preds = self._mesh_steps.scan_finish(losses, norms, preds, self.batch_size)
         losses, preds = losses.cpu().numpy(), preds.cpu().numpy()
         out, out_m, raw_outputs, ys = [], [], [], []
         data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
         acc = (out, out_m, raw_outputs, ys, data)
         off = 0
-        for ci, slots, mols_per_batch in plan:
-            start, clen = cs.chunk_ranges[ci]
+        for _ci, _slots, mols_per_batch in plan:
             for bi, mols in enumerate(mols_per_batch):
-                row = slots[bi]
-                grow = np.minimum(start + row, len(cs.mols) - 1)
-                valid = (row < clen) & y_mask[grow]
-                self._collect_batch(acc, preds[off + bi], mols, mapped[grow], valid)
-            off += len(slots)
+                i = off + bi
+                self._collect_batch(acc, preds[i], mols, mapped[grows[i]], valids[i])
+            off += len(mols_per_batch)
         self._finish_pass_data(data, out, raw_outputs, ys)
         return out, out_m, ys, _epoch_loss(losses), data
 
@@ -869,23 +972,28 @@ class NeuralNet:
         best_floor = float(min(prior)) if (track_best and prior) else np.inf
         t0 = time()
         params = list(self.model.parameters())
+        cols = self._scan_cols
         tl, tp = self._scan_buffers(nepoch * slots_te.shape[1])
         tl, tp = tl.view(nepoch, -1), tp.view((nepoch, -1) + tp.shape[1:])
-        st = self._slots_on_device(slots_te)
+        st = self._slots_on_device(slots_te[:, :, cols])
         if validate:
             vl, vp = self._scan_buffers(nepoch * slots_ve.shape[1])
             vl, vp = vl.view(nepoch, -1), vp.view((nepoch, -1) + vp.shape[1:])
-            sv = self._slots_on_device(slots_ve)
+            sv = self._slots_on_device(slots_ve[:, :, cols])
         if track_best:
             best = [p.detach().clone() for p in params]
             best_loss = torch.tensor(best_floor, dtype=torch.float64, device=self.device)
             best_epoch = torch.tensor(-1, dtype=torch.int64, device=self.device)
         for e in range(nepoch):
+            # on a mesh each pass ends with its losses summed over the
+            # ranks, so the selection below sees the global ones
             with self._scan_context(True):
-                self._scan.run(tstore.store, y_t, st[e], True, tl[e], tp[e])
+                self._scan_into(tstore.store, y_t, st[e], True, mapped_t[slots_te[e]],
+                                tstore.y_mask_host[slots_te[e]], tl[e], tp[e])
             if validate:
                 with self._scan_context(False):
-                    self._scan.run(vstore.store, y_v, sv[e], False, vl[e], vp[e])
+                    self._scan_into(vstore.store, y_v, sv[e], False, mapped_v[slots_ve[e]],
+                                    vstore.y_mask_host[slots_ve[e]], vl[e], vp[e])
             self.model.eval()
             if track_best:
                 sel = (vl[e] if validate else tl[e]).to(torch.float64).sum()

@@ -184,9 +184,11 @@ def test_in_memory_graphs_score_like_the_file(db, tmp_path):
 
 def test_no_silent_cpu_fallback_and_no_training(db, tmp_path):
     """Training is ported: the constructor without a checkpoint prepares
-    it, and a pretrained engine trains on. What is not ported yet (scanned
-    epochs on a mesh) still raises, ``scan_epochs`` without a device store
-    is refused as in JAX, and ``cuda`` without a card is refused."""
+    it, and a pretrained engine trains on. Scanned epochs on a mesh, the
+    last option to be ported, construct (each rank stepping over its
+    columns of a batch: all of them on one rank), ``scan_epochs`` without a
+    device store is refused as in JAX, and ``cuda`` without a card is
+    refused."""
     from deeprank_gnn_tpu_torch import GINet, NeuralNet
     from deeprank_gnn_tpu_torch.parallel import make_mesh
 
@@ -194,9 +196,10 @@ def test_no_silent_cpu_fallback_and_no_training(db, tmp_path):
     fresh = NeuralNet(db, GINet, node_feature=FEATURE_NAMES, target="fnat", batch_size=4,
                       outdir=str(tmp_path / "fresh"), device="cpu")
     assert fresh.task == "reg" and len(fresh.train_loader.dataset) == 10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeuralNet(db, GINet, target="fnat", layout="dense", device_cache=True,
-                  scan_epochs=True, mesh=make_mesh(device="cpu"), device="cpu")
+    meshed = NeuralNet(db, GINet, target="fnat", layout="dense", device_cache=True,
+                       scan_epochs=True, mesh=make_mesh(device="cpu"), batch_size=4,
+                       outdir=str(tmp_path / "meshed"), device="cpu")
+    assert meshed.scan_epochs is True and meshed._scan_cols == slice(0, 4)
     nn = NeuralNet(db, GINet, pretrained_model=ckpt, outdir=str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="scan_epochs requires device_cache"):
         NeuralNet(db, GINet, pretrained_model=ckpt, scan_epochs=True, device="cpu")

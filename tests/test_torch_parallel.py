@@ -362,8 +362,9 @@ def test_member_max_partial_matches_jax():
 def test_one_rank_mesh_with_the_store(db, tmp_path):
     """A mesh of one rank in one process (no process group; the collectives
     are the identity) with the dense store on its device: the same
-    training as without the mesh, and scanned epochs and the chunked store
-    on a mesh raise, naming their ROADMAP item."""
+    training as without the mesh; scanned epochs on it are bitwise its
+    looped epochs, and the chunked store on a mesh without them raises
+    JAX's error."""
     from deeprank_gnn_tpu_torch import GINet, NeuralNet
     from deeprank_gnn_tpu_torch.parallel import make_mesh
 
@@ -373,13 +374,17 @@ def test_one_rank_mesh_with_the_store(db, tmp_path):
     single = NeuralNet(db, GINet, outdir=str(tmp_path / "single"), **kw)
     meshed = NeuralNet(db, GINet, outdir=str(tmp_path / "mesh"), mesh=make_mesh(device="cpu"),
                        **kw)
+    scanned = NeuralNet(db, GINet, outdir=str(tmp_path / "scan"), mesh=make_mesh(device="cpu"),
+                        scan_epochs=True, **kw)
     assert meshed.train_loader.store_sharding == torch.device("cpu")
-    for nn in (single, meshed):
+    for nn in (single, meshed, scanned):
         nn.train(nepoch=2, validate=True)
     np.testing.assert_allclose(meshed.train_loss, single.train_loss, **ENGINE_TOL)
     np.testing.assert_allclose(meshed.valid_loss, single.valid_loss, **ENGINE_TOL)
-    for extra in (dict(device_cache="chunked"), dict(scan_epochs=True)):
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md, queue 1 \(scanned multi-device epochs\)"):
-            NeuralNet(db, GINet, outdir=str(tmp_path / "x"), mesh=make_mesh(device="cpu"),
-                      **{**kw, **extra})
+    assert scanned.train_loss == meshed.train_loss and scanned.valid_loss == meshed.valid_loss
+    assert scanned.data["eval"] == meshed.data["eval"]
+    for a, b in zip(scanned.model.parameters(), meshed.model.parameters()):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="device_cache='chunked' on a mesh requires"):
+        NeuralNet(db, GINet, outdir=str(tmp_path / "x"), mesh=make_mesh(device="cpu"),
+                  **{**kw, "device_cache": "chunked"})

@@ -16,7 +16,10 @@
   rolled scan; the chunked scan bitwise the looped chunked epochs;
   ``test()`` scanned bitwise the looped ``test()``;
 - the argument checks raise JAX's errors (``scan_epochs`` without a store,
-  a bad flag, ``"full"`` on the chunked store, ``scan_unroll=0``).
+  a bad flag, ``"full"`` on the chunked store, ``scan_unroll=0``; on a mesh
+  the chunked store without scanned epochs, the layout and the batch size's
+  divisibility). ``tests/test_torch_scan_mesh.py`` runs scanned epochs on
+  a mesh.
 
 On the card the steps are CUDA-graph replays (``chip_smoke.py`` holds them
 bitwise to the looped path there); here they run eagerly, grouped as the
@@ -293,6 +296,33 @@ def test_scan_argument_errors_match_jax(db, tmp_path, kw):
         jax_engine(db, str(tmp_path / "j"), target="fnat", **kw)
     with pytest.raises(ValueError) as got:
         port_engine(db, str(tmp_path / "t"), target="fnat", **kw)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(layout="dense", device_cache="chunked"),
+    dict(layout="sparse", device_cache=True, scan_epochs=True),
+    dict(layout="dense", device_cache=True, scan_epochs=True, batch_size=3),
+], ids=["chunked-needs-scan", "scan-needs-dense", "batch-divisible"])
+def test_mesh_scan_argument_errors_match_jax(db, tmp_path, kw):
+    """JAX's checks of the store and scan options on a mesh of two
+    devices (JAX ``train/neuralnet.py:140-145, 185-191``): the same error
+    type and message. On the sparse layout both raise the store's layout
+    error, which comes first in both engines."""
+    import jax
+    import torch
+
+    from deeprank_gnn_tpu.parallel import make_mesh
+    from deeprank_gnn_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError) as want:
+        jax_engine(db, str(tmp_path / "j"), target="fnat",
+                   mesh=make_mesh(jax.devices()[:2], dp=2, ep=1), **kw)
+    # a two-rank mesh's description: the checks come before any collective
+    two = Mesh(group=None, shape=(2, 1), axis_names=("dp", "ep"), rank=0,
+               device=torch.device("cpu"))
+    with pytest.raises(ValueError) as got:
+        port_engine(db, str(tmp_path / "t"), target="fnat", mesh=two, **kw)
     assert str(got.value) == str(want.value)
 
 

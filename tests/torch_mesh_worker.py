@@ -160,6 +160,52 @@ def engine(task, out, rank):
     _params(out, f"{label}:", nn.model)
 
 
+def scan_engine(task, out, rank):
+    """NeuralNet on the dense mesh (dp=2) with the device store:
+    ``train(**task["train"])`` with ``scan_epochs=task["scan"]``, then one
+    more training pass with the collective bytes counted. ``looped``: the
+    per-batch loop over the same loaders (the constructor refuses the
+    chunked store on a mesh without scanned epochs, so the engine is built
+    scanned and switched to the loop). ``no_dropout``: dropout off."""
+    from deeprank_gnn_tpu_torch import GINet, NeuralNet
+    from deeprank_gnn_tpu_torch.parallel import collectives
+    from deeprank_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    label = task["label"]
+    outdir = os.path.join(task["outdir"], f"{label}{rank}")
+    kw = dict(layout="dense", mesh=make_mesh(dp=2, ep=1, device="cpu"), device="cpu",
+              outdir=outdir, scan_epochs=task["scan"] or True, **task["kw"])
+    if "pretrained_model" not in kw:
+        kw.update(node_feature=FEATURES, edge_feature=["dist"])
+    with _no_dropout() if task.get("no_dropout") else contextlib.nullcontext():
+        nn = NeuralNet(task["db"], GINet, **kw)
+        nn.scan_epochs = task["scan"]
+        nn.train(**task["train"])
+        for name in ("train_loss", "valid_loss"):
+            out[f"{label}:{name}"] = np.array(getattr(nn, name))
+        for split, data in nn.data.items():
+            for key in ("mol", "outputs", "raw_outputs", "targets"):
+                out[f"{label}:data:{split}:{key}"] = np.array(data[key])
+        _params(out, f"{label}:", nn.model)
+        for i, st in nn.optimizer.state_dict()["state"].items():
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                out[f"{label}:adam:{i}:{key}"] = np.asarray(st[key])
+        out[f"{label}:generator"] = nn._dropout_generator.get_state().numpy()
+        out[f"{label}:checkpoints"] = np.array(sorted(
+            f for f in os.listdir(outdir) if f.endswith(".pth.tar")))
+        # how the last pass ran: the scanned steps per group (none when it
+        # looped) and the chunks of the store
+        out[f"{label}:meta:groups"] = np.array(nn._scan.last_groups, dtype=np.int64)
+        cs = nn.train_loader._chunk_store
+        out[f"{label}:meta:chunks"] = np.int64(0 if cs is None else cs.num_chunks)
+        collectives.reset_collective_bytes()
+        nn._run_pass(nn.train_loader, training=True)
+        for k, v in collectives.collective_bytes().items():
+            out[f"{label}:bytes:{k}"] = np.int64(v)
+        out[f"{label}:batches"] = np.int64(len(nn.train_loader))
+        out[f"{label}:params"] = np.int64(sum(p.numel() for p in nn.model.parameters()))
+
+
 def env_step(task, out, rank):
     """One graph-parallel training step from a group formed from the
     DEEPRANK_* variables; prints the global loss."""
@@ -177,7 +223,8 @@ def env_step(task, out, rank):
     out["loss"] = loss.numpy()
 
 
-TASKS = {f.__name__: f for f in (halo_eval, halo_train, mesh_train, engine, env_step)}
+TASKS = {f.__name__: f for f in (halo_eval, halo_train, mesh_train, engine, scan_engine,
+                                 env_step)}
 
 
 def main():
