@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving and training paths on one CUDA card and
 check them.
 
-    python3 chip_smoke.py [--seed N] [--graphs N]
+    python3 chip_smoke.py [--seed N] [--graphs N] [--digests]
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``
 (``$CUDA_HOME/bin`` or PATH), and nothing beyond torch, numpy and scipy.
@@ -36,11 +36,14 @@ Phases, each of which raises on failure:
    row, a graph whose [S, F] slab does not fit in shared memory, and S of
    70,000, far beyond one block's rows; its launch plan (slab staged, rows
    per block, blocks resident per SM) is checked too. K3's fast variant
-   (bf16 ``xw``, fp32 sums and output: ``exact=False``) forward and
-   backward bitwise equal to the fp32 plain version run on the CPU on the
-   bf16-rounded values, at both conv levels' shapes and three edge cases,
-   its slab in shared memory smaller than the exact kernel's, and timed
-   beside the exact kernel on the same inputs. K2 (sorted
+   (``exact=False``: fp32 ``xw`` rounded to bf16 in the kernel, fp32 sums
+   and output) forward and backward bitwise equal to the fp32 plain version
+   run on the CPU on the bf16-rounded values, at both conv levels' shapes
+   and three edge cases; its launch plan against the exact kernel's (the
+   fp32 slab plus its bf16 copy, no more blocks a graph); the kernels one
+   call of the path launches, traced (no bf16 cast; a planted cast must be
+   counted once); and timed as the path runs it beside the exact kernel on
+   the same inputs and the cast it no longer launches. K2 (sorted
    scatter-gather, the attention softmax's denominator) forward and
    backward on the card at rtol 1e-5 and atol 1e-5, and bitwise equal to
    the plain version run on the CPU, forward and backward, at the attention
@@ -186,7 +189,22 @@ Phases, each of which raises on failure:
 13. the low-level API: ``example/custom_model_torch.py``'s ``CustomNet``
    and ``train`` on 128 in-memory graphs at batch 4 for 3 epochs, K1 2
    launches a batch, within ``TOL`` of the same function on the CPU, two
-   card runs from one seed bitwise equal.
+   card runs from one seed bitwise equal;
+14. digests: each training path (streamed in both layouts, the zoo, the
+   fast mode, the store, scanned epochs, and on two gloo ranks the halo,
+   the dense and sparse meshes and a scanned mesh epoch) trained one epoch
+   of 512 graphs from the seed; sha256 of the epoch's outputs and loss and
+   of the final parameters, printed as ``digest <path>: ...``. With
+   ``--digests`` the script builds the kernels and runs only this phase:
+   run it in a checkout of another commit (with this script copied in) and
+   here, in one call, to hold two commits' training bitwise equal.
+
+Phase 3b holds the padding rule (no accumulating op sees a run of padding
+lanes, ``ops/lanes.py``): each repaired op at the first batches' shapes,
+forward and gradient, and one training step of each path, bitwise their
+old forms on the card (``padding: ...``). Every profiled pass reports
+``index_accumulation_ms`` (every ``indexing_backward_kernel*`` item) and
+its share of the device's busy time.
 
 The last two lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``.
@@ -195,7 +213,9 @@ The last two lines are a JSON object of per-kernel numbers and then
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -224,7 +244,7 @@ EDGES_PER_GRAPH = 250  # stored undirected; 500 directed after doubling
 BATCH = 128
 PARITY_STEPS = 4
 
-# K3's fast variant: the same source, built for bf16 input
+# K3's fast variant: the same source, its own kernel entry
 FAST_K3 = {
     "route": "cuda",
     "source": "deeprank_gnn_tpu_torch/ops/csrc/fused_gin_conv.cu",
@@ -765,13 +785,13 @@ def k1_phase(first_batch, seed: int):
 # K3: per-graph GIN aggregation
 
 
-def k3_bound_ms(s: int, f: int, row, col, in_bytes: int = 4) -> float:
+def k3_bound_ms(s: int, f: int, row, col) -> float:
     """Least time of one K3 call ``out = fused_gin_conv(xw [G,S,F], row,
     col)`` on these indices: its bytes over the HBM rate, or one add per
     valid edge and column over the fp32 rate, whichever is longer. The
-    bytes are the ``xw`` rows that a valid edge reads (each distinct
-    (graph, ``col``) pair once, ``in_bytes`` an element: 4, or 2 for the
-    fast variant's bf16; run padding and sentinel slots are never read),
+    bytes are the fp32 ``xw`` rows that a valid edge reads (each distinct
+    (graph, ``col``) pair once; run padding and sentinel slots are never
+    read; the fast variant reads them as fp32 too),
     ``out`` written whole in fp32 (G*S*F) and ``row`` and ``col`` read once.
     For the backward pass ``col, row`` swapped: it reads the gradient rows
     that a valid ``row`` names."""
@@ -781,7 +801,7 @@ def k3_bound_ms(s: int, f: int, row, col, in_bytes: int = 4) -> float:
     valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
     goff = torch.arange(g, device=col.device)[:, None] * s
     sources = int(torch.unique((col.long() + goff)[valid]).numel())
-    moved = in_bytes * sources * f + 4 * (g * s * f + 2 * g * e)
+    moved = 4 * (sources * f + g * s * f + 2 * g * e)
     return 1e3 * max(moved / HBM_BYTES_PER_S, int(valid.sum()) * f / FP32_FLOPS)
 
 
@@ -866,14 +886,71 @@ def k3_case(name, xw, row, col, gen, timed: bool) -> dict:
     return res
 
 
-def k3_fast_case(name, xw, row, col, gen, timed: bool) -> dict:
-    """K3's fast variant (``exact=False``: bf16 ``xw``, fp32 sums and
-    output), forward and backward through its autograd Function, bitwise
-    equal to the fp32 plain version run on the CPU on the bf16-rounded
-    values (both sum in edge order); two launches bitwise equal; its launch
-    plan beside the exact kernel's. Timed when ``timed``: beside the exact
-    kernel on the same (unrounded) inputs in this call, the plain version
-    and the library pair on the rounded fp32 values, and both bounds."""
+def bf16_cast_kernel(x) -> str:
+    """The name of the kernel that casts ``x`` (fp32 on the card) to bf16,
+    as ``torch.profiler`` traces ``x.to(torch.bfloat16)``: the one kernel
+    that call launches. The name need not mention bf16, so the casts a path
+    launches are counted by this name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        x.to(torch.bfloat16)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation]
+    if len(names) != 1:
+        raise AssertionError(f"a cast to bf16 traced {names}, want one kernel")
+    return names[0]
+
+
+def k3_fast_path_kernels(xw, row, col, cot, cast_kernel: str) -> dict:
+    """The kernels that one forward and backward of the fast path's call
+    (``fused_gin_conv(..., exact=False)`` through autograd, as the model
+    makes it) launch, traced: device operations, K3's fast and exact
+    kernels, and casts to bf16 (``cast_kernel``, the name
+    :func:`bf16_cast_kernel` traced). The control traces the same call after
+    a planted ``xw.to(torch.bfloat16)``: it must count exactly one cast
+    more, so that the path's count means what it says."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv
+
+    def call(plant: bool):
+        x = xw.detach().requires_grad_(True)
+        if plant:
+            xw.to(torch.bfloat16)
+        torch.autograd.grad(fused_gin_conv(x, row, col, exact=False), x, cot)
+
+    patterns = (K3_FAST_NAME, K3_EXACT_NAME, cast_kernel)
+    res = {}
+    for label, plant in (("path", False), ("control", True)):
+        prof = profile_run(lambda: call(plant), patterns)
+        res[label] = {"device_ops": prof["device_ops"],
+                      **{name: prof[f"trace[{pat}]"]["count"]
+                         for name, pat in (("fast", K3_FAST_NAME), ("exact", K3_EXACT_NAME),
+                                           ("casts", cast_kernel))}}
+    if res["control"]["casts"] != res["path"]["casts"] + 1:
+        raise AssertionError(f"K3 fast: a planted cast is not counted once: {res}")
+    if (res["path"]["fast"], res["path"]["exact"]) != (2, 0):
+        raise AssertionError(f"K3 fast: one call's forward and backward traced {res['path']}")
+    return res
+
+
+def k3_fast_case(name, xw, row, col, gen, timed: bool, cast_kernel: str = "") -> dict:
+    """K3's fast variant as the path runs it (``exact=False`` on fp32
+    ``xw``: the kernel rounds it to bf16 itself; fp32 sums and output),
+    forward and backward through its autograd Function, bitwise equal to the
+    fp32 plain version run on the CPU on the bf16-rounded values (both sum in
+    edge order); two launches bitwise equal; its launch plan beside the
+    exact kernel's. Timed when ``timed``: the path's call beside the exact
+    kernel on the same inputs in this call; the cast that the path no longer
+    launches, alone; the plain version and the library pair on the rounded
+    fp32 values; the bound (fp32 ``xw``, as the path reads it); and the
+    kernels one call's forward and backward launch, traced, casts (by the
+    name ``cast_kernel``) counted against a control
+    (:func:`k3_fast_path_kernels`)."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import (
@@ -889,13 +966,12 @@ def k3_fast_case(name, xw, row, col, gen, timed: bool) -> dict:
     x = xw.clone().requires_grad_(True)
     fwd = fused_gin_conv(x, row, col, exact=False)
     fwd.backward(cot)
-    xb, cb = xw.bfloat16(), cot.bfloat16()
-    again = fused_gin_conv_forward(xb, row, col)
-    bwd_again = fused_gin_conv_forward(cb, col, row)
+    again = fused_gin_conv_forward(xw, row, col, False)
+    bwd_again = fused_gin_conv_forward(cot, col, row, False)
     torch.cuda.synchronize()
     if not (torch.equal(fwd, again) and torch.equal(x.grad, bwd_again)):
         raise AssertionError(f"K3 fast {name}: two launches differ")
-    xr, cr = xb.float(), cb.float()  # the rounded values, in fp32
+    xr, cr = xw.bfloat16().float(), cot.bfloat16().float()  # the rounded values, in fp32
     rc, cc = row.cpu(), col.cpu()
     want, want_grad = fused_gin_conv_plain(xr.cpu(), rc, cc), fused_gin_conv_plain(cr.cpu(), cc, rc)
     got, got_grad = fwd.detach().cpu(), x.grad.cpu()
@@ -904,9 +980,13 @@ def k3_fast_case(name, xw, row, col, gen, timed: bool) -> dict:
         raise AssertionError(f"K3 fast {name}: not bitwise the plain version on the rounded "
                              f"values on the cpu: forward {fe}, backward {be}")
     valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    exact_plan = launch_plan(xw.device, s, f, e)
     res = {"case": name, "G": g, "S": s, "F": f, "E": e, "E_valid": int(valid.sum()),
-           **launch_plan(xw.device, s, f, e, bf16=True),
-           "exact_smem_bytes": launch_plan(xw.device, s, f, e)["smem_bytes"],
+           **launch_plan(xw.device, s, f, e, True),
+           "exact_slab": exact_plan["slab"],
+           "exact_rows_per_block": exact_plan["rows_per_block"],
+           "exact_blocks_per_graph": exact_plan["blocks_per_graph"],
+           "exact_smem_bytes": exact_plan["smem_bytes"],
            "max_abs_err": max(fe["max_abs_err"], be["max_abs_err"]),
            "max_rel_err": max(fe["max_rel_err"], be["max_rel_err"]),
            # how far the rounding moves the result from the exact kernel's
@@ -914,23 +994,30 @@ def k3_fast_case(name, xw, row, col, gen, timed: bool) -> dict:
                                      .abs().max())}
     if timed:
         lib_fwd, lib_bwd = k3_library_pair(xr, row, col), k3_library_pair(cr, col, row)
+        traced = k3_fast_path_kernels(xw, row, col, cot, cast_kernel)
         res.update(
-            ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xb, row, col)),
-            ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cb, col, row)),
+            # one call's forward and backward, traced: bf16 casts, device
+            # operations, and the control's count with a planted cast
+            cast_kernel=cast_kernel,
+            cast_launches_fwd_bwd=traced["path"]["casts"],
+            device_ops_fwd_bwd=traced["path"]["device_ops"],
+            control_casts=traced["control"]["casts"],
+            ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xw, row, col, False)),
+            ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cot, col, row, False)),
             exact_ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xw, row, col)),
             exact_ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cot, col, row)),
+            cast_ms=cold_ms(lambda: xw.to(torch.bfloat16)),
             plain_ms_fwd=cold_ms(lambda: fused_gin_conv_plain(xr, row, col)),
             plain_ms_bwd=cold_ms(lambda: fused_gin_conv_plain(cr, col, row)),
             library_ms_fwd=cold_ms(lib_fwd),
             library_ms_bwd=cold_ms(lib_bwd),
-            l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xb, row, col)),
-            l2_warm_ms_bwd=l2_warm_ms(lambda: fused_gin_conv_forward(cb, col, row)),
+            l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xw, row, col, False)),
+            l2_warm_ms_bwd=l2_warm_ms(lambda: fused_gin_conv_forward(cot, col, row, False)),
             exact_l2_warm_ms_fwd=l2_warm_ms(lambda: fused_gin_conv_forward(xw, row, col)),
             exact_l2_warm_ms_bwd=l2_warm_ms(lambda: fused_gin_conv_forward(cot, col, row)),
-            bound_ms_fwd=k3_bound_ms(s, f, row, col, in_bytes=2),
-            bound_ms_bwd=k3_bound_ms(s, f, col, row, in_bytes=2),
-            exact_bound_ms_fwd=k3_bound_ms(s, f, row, col),
-            exact_bound_ms_bwd=k3_bound_ms(s, f, col, row),
+            # the path reads fp32 xw: the exact kernel's bytes
+            bound_ms_fwd=k3_bound_ms(s, f, row, col),
+            bound_ms_bwd=k3_bound_ms(s, f, col, row),
         )
     return res
 
@@ -983,13 +1070,23 @@ def k3_phase(first_dense_batch, seed: int):
     for res in results:
         log("K3 " + json.dumps(res))
     # the fast variant on the same inputs
-    fast = [k3_fast_case(name, x, r, c, gen, timed=True) for name, x, r, c in main]
+    cast_kernel = bf16_cast_kernel(main[0][1])
+    log(f"K3 fast: a cast to bf16 traces as {cast_kernel!r}")
+    fast = [k3_fast_case(name, x, r, c, gen, timed=True, cast_kernel=cast_kernel)
+            for name, x, r, c in main]
     fast += [k3_fast_case(name, x, r, c, gen, timed=False) for name, x, r, c in edge
              if name in ("edges-F17", "tiles-F32", "no-slab-F64")]
     for res in fast:
         log("K3 fast " + json.dumps(res))
-        if res["slab"] != (res["case"] != "no-slab-F64") or (
-                res["slab"] and res["smem_bytes"] >= res["exact_smem_bytes"]):
+        # the slab staged where the exact kernel stages it, with its bf16
+        # copy (16-byte units) and 9 counters for each row a block adds; no
+        # more blocks a graph; 8 columns a lane where F allows
+        copy = -(-res["S"] * res["F"] // 8) * 8 * 2
+        added = 9 * 4 * (res["rows_per_block"] - res["exact_rows_per_block"])
+        if res["slab"] != (res["case"] != "no-slab-F64") or res["slab"] != res["exact_slab"] or (
+                res["slab"] and res["smem_bytes"] != res["exact_smem_bytes"] + copy + added) or (
+                res["blocks_per_graph"] > res["exact_blocks_per_graph"]) or (
+                res["cols_per_lane"] != (8 if res["F"] % 8 == 0 else 1)):
             raise AssertionError(f"K3 fast {res['case']}: launch plan {res}")
     by_case = {r["case"]: r for r in results}
     for name in ("conv1", "conv2"):
@@ -1219,6 +1316,367 @@ def launch_floor(reps: int = 200) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the padding rule: no accumulating op sees a run of padding lanes
+#
+# The repaired ops' old plain forms, as they stood before the rule: a dump
+# row that all padding lanes share, or autograd of ``index_select``. Under
+# ``use_deterministic_algorithms`` each of them sums the batch's padding as
+# one serial run on the card. ``tests/test_torch_padding.py`` imports them.
+
+
+def old_dump_row(index, n):
+    import torch
+
+    return torch.where((index >= 0) & (index < n), index, n)
+
+
+def old_gather(data, index, fill=None):
+    import torch
+
+    if fill is not None:
+        table = torch.cat([data, data.new_full((1,) + tuple(data.shape[1:]), fill)])
+        return table.index_select(0, old_dump_row(index, data.shape[0]))
+    return data.index_select(0, torch.clamp(index, 0, data.shape[0] - 1))
+
+
+def old_segment_sum(data, segment_ids, num_segments, *, row_ptr=None):
+    from deeprank_gnn_tpu_torch.ops.segment import SortedSegmentSum
+
+    if row_ptr is not None:
+        return SortedSegmentSum.apply(data, row_ptr)
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    out.index_add_(0, old_dump_row(segment_ids, num_segments), data)
+    return out[:num_segments]
+
+
+def old_segment_count(segment_ids, num_segments, row_ptr=None):
+    import torch
+
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32, device=segment_ids.device)
+    out = ones.new_zeros(num_segments + 1)
+    out.index_add_(0, old_dump_row(segment_ids, num_segments), ones)
+    return out[:num_segments]
+
+
+def old_segment_mean(data, segment_ids, num_segments, *, nan_empty=False, row_ptr=None):
+    import torch
+
+    total = old_segment_sum(data, segment_ids, num_segments, row_ptr=row_ptr)
+    if row_ptr is None:
+        count = old_segment_count(segment_ids, num_segments)
+    else:
+        count = (row_ptr[1:] - row_ptr[:-1]).to(data.dtype)
+    count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
+    return total / count if nan_empty else total / torch.clamp(count, min=1.0)
+
+
+def old_segment_max(data, segment_ids, num_segments, *, row_ptr=None):
+    import torch
+
+    ids = old_dump_row(segment_ids, num_segments).to(torch.int64)
+    idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]), float("-inf"))
+    out.scatter_reduce_(0, idx, data, reduce="amax", include_self=True)
+    out = out[:num_segments]
+    count = old_segment_count(segment_ids, num_segments).reshape(
+        (num_segments,) + (1,) * (data.dim() - 1))
+    return torch.where(count > 0, out, torch.zeros((), dtype=data.dtype, device=data.device))
+
+
+def old_segment_softmax(logits, segment_ids, num_segments, *, row_ptr=None):
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.segment import SortedScatterGather
+
+    seg_max = old_segment_max(logits, segment_ids, num_segments)
+    ids = old_dump_row(segment_ids, num_segments)
+    exp = torch.exp(logits - torch.cat([seg_max, seg_max.new_zeros(1)]).index_select(0, ids))
+    if row_ptr is not None:
+        _, denom = SortedScatterGather.apply(exp[:, None], row_ptr)
+        one = torch.ones((), dtype=exp.dtype, device=exp.device)
+        denom = torch.where(ids < num_segments, denom[:, 0], one)
+    else:
+        denom = old_segment_sum(exp, segment_ids, num_segments)
+        denom = torch.cat([denom, denom.new_ones(1)]).index_select(0, ids)
+    return exp / torch.clamp(denom, min=1e-16)
+
+
+def old_gather_nodes(x, idx):
+    import torch
+
+    g, s, f = x.shape
+    goff = torch.arange(g, dtype=idx.dtype, device=idx.device)[:, None] * s
+    flat = (torch.clamp(idx, 0, s - 1) + goff).reshape(-1)
+    return x.reshape(g * s, f).index_select(0, flat).reshape(g, idx.shape[1], f)
+
+
+def old_dense_segment_softmax(logits, idx, size):
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops.dense import edge_sum_to_slots
+
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    valid = idx < size
+    member = ((idx[..., None] == torch.arange(size, dtype=idx.dtype, device=idx.device))
+              & valid[..., None])
+    slot_max = torch.where(member, logits[..., None], float("-inf")).amax(dim=1)
+    slot_max = torch.where(torch.isfinite(slot_max), slot_max, zero)
+    safe = torch.clamp(idx, 0, size - 1).long()
+    shifted = torch.where(valid, logits - torch.gather(slot_max, 1, safe), zero)
+    expv = torch.where(valid, torch.exp(shifted), zero)
+    denom = edge_sum_to_slots(expv[..., None], idx, size)[..., 0]
+    denom = torch.where(denom > 0, denom, torch.ones((), dtype=denom.dtype, device=denom.device))
+    return expv / torch.gather(denom, 1, safe)
+
+
+def old_member_max_pool(h, mem_idx, assign=None):
+    import torch
+
+    g, s, f = h.shape
+    c, m = mem_idx.shape[1], mem_idx.shape[2]
+    rows = torch.cat([h.reshape(g * s, f), h.new_full((1, f), float("-inf"))])
+    goff = torch.arange(g, dtype=mem_idx.dtype, device=mem_idx.device)
+    valid = mem_idx < s
+    flat = torch.where(valid, mem_idx + goff.reshape(g, 1, 1) * s, g * s)
+    out = rows.index_select(0, flat.reshape(-1)).reshape(g, c, m, f).amax(dim=2)
+    return torch.where((~valid.any(dim=2))[..., None],
+                       torch.zeros((), dtype=h.dtype, device=h.device), out)
+
+
+def old_k1_plain(data, row_ptr, rows=None):
+    from deeprank_gnn_tpu_torch.ops.kernels.segment import rows_from_row_ptr
+
+    n = row_ptr.shape[0] - 1
+    if rows is None:
+        rows = rows_from_row_ptr(row_ptr, data.shape[0])
+    out = data.new_zeros((n + 1, data.shape[1]))
+    out.index_add_(0, old_dump_row(rows, n), data)
+    return out[:n]
+
+
+def old_k3_plain(xw, row, col):
+    import torch
+
+    g, s, f = xw.shape
+    valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    goff = torch.arange(g, dtype=row.dtype, device=row.device)[:, None] * s
+    src = torch.where(valid, col + goff, g * s).reshape(-1)
+    dst = torch.where(valid, row + goff, g * s).reshape(-1)
+    rows = torch.cat([xw.reshape(g * s, f), xw.new_zeros((1, f))])
+    out = xw.new_zeros((g * s + 1, f))
+    out.index_add_(0, dst, rows.index_select(0, src))
+    return out[: g * s].reshape(g, s, f)
+
+
+# (module of deeprank_gnn_tpu_torch, name, old form): every place the paths
+# look a repaired op up
+OLD_FORMS = [
+    ("ops.segment", "gather", old_gather),
+    ("ops.segment", "segment_count", old_segment_count),
+    ("ops.segment", "segment_max", old_segment_max),
+    ("ops.segment", "segment_softmax", old_segment_softmax),
+    ("ops.segment", "segment_sum", old_segment_sum),
+    ("ops.dense", "gather_nodes", old_gather_nodes),
+    ("ops.dense", "segment_max", old_segment_max),
+    ("ops.dense", "member_max_pool", old_member_max_pool),
+    ("ops.pooling", "member_max_pool", old_member_max_pool),
+    ("ops.pooling", "segment_max", old_segment_max),
+    ("ops.pooling", "segment_mean", old_segment_mean),
+    ("ops.kernels.segment", "sorted_segment_sum_plain", old_k1_plain),
+    ("ops.kernels.scatter_gather", "sorted_segment_sum_plain", old_k1_plain),
+    ("ops.kernels.gin_conv", "fused_gin_conv_plain", old_k3_plain),
+    ("models.ginet", "gather", old_gather),
+    ("models.ginet", "gather_nodes", old_gather_nodes),
+    ("models.ginet", "segment_softmax", old_segment_softmax),
+    ("models.ginet", "segment_sum", old_segment_sum),
+    ("models.ginet", "dense_segment_softmax", old_dense_segment_softmax),
+    ("models.foutnet", "gather", old_gather),
+    ("models.foutnet", "gather_nodes", old_gather_nodes),
+    ("models.foutnet", "segment_mean", old_segment_mean),
+    ("models.sgat", "gather", old_gather),
+    ("models.sgat", "gather_nodes", old_gather_nodes),
+    ("models.sgat", "segment_mean", old_segment_mean),
+    ("models.sgat", "segment_sum", old_segment_sum),
+]
+
+
+@contextlib.contextmanager
+def old_forms():
+    """The block runs with the repaired ops' old forms in their place."""
+    import importlib
+
+    saved = []
+    for module, name, old in OLD_FORMS:
+        mod = importlib.import_module(f"deeprank_gnn_tpu_torch.{module}")
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, old)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+# (path, net, constructor keywords, first batch): one training step each
+PADDING_PATHS = [
+    ("sparse-paper", "GINet", {}, "sparse"),
+    ("sparse-attention", "GINet", {"attention": True}, "sparse"),
+    ("internal-tower", "GINet", {"internal_tower": True}, "sparse"),
+    ("foutnet-sparse", "FoutNet", {}, "sparse"),
+    ("sgat-sparse", "sGAT", {}, "sparse"),
+    ("dense-k3", "GINet", {}, "dense"),
+    ("dense-fast-k3", "GINet", {"dense_fast": True}, "dense"),
+    ("dense-attention", "GINet", {"attention": True}, "dense"),
+    ("foutnet-dense", "FoutNet", {}, "dense"),
+    ("sgat-dense", "sGAT", {}, "dense"),
+    ("dense-store-operators", "GINet", {}, "store"),
+    ("dense-fast-store-operators", "GINet", {"dense_fast": True}, "store"),
+]
+
+
+def training_step(batch, name: str, kw: dict, seed: int, device: str):
+    """One training step's forward, MSE loss and backward of a seeded net
+    ``name`` (dropout on, from a seeded generator) on ``batch``, under
+    deterministic algorithms: the loss and every parameter's gradient."""
+    import torch
+
+    import deeprank_gnn_tpu_torch.models as models
+    from deeprank_gnn_tpu_torch.device import deterministic
+    from deeprank_gnn_tpu_torch.train.losses import mse_loss
+
+    gen = torch.Generator().manual_seed(seed)
+    net = getattr(models, name)(batch.x.shape[-1], 1, 1, device=device, generator=gen, **kw)
+    net.train()
+    drop = torch.Generator(device=device).manual_seed(seed + 1)
+    with deterministic():
+        pred = net(batch, generator=drop)
+        loss = mse_loss(pred[:, 0], batch.y.to(device), batch.y_mask.to(device))
+        loss.backward()
+    return loss.detach(), {k: p.grad for k, p in net.named_parameters() if p.grad is not None}
+
+
+def repaired_op_cases(sb, db, gen) -> list:
+    """``(name, new, old, x, cotangent)`` of each repaired op at the paths'
+    first batches' shapes (``sb`` sparse, ``db`` dense, on the card), with
+    the cotangent the paths give a gather: 0 at its padding lanes."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.ops import dense as D
+    from deeprank_gnn_tpu_torch.ops import pooling as P
+    from deeprank_gnn_tpu_torch.ops import segment as S
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    n, c0, c1, g = sb.num_nodes, sb.num_clusters0, sb.num_clusters1, sb.num_graphs
+    row, col = sb.edge_index[0], sb.edge_index[1]
+    emask = sb.edge_mask[:, None].float()
+    prow = sb.pe_index[0]
+    pmask = sb.pe_mask[:, None].float()
+    dg, ds = db.x.shape[0], db.x.shape[1]
+    c0g = db.pool0_mask.shape[1]
+    dmask = db.edge_mask[..., None].float()
+    logits = rand(sb.edge_index.shape[1])
+    return [
+        ("gather conv1", lambda t: S.gather(t, col), lambda t: old_gather(t, col),
+         rand(n, 32), rand(col.shape[0], 32) * emask),
+        ("gather conv2", lambda t: S.gather(t, sb.pe_index[1]),
+         lambda t: old_gather(t, sb.pe_index[1]), rand(c0, 64),
+         rand(prow.shape[0], 64) * pmask),
+        ("member pool level 1", lambda t: P.community_pooling_x(t, sb.assign0, c0, sb.mem0_idx),
+         lambda t: old_member_max_pool(t[None], sb.mem0_idx[None])[0], rand(n, 32), rand(c0, 32)),
+        ("member pool level 2", lambda t: P.max_pool_x(t, sb.assign1, c1, sb.mem1_idx),
+         lambda t: old_member_max_pool(t[None], sb.mem1_idx[None])[0], rand(c0, 64),
+         rand(c1, 64)),
+        ("graph mean", lambda t: P.graph_mean_pool(t, sb.pool1_graph, g),
+         lambda t: old_segment_mean(t, sb.pool1_graph, g), rand(c1, 64), rand(g, 64)),
+        ("segment max", lambda t: S.segment_max(t, sb.assign0, c0),
+         lambda t: old_segment_max(t, sb.assign0, c0), rand(n, 32), rand(c0, 32)),
+        ("segment softmax", lambda t: S.segment_softmax(t, row, n, row_ptr=sb.edge_rowptr),
+         lambda t: old_segment_softmax(t, row, n, row_ptr=sb.edge_rowptr), logits,
+         rand(logits.shape[0]) * emask[:, 0]),
+        ("gather nodes", lambda t: D.gather_nodes(t, db.col),
+         lambda t: old_gather_nodes(t, db.col), rand(dg, ds, 32),
+         rand(dg, db.col.shape[1], 32) * dmask),
+        ("slot max pool", lambda t: D.slot_max_pool(t, db.assign0, c0g),
+         lambda t: old_segment_max(t.reshape(dg * ds, 32), torch.where(
+             (db.assign0 >= 0) & (db.assign0 < c0g),
+             db.assign0 + torch.arange(dg, device="cuda", dtype=db.assign0.dtype)[:, None] * c0g,
+             dg * c0g).reshape(-1), dg * c0g).reshape(dg, c0g, 32),
+         rand(dg, ds, 32), rand(dg, c0g, 32)),
+        ("dense segment softmax", lambda t: D.dense_segment_softmax(t, db.row, ds),
+         lambda t: old_dense_segment_softmax(t, db.row, ds), rand(dg, db.row.shape[1]),
+         rand(dg, db.row.shape[1]) * dmask[..., 0]),
+    ]
+
+
+def padding_phase(dataset, seed: int) -> dict:
+    """Each repaired op on the card at the paths' first batches, forward
+    and gradient, bitwise its old form (and the counts bitwise); then one
+    training step of each path with the new ops and with the old forms
+    swapped in: loss and every gradient bitwise (``torch.equal``, which
+    holds across the sign of a zero)."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.device import deterministic
+    from deeprank_gnn_tpu_torch.ops.segment import segment_count
+
+    t0 = time.perf_counter()
+    batches = {
+        "sparse": next(iter(GraphLoader(dataset, batch_size=BATCH)))[0],
+        "dense": next(iter(GraphLoader(dataset, batch_size=BATCH, layout="dense")))[0],
+        "store": next(iter(GraphLoader(dataset, batch_size=BATCH, layout="dense",
+                                       precompute_ops=True)))[0],
+    }
+    batches = {k: b.to("cuda") for k, b in batches.items()}
+    sb = batches["sparse"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    ops = []
+    for name, new, old, x, cot in repaired_op_cases(sb, batches["dense"], gen):
+        got, want = [], []
+        for fn, into in ((new, got), (old, want)):
+            t = x.clone().requires_grad_(True)
+            with deterministic():  # as the engine runs them
+                out = fn(t)
+                out.backward(cot)
+            into += [out.detach(), t.grad]
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"padding: {name} not bitwise its old form: forward "
+                                 f"{errors(got[0], want[0])}, gradient {errors(got[1], want[1])}")
+        ops.append(name)
+    with deterministic():
+        for ids, num in ((sb.assign0, sb.num_clusters0), (sb.pool1_graph, sb.num_graphs),
+                         (sb.edge_index[0], sb.num_nodes)):
+            if not torch.equal(segment_count(ids, num), old_segment_count(ids, num)):
+                raise AssertionError("padding: segment_count differs from its old form")
+        if not torch.equal(segment_count(sb.edge_index[0], sb.num_nodes, sb.edge_rowptr),
+                           old_segment_count(sb.edge_index[0], sb.num_nodes)):
+            raise AssertionError("padding: counts from the CSR pointers differ")
+    steps = []
+    for label, name, kw, layout in PADDING_PATHS:
+        loss, grads = training_step(batches[layout], name, kw, seed, "cuda")
+        with old_forms():
+            old_loss, old_grads = training_step(batches[layout], name, kw, seed, "cuda")
+        torch.cuda.synchronize()
+        same = torch.equal(loss, old_loss) and grads.keys() == old_grads.keys() and all(
+            torch.equal(grads[k], old_grads[k]) for k in grads)
+        if not same:
+            raise AssertionError(f"padding: the {label} step differs from the old forms' "
+                                 f"(loss {float(loss)} vs {float(old_loss)})")
+        steps.append(label)
+    sizes = {"pooled_edge_padding": int((~sb.pe_mask).sum()),
+             "edge_padding": int((~sb.edge_mask).sum()),
+             "member_slot_padding": int((sb.mem0_idx >= sb.num_nodes).sum()
+                                        + (sb.mem1_idx >= sb.num_clusters0).sum())}
+    res = {"ops_bitwise": ops, "steps_bitwise": steps, "first_batch": sizes,
+           "phase_s": time.perf_counter() - t0}
+    log("padding: " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the engine's passes
 
 
@@ -1252,6 +1710,10 @@ def per_pass(per_batch: dict, batches: int) -> dict:
     return {k: v * batches for k, v in per_batch.items() if v}
 
 
+# the kernel names of deterministic index accumulation on the card
+INDEX_ACCUMULATION = "indexing_backward_kernel"
+
+
 def profile_pass(run, loader, kernel_bounds) -> dict:
     """Where one warm pass spends its time: the host's collation alone
     (``loader`` iterated without the model), then ``run()`` under
@@ -1279,6 +1741,10 @@ def profile_pass(run, loader, kernel_bounds) -> dict:
     by_name: dict = {}
     for e in on_card:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.device_time / 1e3
+    # the deterministic index accumulation's serial runs (the backward of
+    # index_select, index_add_, index_put_ with accumulate, scatter_add_):
+    # every item, not only the top ones
+    accum_ms = sum(e.device_time for e in on_card if INDEX_ACCUMULATION in e.name) / 1e3
     res = {
         "batches": batches,
         "host_collate_ms": collate_ms,
@@ -1286,6 +1752,8 @@ def profile_pass(run, loader, kernel_bounds) -> dict:
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ops": len(on_card),
+        "index_accumulation_ms": accum_ms,
+        "index_accumulation_share_of_busy": accum_ms / busy_ms if busy_ms else 0.0,
         "annotation_ms_not_counted": sum(e.device_time for e in annotations) / 1e3,
         "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
     }
@@ -1296,6 +1764,81 @@ def profile_pass(run, loader, kernel_bounds) -> dict:
         res[f"{name}_share_of_busy"] = ms / busy_ms
         res[f"{name}_bound_ms_per_batch"] = bound
     return res
+
+
+# the port's functions that issue an accumulating op on the card (module of
+# deeprank_gnn_tpu_torch, name): every place the paths look one up
+ACCUMULATING = [
+    ("ops.lanes", "index_add_rows"),  # RowGather's backward: a gather's gradient
+    ("ops.segment", "index_add_rows"),  # segment_sum, segment_count, segment_mean
+    ("ops.segment", "segment_reduce_raw"),  # segment_max, segment_min
+    ("parallel.halo", "segment_reduce_raw"),
+]
+
+
+@contextlib.contextmanager
+def labelled_accumulation():
+    """The block runs with each function of ``ACCUMULATING`` wrapped in a
+    ``record_function`` range named ``site: <function> < <caller> < ...``
+    (three callers), so that a trace ties each accumulation kernel to the
+    code that asked for it."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    def labelled(fn, name):
+        def run(*args, **kw):
+            callers, frame = [], sys._getframe(1)
+            while frame is not None and len(callers) < 3:
+                callers.append(f"{os.path.basename(frame.f_code.co_filename)}:"
+                               f"{frame.f_code.co_name}")
+                frame = frame.f_back
+            with record_function(" < ".join([f"site: {name}"] + callers)):
+                return fn(*args, **kw)
+        return run
+
+    saved = []
+    for module, name in ACCUMULATING:
+        mod = importlib.import_module(f"deeprank_gnn_tpu_torch.{module}")
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, labelled(getattr(mod, name), name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def accumulation_sites(run) -> dict:
+    """``run()`` under ``torch.profiler`` with the accumulating functions
+    labelled (:func:`labelled_accumulation`): the index accumulation's
+    kernels (``INDEX_ACCUMULATION``) by the innermost label around the op
+    that launched them (else the autograd node that ran it, else the op):
+    count and device milliseconds. Its own pass, since the labels cost the
+    host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with labelled_accumulation(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    sites: dict = {}
+    for e in prof.events():
+        hits = [k for k in e.kernels if INDEX_ACCUMULATION in k.name]
+        if not hits:
+            continue
+        label, parent = e.name, e.cpu_parent
+        while parent is not None:
+            if parent.name.startswith(("site: ", "autograd::engine::evaluate_function: ")):
+                label = parent.name
+                break
+            parent = parent.cpu_parent
+        site = sites.setdefault(label, {"count": 0, "device_ms": 0.0})
+        site["count"] += len(hits)
+        site["device_ms"] += sum(k.duration for k in hits) / 1e3
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]["device_ms"]))
 
 
 def sparse_bound_per_batch(loader) -> float:
@@ -1355,6 +1898,7 @@ def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_
     if bounds is not None:
         where = profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader,
                              bounds(nn.test_loader))
+        where["index_accumulation_sites"] = accumulation_sites(lambda: nn.eval(nn.test_loader))
     _, pred_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
         dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{label}_cpu"), 1, layout, Net,
         **engine_kw)
@@ -1502,6 +2046,9 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     # a profiled warm epoch
     res["where"] = profile_pass(lambda: a._run_pass(a.train_loader, training=True),
                                 a.train_loader, bounds(a.train_loader))
+    # on the second run's engine: the resume below counts this one's steps
+    res["where"]["index_accumulation_sites"] = accumulation_sites(
+        lambda: b._run_pass(b.train_loader, training=True))
     log(f"train {label} breakdown " + json.dumps(res["where"]))
 
     # save, reload, resume
@@ -1907,8 +2454,8 @@ def ran_counts(counted: dict, stats: list, graphs_before: int, key: str) -> dict
 def profile_run(run, patterns=()) -> dict:
     """``run()`` under ``torch.profiler``: wall time, the device's busy time
     and idle share (as ``profile_pass`` counts them), device operations,
-    and per name pattern the kernels whose name holds it: count and device
-    milliseconds."""
+    the index accumulation's device time, and per name pattern the kernels
+    whose name holds it: count and device milliseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1921,10 +2468,12 @@ def profile_run(run, patterns=()) -> dict:
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     busy_ms = sum(e.device_time for e in on_card) / 1e3
+    accum_ms = sum(e.device_time for e in on_card if INDEX_ACCUMULATION in e.name) / 1e3
     res = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": len(on_card)}
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": len(on_card),
+           "index_accumulation_ms": accum_ms}
     for pat in patterns:
-        hits = [e for e in on_card if pat in e.name]
+        hits = [e for e in on_card if pat.lower() in e.name.lower()]
         res[f"trace[{pat}]"] = {"count": len(hits),
                                 "device_ms": sum(e.device_time for e in hits) / 1e3}
     return res
@@ -1947,8 +2496,8 @@ def assert_same_training(label: str, a, b) -> None:
         raise AssertionError(f"scan {label}: the dropout generator's state differs")
 
 
-K3_EXACT_NAME = "fused_gin_conv_kernel<float"
-K3_FAST_NAME = "fused_gin_conv_kernel<__nv_bfloat16"
+K3_EXACT_NAME = "fused_gin_conv_kernel<"
+K3_FAST_NAME = "fused_gin_conv_fast_kernel"
 
 
 def scan_training_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bool,
@@ -2162,13 +2711,15 @@ def scan_phase(dataset, tmp: str, seed: int, kdir: str, store_pred) -> dict:
     return out
 
 
-def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list) -> dict:
+def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list,
+               cast_kernel: str) -> dict:
     """The fast mode (``dense_fast=True``) scanned on store batches without
     the operators: a fresh engine's first epoch is the main path of K3's
     fast variant (its launches: the warm-up step's, and the capture's
     times the replays), held bitwise to the looped fast epoch and within
     ``BF16_TOL`` of the exact K3 path's loss; a profiled epoch traces the
-    bf16 kernel once per launch and the fp32 one never. Then the fast
+    bf16 kernel once per launch and the fp32 one never, and counts the
+    casts to bf16 (``cast_kernel``, as phase 3 traced one). Then the fast
     operator path (``adj_conv`` with bf16 operands in the graph) for one
     scanned epoch."""
     out = {}
@@ -2182,18 +2733,19 @@ def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list) -
     assert_same_training("fast", looped, scanned)
     want = {"fused_gin_conv_bf16": 4 * st["batches"]}
     prof = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
-                       (K3_EXACT_NAME, K3_FAST_NAME))
+                       (K3_EXACT_NAME, K3_FAST_NAME, cast_kernel))
     traced = (prof[f"trace[{K3_FAST_NAME}]"]["count"], prof[f"trace[{K3_EXACT_NAME}]"]["count"])
     log(f"fast k3: looped loss {lt['loss']} ran {lt['ran']}; scanned loss {st['loss']} ran "
         f"{st['ran']} counted {st['counted']} replays {st['replays']}; exact K3 path's first "
-        f"loss {exact_k3_losses[0]}; traced bf16/fp32 K3 {traced}; profile {json.dumps(prof)}")
+        f"loss {exact_k3_losses[0]}; traced fast/exact K3 {traced}, bf16 casts "
+        f"{prof[f'trace[{cast_kernel}]']}; profile {json.dumps(prof)}")
     if st["ran"] != want or lt["ran"] != want or traced != (want["fused_gin_conv_bf16"], 0):
         raise AssertionError(f"fast k3: launches scanned {st['ran']} looped {lt['ran']}, "
                              f"traced {traced}, want {want}")
     np.testing.assert_allclose(st["loss"], exact_k3_losses[0], **BF16_TOL)
     out["k3"] = {"loss": st["loss"], "launches": st["ran"], "counted": st["counted"],
                  "replays": st["replays"], "wall": st["wall"], "graphs": st["graphs"],
-                 "profile": prof}
+                 "profile": prof, "casts": prof[f"trace[{cast_kernel}]"]["count"]}
     ops = scan_engine(dataset, seed, tmp, "fast_operators", kdir, True, dense_fast=True,
                       scan_epochs=True)
     ot = run_pass(ops, True)
@@ -2735,21 +3287,23 @@ def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
     return out
 
 
-def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
-    """Phase 11: two spawned gloo ranks on the card (``mesh_worker``), each
-    exit code checked, then the NCCL group of one in this process."""
+def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int) -> list:
+    """``MESH_RANKS`` spawned processes of ``worker(rank, store, kdir, tmp,
+    seed, results)``, each exit code checked (all killed after
+    ``MESH_TIMEOUT_S``): each rank's results, the JSON it wrote to
+    ``results/rank<r>.json``."""
     import torch.multiprocessing as mp
 
-    results = os.path.join(tmp, "mesh_results")
+    results = os.path.join(tmp, f"{name}_results")
     os.makedirs(results)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(mesh_worker, args=(os.path.join(tmp, "mesh_store"), kdir, tmp, seed,
-                                                results),
+    ctx = mp.start_processes(worker, args=(os.path.join(tmp, f"{name}_store"), kdir, tmp, seed,
+                                           results),
                              nprocs=MESH_RANKS, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > MESH_TIMEOUT_S:
-                raise AssertionError(f"mesh workers still running after {MESH_TIMEOUT_S} s")
+                raise AssertionError(f"{name} workers still running after {MESH_TIMEOUT_S} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2757,11 +3311,20 @@ def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
             p.join(10)
     codes = [p.exitcode for p in ctx.processes]
     if codes != [0] * MESH_RANKS:
-        raise AssertionError(f"mesh workers exited {codes}")
+        raise AssertionError(f"{name} workers exited {codes}")
     ranks = []
     for r in range(MESH_RANKS):
         with open(os.path.join(results, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
+    return ranks
+
+
+def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
+    """Phase 11: two spawned gloo ranks on the card (``mesh_worker``), each
+    exit code checked, then the NCCL group of one in this process."""
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_worker, "mesh", tmp, kdir, seed)
     spawn_s = time.perf_counter() - t0
     for r, res in enumerate(ranks):
         for path in MESH_PATHS:
@@ -3034,6 +3597,132 @@ def custom_model_phase(seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 14. digests of every training path, to hold a commit's training bitwise
+# to another's on the same card (``--digests`` runs only these)
+
+DIGEST_GRAPHS = 512  # 4 training batches of 128
+
+
+def training_digest(nn) -> dict:
+    """One training epoch of ``nn`` (the engine's ``_run_pass``, dropout on,
+    from its seed): sha256 of the float32 bytes of the epoch's outputs (each
+    step's predictions, before its update) and loss, and of the final
+    parameters in the module's order."""
+    import torch
+
+    out, _om, _ys, loss, _data = nn._run_pass(nn.train_loader, training=True)
+    torch.cuda.synchronize()
+    steps = np.asarray(out, dtype=np.float32).tobytes() + np.float32(loss).tobytes()
+    params = b"".join(p.detach().float().cpu().numpy().tobytes()
+                      for p in nn.model.parameters())
+    return {"steps_sha256": hashlib.sha256(steps).hexdigest(),
+            "params_sha256": hashlib.sha256(params).hexdigest(), "loss": float(loss)}
+
+
+def digest_engines(dataset, seed: int, tmp: str, kdir: str) -> dict:
+    """An engine factory for each single-process training path, one epoch
+    of 4 batches from ``seed``: streamed (both layouts, the zoo, the fast
+    mode), the device store (operators, K3) and scanned epochs."""
+    from deeprank_gnn_tpu_torch.models import FoutNet, GINet, sGAT
+    from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
+
+    def streamed(label, Net, layout, **kw):
+        return lambda: NeuralNet(dataset, Net, node_feature=FOLD6_FEATURES,
+                                 edge_feature=["dist"], target="fnat", batch_size=BATCH,
+                                 percent=[1.0, 0.0], seed=seed, layout=layout, device="cuda",
+                                 outdir=os.path.join(tmp, f"digest_{label}"), **kw)
+
+    def store(label, ops, **kw):
+        return lambda: scan_engine(dataset, seed, tmp, f"digest_{label}", kdir, ops,
+                                   percent=(1.0, 0.0), **kw)
+
+    attention = functools.partial(GINet, attention=True)
+    return {
+        "sparse": streamed("sparse", GINet, "sparse"),
+        "dense": streamed("dense", GINet, "dense"),
+        "dense_fast": streamed("dense_fast", GINet, "dense", dense_fast=True),
+        "attention_sparse": streamed("attention_sparse", attention, "sparse"),
+        "attention_dense": streamed("attention_dense", attention, "dense"),
+        "internal_tower": streamed("internal_tower",
+                                   functools.partial(GINet, internal_tower=True), "sparse"),
+        "foutnet_sparse": streamed("foutnet_sparse", FoutNet, "sparse"),
+        "foutnet_dense": streamed("foutnet_dense", FoutNet, "dense"),
+        "sgat_sparse": streamed("sgat_sparse", sGAT, "sparse"),
+        "sgat_dense": streamed("sgat_dense", sGAT, "dense"),
+        "store_operators": store("store_operators", True),
+        "store_k3": store("store_k3", False),
+        "scan_operators": store("scan_operators", True, scan_epochs=True),
+        "scan_k3": store("scan_k3", False, scan_epochs=True),
+        "scan_fast_k3": store("scan_fast_k3", False, scan_epochs=True, dense_fast=True),
+        "scan_fast_operators": store("scan_fast_operators", True, scan_epochs=True,
+                                     dense_fast=True),
+    }
+
+
+def digest_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str) -> None:
+    """A spawned rank of the digests: the mesh paths' training epochs (the
+    halo layout, the dense and sparse meshes, and the scanned K3 store
+    epoch on the dense mesh) in a gloo group of ``MESH_RANKS`` on cuda:0."""
+    import datetime
+
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+    from deeprank_gnn_tpu_torch.device import set_fp32_numerics
+    from deeprank_gnn_tpu_torch.ops.kernels import build
+    from deeprank_gnn_tpu_torch.parallel import distributed
+    from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
+
+    set_fp32_numerics()
+    build.nvcc = _no_nvcc
+    use_executable_cache(kdir)
+    distributed.initialize(f"file://{store}", MESH_RANKS, rank, device="cuda:0",
+                           backend="gloo", timeout=datetime.timedelta(seconds=180))
+    try:
+        dataset = GraphListDataSet(build_graphs(seed, DIGEST_GRAPHS))
+        out = {}
+        for path, (ref_layout, _s, _t) in MESH_PATHS.items():
+            layout = "halo" if path == "halo" else ref_layout
+            out[path] = training_digest(_train_engine(
+                dataset, layout, seed, os.path.join(tmp, f"digest_{path}{rank}"),
+                mesh=_mesh_of(path)))
+        out["mesh_scan_k3"] = training_digest(scan_engine(
+            dataset, seed, tmp, f"digest_mesh_scan_k3{rank}", kdir, False, percent=(1.0, 0.0),
+            scan_epochs=True, mesh=_dense_mesh()))
+        with open(os.path.join(results, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        distributed.shutdown()
+        torch.cuda.synchronize()
+
+
+def digest_phase(tmp: str, kdir: str, seed: int) -> dict:
+    """Phase 14: each training path's digest (``training_digest``) on
+    ``DIGEST_GRAPHS`` graphs, single-process paths here and the mesh paths
+    in two spawned gloo ranks, which must hold the same parameters and loss
+    (each its own outputs: a mesh path's steps digest is every rank's)."""
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+
+    t0 = time.perf_counter()
+    dataset = GraphListDataSet(build_graphs(seed, DIGEST_GRAPHS))
+    res = {label: training_digest(make())
+           for label, make in digest_engines(dataset, seed, tmp, kdir).items()}
+    ranks = spawn_ranks(digest_worker, "digest", tmp, kdir, seed)
+    for label, d in ranks[0].items():
+        # the ranks hold the same parameters and loss; each its own outputs
+        if any(r[label]["params_sha256"] != d["params_sha256"] or r[label]["loss"] != d["loss"]
+               for r in ranks[1:]):
+            raise AssertionError(f"digests: the mesh ranks differ on {label}: {ranks}")
+        res[label] = {**d, "steps_sha256": " ".join(r[label]["steps_sha256"] for r in ranks)}
+    for label, d in res.items():
+        log(f"digest {label}: steps {d['steps_sha256']} params {d['params_sha256']} "
+            f"loss {d['loss']!r}")
+    log(f"phase digests: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3042,6 +3731,9 @@ def main(argv=None) -> int:
     ap.add_argument("--zoo-graphs", type=int, default=768,
                     help="graphs of the other new paths (at least 5 batches of 128 "
                          "give 4 training steps)")
+    ap.add_argument("--digests", action="store_true",
+                    help="build the kernels and print only each training path's digests "
+                         "(phase 14), to compare a checkout with another on one card")
     args = ap.parse_args(argv)
 
     import torch
@@ -3121,6 +3813,11 @@ def run(args, kdir: str) -> int:
     log(f"executable cache: a second process with {kdir} found all {len(KERNELS)} libraries "
         f"and loaded them without nvcc, {second_s:.2f} s with its start")
 
+    if args.digests:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            digest_phase(tmp, kdir, args.seed)
+        return 0
+
     # 3. kernels, at the shapes of the paths' first batches
     graphs = build_graphs(args.seed, max(args.graphs, args.zoo_graphs))
     dataset = GraphListDataSet(graphs[: args.graphs])
@@ -3133,6 +3830,8 @@ def run(args, kdir: str) -> int:
     k2 = k2_phase(first_batch, args.seed)
     floor = launch_floor()
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    # 3b. the padding rule: the repaired ops against their old forms
+    padding = padding_phase(dataset, args.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. serve paper-mode GINet, both layouts
@@ -3161,7 +3860,8 @@ def run(args, kdir: str) -> int:
         # 9. scanned epochs; 10. the fast mode
         scan = scan_phase(dataset, tmp, args.seed, kdir, store["serve"]["pred"])
         t0 = time.perf_counter()
-        fast = fast_phase(dataset, tmp, args.seed, kdir, scan["k3"]["losses"])
+        fast = fast_phase(dataset, tmp, args.seed, kdir, scan["k3"]["losses"],
+                          k3_fast[0]["cast_kernel"])
         log(f"phase fast: {time.perf_counter() - t0:.1f} s")
         # 11. multi-device
         mesh = mesh_phase(tmp, kdir, args.seed)
@@ -3169,6 +3869,8 @@ def run(args, kdir: str) -> int:
         feat = featurize_phase(tmp, args.seed, smi)
         # 13. the low-level API: example/custom_model_torch.py on the card
         custom = custom_model_phase(args.seed)
+        # 14. every training path's digest
+        digests = digest_phase(tmp, kdir, args.seed)
 
     k1_main = [r for r in k1 if r["case"] in ("conv1", "conv2")]
     k1_att = [r for r in k1 if r["case"] in ("attention-conv1", "attention-conv2")]
@@ -3349,10 +4051,11 @@ def run(args, kdir: str) -> int:
             "launches": fast["k3"]["launches"]["fused_gin_conv_bf16"],
             "max_abs_err": max(r["max_abs_err"] for r in k3_fast),
             # the 4 calls of one training batch at the first dense batch's
-            # shapes, L2 flushed before each call
+            # shapes as the path makes them (fp32 in, no cast launch), L2
+            # flushed before each call
             "ms": sum(r["ms_fwd"] + r["ms_bwd"] for r in k3_fast_main),
             "plain_ms": sum(r["plain_ms_fwd"] + r["plain_ms_bwd"] for r in k3_fast_main),
-            # bf16 source rows, fp32 output and indices
+            # fp32 source rows as the path reads them, fp32 output and indices
             "bound_ms": sum(r["bound_ms_fwd"] + r["bound_ms_bwd"] for r in k3_fast_main),
             "bound_by": "bytes",
             # index_select + index_add_ on the bf16-rounded fp32 values
@@ -3360,8 +4063,15 @@ def run(args, kdir: str) -> int:
             "library_call": "index_select + index_add_ on bf16-rounded fp32 (two calls)",
             # the exact K3 on the same inputs in this call
             "exact_ms": sum(r["exact_ms_fwd"] + r["exact_ms_bwd"] for r in k3_fast_main),
-            "exact_bound_ms": sum(r["exact_bound_ms_fwd"] + r["exact_bound_ms_bwd"]
-                                  for r in k3_fast_main),
+            # the cast to bf16 that the path no longer launches before each
+            # call, alone, at each call's shape
+            "cast_ms": sum(2 * r["cast_ms"] for r in k3_fast_main),
+            # bf16 casts traced in one training batch's calls (each shape's
+            # forward and backward through autograd), beside the control's
+            # one planted cast per shape
+            "cast_launches_per_batch": sum(r["cast_launches_fwd_bwd"] for r in k3_fast_main),
+            "control_casts_per_batch": sum(r["control_casts"] for r in k3_fast_main),
+            "device_ops_per_batch": sum(r["device_ops_fwd_bwd"] for r in k3_fast_main),
             "l2_warm_ms": sum(r["l2_warm_ms_fwd"] + r["l2_warm_ms_bwd"] for r in k3_fast_main),
             "exact_l2_warm_ms": sum(r["exact_l2_warm_ms_fwd"] + r["exact_l2_warm_ms_bwd"]
                                     for r in k3_fast_main),
@@ -3369,12 +4079,19 @@ def run(args, kdir: str) -> int:
             "scan_train_ms_per_batch":
                 fast["k3"]["profile"][f"trace[{K3_FAST_NAME}]"]["device_ms"]
                 / (fast["k3"]["launches"]["fused_gin_conv_bf16"] / 4),
+            # bf16 casts traced in that epoch, by the pattern phase 3's
+            # control checks (the path launches none)
+            "scan_cast_launches": fast["k3"]["casts"],
             "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
-                                          "ms_bwd", "exact_ms_fwd", "exact_ms_bwd",
+                                          "ms_bwd", "exact_ms_fwd", "exact_ms_bwd", "cast_ms",
+                                          "cast_launches_fwd_bwd", "control_casts",
                                           "plain_ms_fwd", "plain_ms_bwd", "library_ms_fwd",
                                           "library_ms_bwd", "bound_ms_fwd", "bound_ms_bwd",
-                                          "l2_warm_ms_fwd", "l2_warm_ms_bwd", "smem_bytes",
-                                          "exact_smem_bytes", "blocks_per_sm")}
+                                          "l2_warm_ms_fwd", "l2_warm_ms_bwd", "slab",
+                                          "rows_per_block", "blocks_per_graph", "smem_bytes",
+                                          "blocks_per_sm", "lanes_per_row", "cols_per_lane",
+                                          "unroll", "exact_rows_per_block",
+                                          "exact_blocks_per_graph", "exact_smem_bytes")}
                        for r in k3_fast_main],
         },
     ]}
@@ -3394,7 +4111,11 @@ def run(args, kdir: str) -> int:
         summary[label] = {"graphs_per_s": [count / w for w in v["walls"]],
                           "launches": v["launches"]}
         if v["where"] is not None:
-            summary[label]["device_idle_share"] = v["where"]["device_idle_share"]
+            summary[label].update({k: v["where"].get(k) for k in (
+                "device_idle_share", "device_busy_ms", "index_accumulation_ms",
+                "index_accumulation_share_of_busy")})
+    summary["padding"] = padding
+    summary["digests"] = digests
     summary["store_bytes"] = store["batches"]
     for label in ("operators", "k3"):
         v = scan[label]

@@ -17,17 +17,20 @@ striped feature-major layout (:func:`tiled_cluster_max_pool`) and the
 aggregation by a stored adjacency (:func:`adj_conv`): plain torch products,
 as the JAX package leaves them to XLA.
 
-Gradients come from autograd, except for the tiled pool and ``adj_conv``,
-which carry the JAX package's custom backward. A max pool splits a slot's gradient evenly
-among tied maxima, as the JAX package's pools do (``_member_max_bwd``, and
-``reduce_max``'s VJP for ``slot_max_pool``): ``amax`` and
-``scatter_reduce(amax)`` both split ties evenly.
+Gradients come from autograd, except for the member-table pool, the tiled
+pool and ``adj_conv``, which carry the JAX package's custom backward, and the
+node gather, whose backward drops its padding lanes (``ops/lanes.py``). A
+max pool splits a slot's gradient evenly among tied maxima, as the JAX
+package's pools do (``_member_max_bwd``, and ``reduce_max``'s VJP for
+``slot_max_pool``): the member-table pool by JAX's backward, through
+``assign``, and ``scatter_reduce(amax)`` by autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
+from deeprank_gnn_tpu_torch.ops.lanes import gather_rows, needs_grad
 from deeprank_gnn_tpu_torch.ops.segment import segment_max
 
 # Above this virtual broadcast size (G * C * S * F fp32 bytes) the pool
@@ -43,11 +46,13 @@ TILE_R = 8
 
 def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x [G,S,F]`` gathered by ``idx [G,E]`` -> [G,E,F]; a sentinel reads
-    the graph's last row (callers' aggregations drop those lanes)."""
+    the graph's last row (callers' aggregations drop those lanes). The
+    backward accumulates no run of sentinel lanes (``ops/lanes.py``)."""
     g, s, f = x.shape
     goff = torch.arange(g, dtype=idx.dtype, device=idx.device)[:, None] * s
     flat = (torch.clamp(idx, 0, s - 1) + goff).reshape(-1)
-    return x.reshape(g * s, f).index_select(0, flat).reshape(g, idx.shape[1], f)
+    valid = ((idx >= 0) & (idx < s)).reshape(-1) if needs_grad(x) else None
+    return gather_rows(x.reshape(g * s, f), flat, valid, g).reshape(g, idx.shape[1], f)
 
 
 def _one_hot(idx: torch.Tensor, size: int, dtype: torch.dtype) -> torch.Tensor:
@@ -86,58 +91,42 @@ def dense_segment_softmax(logits: torch.Tensor, idx: torch.Tensor, size: int) ->
     zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
     slot_max = torch.where(member, logits[..., None], neg_inf).amax(dim=1)  # [G,C]
     slot_max = torch.where(torch.isfinite(slot_max), slot_max, zero)
-    safe = torch.clamp(idx, 0, size - 1).long()
     # sanitize BEFORE exp: where()'s backward evaluates the branch it does
     # not take too, and exp of a huge pad logit turns a zero cotangent into
     # inf * 0 = NaN
-    shifted = torch.where(valid, logits - torch.gather(slot_max, 1, safe), zero)
+    shifted = torch.where(valid, logits - gather_nodes(slot_max[..., None], idx)[..., 0], zero)
     expv = torch.where(valid, torch.exp(shifted), zero)
     denom = edge_sum_to_slots(expv[..., None], idx, size)[..., 0]  # [G,C]
     # empty slots divide by 1, not by a tiny epsilon: the division's
     # backward squares the denominator, and eps^2 underflows to 0 -> NaN;
     # every populated slot has denom >= exp(0) = 1 thanks to the shift
     denom = torch.where(denom > 0, denom, torch.ones((), dtype=denom.dtype, device=denom.device))
-    return expv / torch.gather(denom, 1, safe)
+    return expv / gather_nodes(denom[..., None], idx)[..., 0]
 
 
-def member_max_pool(h: torch.Tensor, mem_idx: torch.Tensor) -> torch.Tensor:
-    """Max-pool [G,S,F] rows into [G,C,F] via the precomputed member
-    table ``mem_idx`` [G,C,M] (pad sentinel == S); empty slots give 0
-    (torch-scatter zero-buffer semantics).
-
-    One flat row gather over a [G*S + 1, F] view whose trailing row is
-    -inf, so padded members never win the max; then a max over the M
-    members. Touches only C*M rows and needs no scatter.
-    """
-    g, s, f = h.shape
-    c, m = mem_idx.shape[1], mem_idx.shape[2]
-    rows = torch.cat([h.reshape(g * s, f), h.new_full((1, f), float("-inf"))])
-    goff = torch.arange(g, dtype=mem_idx.dtype, device=mem_idx.device)
-    valid = mem_idx < s
-    flat = torch.where(valid, mem_idx + goff.reshape(g, 1, 1) * s, g * s)
-    vals = rows.index_select(0, flat.reshape(-1)).reshape(g, c, m, f)
-    out = vals.amax(dim=2)
-    empty = ~valid.any(dim=2)
-    return torch.where(empty[..., None], torch.zeros((), dtype=h.dtype, device=h.device), out)
-
-
-class _MemberMaxPartial(torch.autograd.Function):
+class _MemberMax(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, mem_idx, assign):
+    def forward(ctx, h, mem_idx, assign, zero_empty, with_ties):
         g, s, f = h.shape
         c, m = mem_idx.shape[1], mem_idx.shape[2]
         vals = _flat_rows(h, float("-inf")).index_select(0, _flat_idx(mem_idx, s))
         vals = vals.reshape(g, c, m, f)
         out = vals.amax(dim=2)
-        # each slot's ties, counted while the member values are at hand
-        counts = (vals == out[:, :, None, :]).to(h.dtype).sum(dim=2)
+        # each slot's ties, counted while the member values are at hand, for
+        # the backward only (JAX's forward without a VJP drops them too)
+        counts = (vals == out[:, :, None, :]).to(h.dtype).sum(dim=2) if with_ties else None
+        if zero_empty:
+            empty = ~(mem_idx < s).any(dim=2)
+            out = torch.where(empty[..., None], torch.zeros((), dtype=h.dtype, device=h.device),
+                              out)
         ctx.save_for_backward(h, assign, out, counts)
         return out
 
     @staticmethod
     def backward(ctx, cot):
         # JAX ``_member_max_bwd``: each node equal to its slot's max takes
-        # an even share of the slot's cotangent; padding nodes take none
+        # an even share of the slot's cotangent; padding nodes take none.
+        # Gathers through ``assign`` only: nothing is accumulated
         h, assign, out, counts = ctx.saved_tensors
         g, s, f = h.shape
         aidx = _flat_idx(assign, out.shape[1])
@@ -146,7 +135,24 @@ class _MemberMaxPartial(torch.autograd.Function):
         cot_n = _flat_rows(cot, 0.0).index_select(0, aidx).reshape(g, s, f)
         share = cot_n / torch.clamp(cnt, min=1.0)
         dh = torch.where(h == own_max, share, torch.zeros((), dtype=h.dtype, device=h.device))
-        return dh, None, None
+        return dh, None, None, None, None
+
+
+def member_max_pool(h: torch.Tensor, mem_idx: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+    """Max-pool [G,S,F] rows into [G,C,F] via the precomputed member
+    table ``mem_idx`` [G,C,M] (pad sentinel == S); empty slots give 0
+    (torch-scatter zero-buffer semantics). ``assign [G,S]`` is the table's
+    inverse, each node's slot (pad >= C), as the JAX signature takes it
+    (``ops/dense.py:105-213``).
+
+    The forward is one flat row gather over a [G*S + 1, F] view whose
+    trailing row is -inf, so padded members never win the max, then a max
+    over the M members: it touches only C*M rows and needs no scatter. The
+    backward is JAX's ``_member_max_bwd``: each slot's cotangent reaches its
+    maxima through ``assign`` as plain gathers, ties split evenly, padding
+    takes none (autograd of the gather would add the padding members' zeros
+    into the sentinel row, one run as long as the batch's padding)."""
+    return _MemberMax.apply(h, mem_idx, assign, True, needs_grad(h))
 
 
 def member_max_partial(h: torch.Tensor, mem_idx: torch.Tensor,
@@ -154,10 +160,8 @@ def member_max_partial(h: torch.Tensor, mem_idx: torch.Tensor,
     """:func:`member_max_pool` without the empty-slot zero fill (JAX
     ``ops/dense.py:217-241``): an empty slot stays -inf, so the partial
     maxes of several shards combine by a max (the halo layout's
-    cross-shard pooling, ``parallel/halo.py``). ``assign [G,S]`` maps each
-    node to its slot (pad >= C). The backward is JAX's ``_member_max_bwd``:
-    a slot's cotangent is split evenly among its nodes equal to the max."""
-    return _MemberMaxPartial.apply(h, mem_idx, assign)
+    cross-shard pooling, ``parallel/halo.py``). The backward is the same."""
+    return _MemberMax.apply(h, mem_idx, assign, False, needs_grad(h))
 
 
 def slot_max_pool(h: torch.Tensor, assign: torch.Tensor, size: int) -> torch.Tensor:
@@ -194,7 +198,7 @@ def cluster_max_pool(h: torch.Tensor, assign: torch.Tensor, size: int,
     assignment. Both give the same numbers."""
     g, s, f = h.shape
     if mem_idx is not None and g * size * s * f * 4 > _MEMBER_POOL_MIN_BYTES:
-        return member_max_pool(h, mem_idx)
+        return member_max_pool(h, mem_idx, assign)
     return slot_max_pool(h, assign, size)
 
 
@@ -235,7 +239,7 @@ class _TiledPool(torch.autograd.Function):
     def forward(ctx, h_fm, node_mask_fm, tile_mem, tile_assign):
         vals = torch.where(node_mask_fm[:, None], h_fm, float("-inf"))
         tiles = vals.amax(dim=2)  # [G, F, T]
-        out = member_max_pool(tiles.transpose(1, 2), tile_mem)  # [G, C, F]
+        out = member_max_pool(tiles.transpose(1, 2), tile_mem, tile_assign)  # [G, C, F]
         ctx.save_for_backward(h_fm, node_mask_fm, tile_mem, tile_assign, out)
         return out
 

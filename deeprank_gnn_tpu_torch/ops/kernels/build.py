@@ -67,15 +67,18 @@ _SIGNATURES = {
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
-        "fused_gin_conv_bf16": (
+        "fused_gin_conv_plan": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+        ),
+        "fused_gin_conv_fast": (
             ctypes.c_int,
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ),
-        "fused_gin_conv_plan": (
+        "fused_gin_conv_fast_plan": (
             ctypes.c_int,
-            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.POINTER(ctypes.c_int)],
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
         ),
     },
 }

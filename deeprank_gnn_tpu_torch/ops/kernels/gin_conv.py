@@ -26,11 +26,17 @@ adds and need a three-way bf16 split to stay fp32-exact.
 
 ``exact=False`` is the fast variant, the counterpart of the Pallas body's
 non-exact branch (one bf16 MXU pass, fp32 accumulation,
-``deeprank_gnn_tpu/ops/pallas/__init__.py:178-189``): ``xw`` is rounded to
-bfloat16 (and, in the backward, the cotangent), and the same kernel, built
-for bf16 input, widens each element exactly, sums in fp32 in edge order and
-writes fp32. It reads half the slab bytes. Its plain version is the fp32
-plain version on the rounded values, and the kernel is bitwise that.
+``deeprank_gnn_tpu/ops/pallas/__init__.py:178-189``): the sums of ``xw``
+rounded to bfloat16 (to nearest even; in the backward, of the rounded
+cotangent), in fp32 in edge order, written fp32. The kernel takes the fp32
+``xw``, so the path launches no cast before each call: a block stages the
+graph's fp32 slab with the exact kernel's bulk copy and rounds it once, to
+nearest even, into a bf16 copy in shared memory (where the slab does not fit
+there, each element is rounded as it is loaded from device memory). Its sum
+step is designed for bf16: each lane owns 8 columns of a row, one 16-byte
+load from the copy held packed as bf16, and a block takes up to 256 rows.
+Its plain version is the fp32 plain version on the rounded values, and the
+kernel is bitwise that.
 """
 
 from __future__ import annotations
@@ -41,26 +47,26 @@ import torch
 
 from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
 from deeprank_gnn_tpu_torch.ops.kernels import build
+from deeprank_gnn_tpu_torch.ops.lanes import index_add_rows
 
 NAME = "fused_gin_conv"
-# the launch counter's name of the fast (bf16-input) variant
+# the launch counter's name of the fast (bf16-operand) variant
 NAME_BF16 = "fused_gin_conv_bf16"
 
 
 def fused_gin_conv_plain(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: ``index_select`` of the graph-offset
     ``col`` (an edge with an index out of range reads a zero row), then
-    ``index_add_`` into a buffer with a dump row over the graph-offset
-    ``row``."""
+    ``index_add_`` over the graph-offset ``row``, each dropped edge into a
+    row of its own (``ops/lanes.py``)."""
     g, s, f = xw.shape
     valid = (row >= 0) & (row < s) & (col >= 0) & (col < s)
     goff = torch.arange(g, dtype=row.dtype, device=row.device)[:, None] * s
     src = torch.where(valid, col + goff, g * s).reshape(-1)
-    dst = torch.where(valid, row + goff, g * s).reshape(-1)
     rows = torch.cat([xw.reshape(g * s, f), xw.new_zeros((1, f))])
-    out = xw.new_zeros((g * s + 1, f))
-    out.index_add_(0, dst, rows.index_select(0, src))
-    return out[: g * s].reshape(g, s, f)
+    out = index_add_rows(rows.index_select(0, src), (row + goff).reshape(-1), g * s,
+                         valid.reshape(-1))
+    return out.reshape(g, s, f)
 
 
 def _check(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor) -> None:
@@ -73,22 +79,22 @@ def _check(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor) -> None:
         raise ValueError(f"xw on {xw.device}, row on {row.device}, col on {col.device}")
 
 
-def fused_gin_conv_forward(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
-    """One application of the op, without autograd, into a float32 output.
-    ``xw`` float32 runs the exact kernel, bfloat16 the fast variant (the
-    sums in fp32 either way). On a CPU tensor this is
-    :func:`fused_gin_conv_plain` (on ``xw.float()``). On a CUDA tensor it
-    launches the kernel (building it at first use) or raises: ``xw`` must be
-    contiguous float32 or bfloat16, ``row`` and ``col`` contiguous int32. A
-    tensor on any other device raises too, after the same checks."""
+def fused_gin_conv_forward(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                           exact: bool = True) -> torch.Tensor:
+    """One application of the op, without autograd, into a float32 output:
+    the exact kernel, or with ``exact=False`` the fast one, which rounds
+    ``xw`` to bfloat16 itself and sums in fp32. On a CPU tensor this is
+    :func:`fused_gin_conv_plain` on the values the kernel would sum. On a
+    CUDA tensor it launches the kernel (building it at first use) or raises:
+    ``xw`` must be contiguous float32, ``row`` and ``col`` contiguous int32.
+    A tensor on any other device raises too, after the same checks."""
     _check(xw, row, col)
     if xw.device.type == "cpu":
-        return fused_gin_conv_plain(xw.float(), row, col)
-    if (xw.dtype not in (torch.float32, torch.bfloat16) or row.dtype != torch.int32
-            or col.dtype != torch.int32):
+        values = xw if exact else xw.to(torch.bfloat16).float()
+        return fused_gin_conv_plain(values, row, col)
+    if xw.dtype != torch.float32 or row.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError(
-            f"want float32 or bfloat16 xw and int32 row and col; got {xw.dtype}, {row.dtype} "
-            f"and {col.dtype}"
+            f"want float32 xw and int32 row and col; got {xw.dtype}, {row.dtype} and {col.dtype}"
         )
     if not (xw.is_contiguous() and row.is_contiguous() and col.is_contiguous()):
         raise ValueError("xw, row and col must be contiguous")
@@ -104,58 +110,57 @@ def fused_gin_conv_forward(xw: torch.Tensor, row: torch.Tensor, col: torch.Tenso
     if out.numel() == 0:
         return out
     lib = build.load(NAME)
-    fast = xw.dtype == torch.bfloat16
-    launch = lib.fused_gin_conv_bf16 if fast else lib.fused_gin_conv_f32
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
+        launch = lib.fused_gin_conv_f32 if exact else lib.fused_gin_conv_fast
         err = launch(xw.data_ptr(), row.data_ptr(), col.data_ptr(), out.data_ptr(), g, s, f, e,
                      stream)
     if err != 0:
         raise RuntimeError(f"fused_gin_conv launch failed: CUDA error {err}")
-    LAUNCHES[NAME_BF16 if fast else NAME] += 1
+    LAUNCHES[NAME if exact else NAME_BF16] += 1
     return out
 
 
-def launch_plan(device, s: int, f: int, e: int, bf16: bool = False) -> dict:
-    """The launch the kernel (with ``bf16`` its fast variant) makes on
+def launch_plan(device, s: int, f: int, e: int, fast: bool = False) -> dict:
+    """The launch the kernel (with ``fast`` the fast variant) makes on
     ``device`` for ``S``, ``F`` and ``E`` (all > 0): ``slab`` (whether a
     graph's ``[S, F]`` slab is staged in shared memory, else ``xw`` is read
     from device memory), ``rows_per_block`` and ``blocks_per_graph`` (the
-    split of a graph's output rows), ``smem_bytes`` per block and
-    ``blocks_per_sm`` resident."""
+    split of a graph's output rows), ``smem_bytes`` per block (the fast
+    variant's with the slab's bf16 copy) and ``blocks_per_sm`` resident; the
+    fast variant also ``lanes_per_row``, ``cols_per_lane`` (8: one 16-byte
+    load of bf16) and ``unroll`` (source rows a lane loads before it adds
+    them)."""
     lib = build.load(NAME)
-    plan = (ctypes.c_int * 5)()
+    keys = ["slab", "rows_per_block", "blocks_per_graph", "smem_bytes", "blocks_per_sm"]
+    if fast:
+        keys += ["lanes_per_row", "cols_per_lane", "unroll"]
+    plan = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
-        err = lib.fused_gin_conv_plan(s, f, e, int(bf16), plan)
+        plan_fn = lib.fused_gin_conv_fast_plan if fast else lib.fused_gin_conv_plan
+        err = plan_fn(s, f, e, plan)
     if err != 0:
-        raise RuntimeError(f"fused_gin_conv_plan: CUDA error {err}")
-    keys = ("slab", "rows_per_block", "blocks_per_graph", "smem_bytes", "blocks_per_sm")
+        raise RuntimeError(f"fused_gin_conv plan: CUDA error {err}")
     out = dict(zip(keys, plan))
     out["slab"] = bool(out["slab"])
     return out
 
 
-def _operand(t: torch.Tensor, exact: bool) -> torch.Tensor:
-    """The kernel's input: ``t`` itself, or rounded to bfloat16 (to nearest
-    even) for the fast variant."""
-    return t.contiguous() if exact else t.to(torch.bfloat16).contiguous()
-
-
 class FusedGinConv(torch.autograd.Function):
     """``fused_gin_conv`` with its gradient: the same op, indices swapped
     (``d xw = fused(grad, col, row)``, the JAX package's ``_bwd``), on the
-    bf16-rounded cotangent in the fast variant."""
+    bf16-rounded cotangent in the fast variant (rounded in the kernel)."""
 
     @staticmethod
     def forward(ctx, xw, row, col, exact):
         ctx.save_for_backward(row, col)
         ctx.exact = exact
-        return fused_gin_conv_forward(_operand(xw, exact), row, col)
+        return fused_gin_conv_forward(xw.contiguous(), row, col, exact)
 
     @staticmethod
     def backward(ctx, grad):
         row, col = ctx.saved_tensors
-        return fused_gin_conv_forward(_operand(grad, ctx.exact), col, row), None, None, None
+        return fused_gin_conv_forward(grad.contiguous(), col, row, ctx.exact), None, None, None
 
 
 def fused_gin_conv(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor,

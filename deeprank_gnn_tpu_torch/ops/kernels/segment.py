@@ -25,6 +25,7 @@ import torch
 
 from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
 from deeprank_gnn_tpu_torch.ops.kernels import build
+from deeprank_gnn_tpu_torch.ops.lanes import index_add_rows
 
 NAME = "sorted_segment_sum"
 
@@ -41,16 +42,14 @@ def sorted_segment_sum_plain(
     row_ptr: torch.Tensor,
     rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version: the dump-row ``index_add_`` form of
-    ``ops.segment.segment_sum``, with the rows taken from ``rows`` when
-    given, else from ``row_ptr``."""
+    """The plain PyTorch version: the ``index_add_`` form of
+    ``ops.segment.segment_sum`` (each padding edge into a row of its own,
+    ``ops/lanes.py``), with the rows taken from ``rows`` when given, else
+    from ``row_ptr``."""
     n = row_ptr.shape[0] - 1
     if rows is None:
         rows = rows_from_row_ptr(row_ptr, data.shape[0])
-    ids = torch.where((rows >= 0) & (rows < n), rows, n)
-    out = data.new_zeros((n + 1, data.shape[1]))
-    out.index_add_(0, ids, data)
-    return out[:n]
+    return index_add_rows(data, rows, n)
 
 
 def check_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> None:

@@ -31,9 +31,10 @@ def community_pooling_x(
 ) -> torch.Tensor:
     """Max-pool node features over cluster members. [N,F]x[N] -> [C,F].
     With a member table (`GraphBatch.mem0_idx`) the pool is a row
-    gather (`member_max_pool` with a singleton graph axis)."""
+    gather (`member_max_pool` with a singleton graph axis), whose backward
+    gathers through ``assign`` (pad -> ``num_clusters``)."""
     if mem_idx is not None:
-        return member_max_pool(x[None], mem_idx[None])[0]
+        return member_max_pool(x[None], mem_idx[None], assign[None])[0]
     return segment_max(x, assign, num_clusters)
 
 

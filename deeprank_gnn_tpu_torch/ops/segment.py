@@ -7,8 +7,9 @@ per-cluster, or per-graph) buffers with torch_scatter's `scatter_sum` /
 (reference `ginet.py:69-71`, `community_pooling.py:201,214`). The contract:
 
 - out-of-range / padding indices contribute nothing. Callers route
-  padding lanes to index ``num_segments``; we reduce into
-  ``num_segments + 1`` rows and slice the dump row off.
+  padding lanes to index ``num_segments``; each such lane reduces into a
+  row of its own past the real ones, sliced off (``ops/lanes.py``: no
+  accumulating op sees a run of padding lanes).
 - ``segment_mean`` divides by ``max(count, 1)`` — empty segments give 0.
 - ``segment_max`` returns 0 for empty segments, not -inf.
 
@@ -21,7 +22,8 @@ sorted scatter-gather kernel (K2,
 where the port runs a kernel where the JAX package left the composition
 (a segment sum, then its gather) to XLA. Everything else is plain torch
 (``index_add_``, ``index_select``, ``scatter_reduce_``), as XLA compiled it
-for the JAX package.
+for the JAX package; :func:`gather`'s backward, like every accumulation
+here, sums no run of padding lanes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 
 from deeprank_gnn_tpu_torch.ops.kernels.scatter_gather import sorted_scatter_gather
+from deeprank_gnn_tpu_torch.ops.lanes import gather_rows, index_add_rows, lane_rows
 from deeprank_gnn_tpu_torch.ops.kernels.segment import (
     rows_from_row_ptr,
     sorted_segment_sum,
@@ -90,12 +93,6 @@ class SortedScatterGather(torch.autograd.Function):
         return sorted_segment_sum_backward(dout, rows), None
 
 
-def _dump_row(index: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Indices outside [0, num_segments) land in the dump row
-    ``num_segments``."""
-    return torch.where((index >= 0) & (index < num_segments), index, num_segments)
-
-
 def segment_sum(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -118,19 +115,18 @@ def segment_sum(
                 f"({num_segments + 1},)"
             )
         return SortedSegmentSum.apply(data, row_ptr)
-    ids = _dump_row(segment_ids, num_segments)
-    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
-    out.index_add_(0, ids, data)
-    return out[:num_segments]
+    return index_add_rows(data, segment_ids, num_segments)
 
 
-def segment_count(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Number of entries per segment (padding excluded). [E] -> [S]."""
-    ids = _dump_row(segment_ids, num_segments)
-    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32, device=ids.device)
-    out = ones.new_zeros(num_segments + 1)
-    out.index_add_(0, ids, ones)
-    return out[:num_segments]
+def segment_count(segment_ids: torch.Tensor, num_segments: int,
+                  row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Number of entries per segment (padding excluded), float32. [E] ->
+    [S]. With CSR pointers ``row_ptr`` of sorted ids the counts are the
+    runs' lengths, and nothing is accumulated."""
+    if row_ptr is not None:
+        return (row_ptr[1:] - row_ptr[:-1]).to(torch.float32)
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32, device=segment_ids.device)
+    return index_add_rows(ones, segment_ids, num_segments)
 
 
 def segment_mean(
@@ -149,49 +145,68 @@ def segment_mean(
     selection (NaN), the behavior of the reference FoutLayer's per-node
     loop (reference `foutnet.py:69-73`). With CSR pointers ``row_ptr`` of
     sorted ids (the JAX package's ``sorted_ids``) the sum runs on K1 and
-    the counts are the runs' lengths.
+    the counts are the runs' lengths. Without them the sums and the counts
+    are one accumulation: a column of ones beside the rows, each column
+    summed in lane order as on its own.
     """
-    total = segment_sum(data, segment_ids, num_segments, row_ptr=row_ptr)
     if row_ptr is None:
-        count = segment_count(segment_ids, num_segments)
+        ones = torch.ones((data.shape[0], 1), dtype=data.dtype, device=data.device)
+        both = index_add_rows(torch.cat([data.reshape(data.shape[0], -1), ones], dim=1),
+                              segment_ids, num_segments)
+        total = both[:, :-1].reshape((num_segments,) + tuple(data.shape[1:]))
+        count = both[:, -1]
     else:
-        count = (row_ptr[1:] - row_ptr[:-1]).to(data.dtype)
+        total = segment_sum(data, segment_ids, num_segments, row_ptr=row_ptr)
+        count = segment_count(segment_ids, num_segments, row_ptr).to(data.dtype)
     count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
     if nan_empty:
         return total / count
     return total / torch.clamp(count, min=1.0)
 
 
-def _segment_reduce_with_fill(
-    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, reduce: str,
-    identity: float,
-) -> torch.Tensor:
-    """``scatter_reduce`` into ``num_segments`` rows plus the dump row,
-    started from ``identity``; empty segments give 0."""
-    ids = _dump_row(segment_ids, num_segments).to(torch.int64)
-    shape = (num_segments + 1,) + tuple(data.shape[1:])
+def segment_reduce_raw(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                       reduce: str, identity: float) -> torch.Tensor:
+    """``scatter_reduce`` (``"amax"`` or ``"amin"``) into ``num_segments``
+    rows started from ``identity``, which an empty segment keeps; each
+    padding lane reduces into a row of its own, sliced off."""
+    ids = lane_rows(segment_ids, num_segments)
+    shape = (num_segments + data.shape[0],) + tuple(data.shape[1:])
     idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     out = data.new_full(shape, identity)
     out.scatter_reduce_(0, idx, data, reduce=reduce, include_self=True)
-    out = out[:num_segments]
-    count = segment_count(segment_ids, num_segments)
+    return out[:num_segments]
+
+
+def _segment_reduce_with_fill(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, reduce: str,
+    identity: float, row_ptr: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """:func:`segment_reduce_raw`, with 0 for an empty segment."""
+    out = segment_reduce_raw(data, segment_ids, num_segments, reduce, identity)
+    count = segment_count(segment_ids, num_segments, row_ptr)
     count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
     return torch.where(count > 0, out, torch.zeros((), dtype=data.dtype, device=data.device))
 
 
 def segment_max(
-    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+    *, row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-segment max; empty segments give 0 (the reference's
-    zero-initialized scatter_max buffer, `community_pooling.py:201`)."""
-    return _segment_reduce_with_fill(data, segment_ids, num_segments, "amax", float("-inf"))
+    zero-initialized scatter_max buffer, `community_pooling.py:201`).
+    ``row_ptr``, CSR pointers of sorted ids, gives the counts that find the
+    empty segments."""
+    return _segment_reduce_with_fill(data, segment_ids, num_segments, "amax", float("-inf"),
+                                     row_ptr)
 
 
 def segment_min(
-    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+    *, row_ptr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-segment min; empty segments give 0."""
-    return _segment_reduce_with_fill(data, segment_ids, num_segments, "amin", float("inf"))
+    return _segment_reduce_with_fill(data, segment_ids, num_segments, "amin", float("inf"),
+                                     row_ptr)
 
 
 def segment_softmax(
@@ -213,22 +228,26 @@ def segment_softmax(
     would overflow there). Without them it is the dump-row sum, then a
     gather.
     """
-    seg_max = segment_max(logits, segment_ids, num_segments)
-    ids = _dump_row(segment_ids, num_segments)
-    shifted = logits - torch.cat([seg_max, seg_max.new_zeros(1)]).index_select(0, ids)
+    seg_max = segment_max(logits, segment_ids, num_segments, row_ptr=row_ptr)
+    shifted = logits - gather(seg_max, segment_ids, fill=0.0)
     exp = torch.exp(shifted)
     if row_ptr is not None:
         _, denom = SortedScatterGather.apply(exp[:, None], row_ptr)
-        denom = torch.where(ids < num_segments, denom[:, 0], torch.ones((), dtype=exp.dtype, device=exp.device))
+        valid = (segment_ids >= 0) & (segment_ids < num_segments)
+        denom = torch.where(valid, denom[:, 0], torch.ones((), dtype=exp.dtype, device=exp.device))
     else:
-        denom = segment_sum(exp, segment_ids, num_segments)
-        denom = torch.cat([denom, denom.new_ones(1)]).index_select(0, ids)
+        denom = gather(segment_sum(exp, segment_ids, num_segments), segment_ids, fill=1.0)
     return exp / torch.clamp(denom, min=1e-16)
 
 
-def gather(data: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+def gather(data: torch.Tensor, index: torch.Tensor, fill: Optional[float] = None) -> torch.Tensor:
     """Row gather ``data[index]`` with padding-safe clamping: padding
-    indices (== data.shape[0] or negative) read a clamped row; callers
-    mask the result."""
-    idx = torch.clamp(index, 0, data.shape[0] - 1)
-    return data.index_select(0, idx)
+    indices (outside ``[0, data.shape[0])``) read a clamped row, or
+    ``fill`` where that is given; callers mask the result. The backward
+    accumulates no run of padding lanes (``ops/lanes.py``)."""
+    valid = (index >= 0) & (index < data.shape[0])
+    out = gather_rows(data, index, valid)
+    if fill is None:
+        return out
+    mask = valid.reshape((-1,) + (1,) * (data.dim() - 1))
+    return torch.where(mask, out, torch.full((), fill, dtype=out.dtype, device=out.device))

@@ -51,7 +51,12 @@ from deeprank_gnn_tpu_torch.models.ginet import ginet_conv
 from deeprank_gnn_tpu_torch.models.sgat import sGAT, sgat_layer
 from deeprank_gnn_tpu_torch.ops.dense import member_counts, member_max_partial
 from deeprank_gnn_tpu_torch.ops.pooling import graph_mean_pool, max_pool_x
-from deeprank_gnn_tpu_torch.ops.segment import _dump_row, gather, segment_count, segment_sum
+from deeprank_gnn_tpu_torch.ops.segment import (
+    gather,
+    segment_count,
+    segment_reduce_raw,
+    segment_sum,
+)
 from deeprank_gnn_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce,
@@ -345,12 +350,7 @@ def halo_exchange(values: torch.Tensor, send_idx: torch.Tensor, group) -> torch.
 def _raw_segment_max(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Per-segment max with -inf for an empty segment (combinable across
     shards)."""
-    ids = _dump_row(ids, num_segments).to(torch.int64)
-    shape = (num_segments + 1,) + tuple(data.shape[1:])
-    idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    out = data.new_full(shape, float("-inf"))
-    out.scatter_reduce_(0, idx, data, reduce="amax", include_self=True)
-    return out[:num_segments]
+    return segment_reduce_raw(data, ids, num_segments, "amax", float("-inf"))
 
 
 def cross_shard_max_pool(h: torch.Tensor, assign: torch.Tensor, num_clusters: int,
@@ -405,20 +405,18 @@ def _joint_segment_softmax(logit_loc, rows_loc, logit_rem, rows_rem, n):
     )
     zero = torch.zeros((), dtype=m.dtype, device=m.device)
     m = torch.where(torch.isfinite(m), m, zero)
-    mrow = torch.cat([m, m.new_zeros(1)])
 
     def part(logit, rows):
-        safe = torch.clamp(rows, 0, n).long()
-        e = torch.exp(logit - mrow[safe])
+        e = torch.exp(logit - gather(m, torch.clamp(rows, 0, n), fill=0.0))
         return torch.where(rows < n, e, zero)
 
     e_loc, e_rem = part(logit_loc, rows_loc), part(logit_rem, rows_rem)
     denom = segment_sum(e_loc[:, None], rows_loc, n) + segment_sum(e_rem[:, None], rows_rem, n)
-    drow = torch.cat([denom[:, 0], denom.new_ones(1)])
-    return (
-        e_loc / torch.clamp(drow[torch.clamp(rows_loc, 0, n).long()], min=1e-16),
-        e_rem / torch.clamp(drow[torch.clamp(rows_rem, 0, n).long()], min=1e-16),
-    )
+
+    def weight(e, rows):
+        return e / torch.clamp(gather(denom[:, 0], torch.clamp(rows, 0, n), fill=1.0), min=1e-16)
+
+    return weight(e_loc, rows_loc), weight(e_rem, rows_rem)
 
 
 def _ginet_tower_halo(model, conv1, conv2, v: HaloBatch, internal: bool) -> torch.Tensor:
@@ -440,7 +438,7 @@ def _ginet_tower_halo(model, conv1, conv2, v: HaloBatch, internal: bool) -> torc
         msg_loc, msg_rem = gather(xw, lc), gather(combined, rc)
 
         def logits(msg, rows, eattr):
-            xrow = gather(xw, torch.clamp(rows, 0, v.nl - 1))
+            xrow = gather(xw, rows)
             ed = linear(eattr, conv1.fc_edge_attr.weight)
             lg = linear(torch.cat([xrow, msg, ed], dim=1), conv1.fc_attention.weight)
             return F.leaky_relu(lg[:, 0])
@@ -543,9 +541,9 @@ def _sgat_pooled_halo(model, v: HaloBatch) -> torch.Tensor:
     xr = v.x @ p.weight[:in_ch]
     xc = v.x @ p.weight[in_ch:]
     combined = halo_exchange(xc, v.send_idx, v.group)
-    a_loc = (gather(xr, torch.clamp(v.loc_rows, 0, v.nl - 1))
+    a_loc = (gather(xr, v.loc_rows)
              + gather(xc, v.loc_cols)) * v.loc_eattr
-    a_rem = (gather(xr, torch.clamp(v.rem_rows, 0, v.nl - 1))
+    a_rem = (gather(xr, v.rem_rows)
              + gather(combined, v.rem_cols)) * v.rem_eattr
     h = _halo_segment_mean_pair(a_loc, v.loc_rows, v.loc_rowptr, a_rem, v.rem_rows,
                                 v.rem_rowptr, v.nl) + p.bias

@@ -319,7 +319,7 @@ def test_dense_pools_match_jax_with_ties():
     # branch), and the port's member-table pool on the same clusters
     refs = {"jax_slot": (want, want_grad),
             "jax_cluster": _jax_grad(lambda x: J.cluster_max_pool(x, ja, c), h, cot),
-            "members": _torch_grad(lambda x: T.member_max_pool(x, tm), h, cot)}
+            "members": _torch_grad(lambda x: T.member_max_pool(x, tm, ta), h, cot)}
     got, got_grad = _torch_grad(lambda x: T.slot_max_pool(x, ta, c), h, cot)
     for name, (ref, ref_grad) in refs.items():
         np.testing.assert_array_equal(got, ref, err_msg=name)
@@ -337,6 +337,41 @@ def test_dense_pools_match_jax_with_ties():
     np.testing.assert_allclose(got_grad, want_grad, **KERNEL_TOL)
 
 
+def test_member_max_pool_backward_matches_jax_with_ties():
+    """``member_max_pool``'s backward (JAX's ``_member_max_bwd``, through
+    ``assign``) against JAX's VJP, with planted ties (a slot's cotangent
+    split evenly, 1/3 each over three tied maxima), an empty slot and
+    padding nodes; on the graph axis and on the sparse layout's singleton
+    one (``community_pooling_x``); and ``member_max_partial``'s."""
+    import jax.numpy as jnp
+
+    from deeprank_gnn_tpu.ops import dense as J
+    from deeprank_gnn_tpu_torch.ops import dense as T
+    from deeprank_gnn_tpu_torch.ops.pooling import community_pooling_x
+
+    rng = np.random.default_rng(9)
+    h, assign, mem, cot = pool_inputs(rng, g=3, s=24, f=4, c=6)
+    h = np.round(h)  # many ties
+    members = mem[0, 0][mem[0, 0] < 24][:3]
+    h[0, members, 1] = 50.0  # three tied maxima in slot 0, column 1
+    ja, jm = jnp.asarray(assign), jnp.asarray(mem)
+    ta, tm = torch.from_numpy(assign), torch.from_numpy(mem)
+    for jfn, tfn in ((J.member_max_pool, T.member_max_pool),
+                     (J.member_max_partial, T.member_max_partial)):
+        want, want_grad = _jax_grad(lambda x: jfn(x, jm, ja), h, cot)
+        got, got_grad = _torch_grad(lambda x: tfn(x, tm, ta), h, cot)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(got_grad, want_grad, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_grad[0, members, 1], np.full(3, cot[0, 0, 1] / 3), rtol=1e-6)
+    assert (got_grad[0][assign[0] == 6] == 0).all()  # padding nodes take none
+    # the sparse layout: one graph, the pool on a singleton graph axis
+    want, want_grad = _jax_grad(lambda x: J.member_max_pool(x[None], jm[:1], ja[:1])[0],
+                                h[0], cot[0])
+    got, got_grad = _torch_grad(lambda x: community_pooling_x(x, ta[0], 6, tm[0]), h[0], cot[0])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got_grad, want_grad, rtol=1e-6, atol=1e-6)
+
+
 def test_member_max_pool_grad_matches_jax():
     import jax.numpy as jnp
 
@@ -348,7 +383,8 @@ def test_member_max_pool_grad_matches_jax():
     h = np.round(h)  # more ties
     ja, jm = jnp.asarray(assign), jnp.asarray(mem)
     want, want_grad = _jax_grad(lambda x: jax_pool(x, jm, ja), h, cot)
-    got, got_grad = _torch_grad(lambda x: member_max_pool(x, torch.from_numpy(mem)), h, cot)
+    got, got_grad = _torch_grad(
+        lambda x: member_max_pool(x, torch.from_numpy(mem), torch.from_numpy(assign)), h, cot)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got_grad, want_grad, rtol=1e-6, atol=1e-6)
 

@@ -205,8 +205,10 @@ def test_executable_cache_dir_sets_build_dir(db, tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_fast_k3_cuda_matches_plain():
     """The fast variant on the card, forward and backward, bitwise the
-    fp32 plain version on the rounded values on the CPU, with half the
-    exact kernel's slab bytes in shared memory."""
+    fp32 plain version on the rounded values on the CPU. Its launch plan,
+    the one the path runs: where the exact kernel stages the fp32 slab, it
+    stages the same slab plus the slab's bf16 copy, and it splits a graph
+    over no more blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
@@ -233,5 +235,11 @@ def test_fast_k3_cuda_matches_plain():
         assert torch.equal(out.detach().cpu(), want)
         assert torch.equal(x.grad.cpu(), want_grad)
         exact_plan, fast_plan = launch_plan("cuda", s, f, e), launch_plan("cuda", s, f, e, True)
+        assert fast_plan["slab"] == exact_plan["slab"]
+        assert fast_plan["blocks_per_graph"] <= exact_plan["blocks_per_graph"]
         if exact_plan["slab"]:
-            assert fast_plan["slab"] and fast_plan["smem_bytes"] < exact_plan["smem_bytes"]
+            # the bf16 copy in whole 16-byte units, and 9 more counters (one
+            # per warp, and the row's offset) for each row a block adds
+            copy = -(-s * f // 8) * 8 * 2
+            rows = fast_plan["rows_per_block"] - exact_plan["rows_per_block"]
+            assert fast_plan["smem_bytes"] == exact_plan["smem_bytes"] + copy + 9 * 4 * rows

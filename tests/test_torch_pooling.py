@@ -28,7 +28,8 @@ def test_member_max_pool_bitwise_with_ties_and_padding():
             mem[gi, ci, : len(members)] = members
             assign[gi, members] = ci
     want = np.asarray(jax_pool(jnp.asarray(h), jnp.asarray(mem), jnp.asarray(assign)))
-    got = member_max_pool(torch.from_numpy(h), torch.from_numpy(mem)).numpy()
+    got = member_max_pool(torch.from_numpy(h), torch.from_numpy(mem),
+                          torch.from_numpy(assign)).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got[:, c - 1] == 0).all()  # empty cluster gives 0
     assert (got < 0).any()  # all-negative clusters keep their max

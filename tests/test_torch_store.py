@@ -271,7 +271,7 @@ def test_tiled_pool_splits_ties_as_jax():
     # autograd through the two maxes splits per stage: 1/4, 1/4, 1/2
     y = torch.from_numpy(h).requires_grad_(True)
     tiles = torch.where(targs[0][:, None], y, float("-inf")).amax(dim=2)
-    naive = T.member_max_pool(tiles.transpose(1, 2), targs[1])
+    naive = T.member_max_pool(tiles.transpose(1, 2), targs[1], targs[2])
     (naive * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(y.grad.numpy()[0, 0][[1, 5, 1], [0, 0, 1]],
                                cot[0, 0, 0] * np.array([0.25, 0.25, 0.5]), rtol=1e-6)
