@@ -3,9 +3,11 @@
 check them.
 
     python3 chip_smoke.py [--seed N] [--graphs N] [--digests]
+    python3 chip_smoke.py --cards 4
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``
 (``$CUDA_HOME/bin`` or PATH), and nothing beyond torch, numpy and scipy.
+With ``--cards 4`` it needs four and runs phases 1, 2 and 11 only (below).
 Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); fp32
@@ -134,26 +136,29 @@ Phases, each of which raises on failure:
    epoch, traced as the bf16 kernel), bitwise the looped fast epoch and
    within ``BF16_TOL`` of the exact path's loss; the fast operator path
    (``adj_conv`` with bf16 operands) scanned for one epoch;
-11. multi-device (``parallel/``): two worker processes started with
-   ``torch.multiprocessing`` spawn form one gloo group over a ``file://``
-   store in the run's temporary directory, both on cuda:0 (NCCL refuses
-   two ranks on one card; gloo stages the CUDA tensors through the host),
-   and load the kernels from phase 2's cache (running ``nvcc`` fails
-   them). On 512 of the graphs (4 batches of 128) each rank runs
-   paper-mode GINet on three paths: the halo layout
-   (``layout="halo", mesh=make_halo_mesh()``; K1 3 launches per batch,
-   served and trained), the dense graph-parallel mesh (``make_mesh(dp=2,
-   ep=1)``; K3 2 per served batch, 4 per training batch, over 64 graphs)
-   and the sparse one (``make_mesh()``, dp=1 x ep=2; K1 2 per batch). Each
-   is served from phase 4's checkpoint against the single-process card run
-   at ``TOL``, its first 4 Adam steps (dropout off) against the
-   single-process card run at ``TOL``, and with dropout on the engine's
-   training pass (``_run_pass``) run twice from one seed, losses and
-   parameters bitwise equal, both ranks' parameters bitwise equal after
-   each epoch; the launch counts, walls and the profiled epoch are that
-   pass's. The same epoch taken a step at a time gives the pass's loss
-   bitwise, with both ranks' parameters equal after every step. One halo
-   training step's
+11. multi-device (``parallel/``): this process first computes the
+   single-card references on cuda:0 (served predictions and loss from a
+   seeded checkpoint, the first 4 Adam steps with dropout off, in both
+   layouts, and scanned store runs on the operator and K3 paths), then
+   two worker processes started with ``torch.multiprocessing`` spawn form
+   one gloo group over a ``file://`` store in the run's temporary
+   directory, both on cuda:0 (NCCL refuses two ranks on one card; gloo
+   stages the CUDA tensors through the host), and load the kernels from
+   phase 2's cache (running ``nvcc`` fails them). On 512 of the graphs (4
+   batches of 128) each rank runs paper-mode GINet on three paths: the halo
+   layout (``layout="halo", mesh=make_halo_mesh()``; K1 3 launches per
+   batch, served and trained), the dense graph-parallel mesh
+   (``make_mesh(dp=2, ep=1)``; K3 2 per served batch, 4 per training batch,
+   over 64 graphs) and the sparse one (``make_mesh()``, dp=1 x ep=2; K1 2
+   per batch). Each is served against the single-card run at ``TOL``, with
+   its collective bytes equal to the pass's plan, its first 4 Adam steps
+   (dropout off) against the single-card run at ``TOL``, and with dropout
+   on the engine's training pass (``_run_pass``) run twice from one seed,
+   losses and parameters bitwise equal, both ranks' parameters bitwise
+   equal after each epoch, its collective bytes equal to the plan; the
+   launch counts, walls and the profiled epoch are that pass's. The same
+   epoch taken a step at a time gives the pass's loss bitwise, with both
+   ranks' parameters equal after every step. One halo training step's
    collective bytes equal its plan and lie below an all-gather of the node
    array. Each rank prints its graphs/s (gloo times, host staging
    included). Then this process alone forms an NCCL group of one and runs
@@ -167,9 +172,23 @@ Phases, each of which raises on failure:
    captured inside the step's graph. Each is bitwise the looped mesh run
    (losses, predictions, parameters, Adam and generator state; the ranks'
    parameters equal), its K3 launches (captured times replays) equal the
-   looped run's and the profiled trace, its collective bytes per epoch
-   equal the plan; the gloo runs also match the single-process scanned run
-   at ``TOL``;
+   looped run's and the profiled trace, its replays and collective bytes
+   per epoch equal the plan; the gloo runs also match the single-card
+   scanned run at ``TOL``.
+   With ``--cards 4`` (four cards or more; phase 2 builds the kernels
+   once) it prints every card's name and power limit, ``nvidia-smi topo
+   -m`` and NCCL's version, and runs this phase on 4,096 graphs at a global
+   batch of 512 (128 graphs a rank and batch, the single card's batch):
+   the references at batch 512 and the single card's warm graphs/s at
+   batch 128 (served and trained in both layouts, scanned K3 epochs) on
+   cuda:0, then four ranks in an NCCL group, rank r on cuda:r, nothing on
+   gloo or the CPU: the three paths with every check above (two runs from
+   one seed compared: a difference under NCCL is recorded, which values and
+   by how much), each profiled pass with its NCCL kernels by name, and
+   scanned mesh epochs (``True``, ``"full"``, chunked) on the operator and
+   the K3 path, each bitwise its looped run with the all-reduce captured
+   in the graphs. Its last lines are ``4 cards {...}`` (``cards_summary``)
+   and the ``{"ok": true, ...}`` line with the card count;
 12. featurize: 32 docking models of one synthetic complex written from the
    seed (``write_docking_models``: chains of 300 and 250 residues with
    their standard heavy atoms, ~4,700 atoms, 1ATN's scale; chain B moved
@@ -214,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import functools
 import hashlib
 import json
@@ -222,6 +242,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -480,10 +501,11 @@ def write_docking_models(root: str, seed: int, n_models: int, res_a: int, res_b:
 
 
 def write_checkpoint(path: str, seed: int, Net=None, task: str = "reg",
-                     target: str = "fnat") -> None:
+                     target: str = "fnat", batch_size: int = BATCH) -> None:
     """A reference-format torch checkpoint of a seeded random ``Net``
     (default GINet) at the paper's width: a regressor of ``target``, or
-    with ``task="class"`` a classifier of two classes."""
+    with ``task="class"`` a classifier of two classes; an engine built from
+    it serves at ``batch_size``."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
@@ -502,7 +524,7 @@ def write_checkpoint(path: str, seed: int, Net=None, task: str = "reg",
             "task": task,
             "classes": [0, 1],
             "class_weight": None,
-            "batch_size": BATCH,
+            "batch_size": batch_size,
             "percent": [1.0, 0.0],
             "lr": 0.001,
             "index": None,
@@ -1714,6 +1736,18 @@ def per_pass(per_batch: dict, batches: int) -> dict:
 INDEX_ACCUMULATION = "indexing_backward_kernel"
 
 
+def nccl_kernels(on_card) -> dict:
+    """The NCCL kernels among the profiler's device events ``on_card``
+    (every item whose name holds "nccl"), by name: count and device ms."""
+    out: dict = {}
+    for e in on_card:
+        if "nccl" in e.name.lower():
+            k = out.setdefault(e.name[:80], {"count": 0, "device_ms": 0.0})
+            k["count"] += 1
+            k["device_ms"] += e.device_time / 1e3
+    return out
+
+
 def profile_pass(run, loader, kernel_bounds) -> dict:
     """Where one warm pass spends its time: the host's collation alone
     (``loader`` iterated without the model), then ``run()`` under
@@ -1756,6 +1790,7 @@ def profile_pass(run, loader, kernel_bounds) -> dict:
         "index_accumulation_share_of_busy": accum_ms / busy_ms if busy_ms else 0.0,
         "annotation_ms_not_counted": sum(e.device_time for e in annotations) / 1e3,
         "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
+        "nccl_kernels": nccl_kernels(on_card),
     }
     for name, bound in kernel_bounds.items():
         ms = sum(v for k, v in by_name.items() if name in k)
@@ -1866,19 +1901,21 @@ def attention_bounds_per_batch(loader, training: bool) -> dict:
     return {"sorted_segment_sum": float(np.mean(k1)), "sorted_scatter_gather": float(np.mean(k2))}
 
 
+def dense_bound(b, backward: bool) -> float:
+    """K3's bound for the dense batch ``b``: conv1 at 32 columns, conv2 at
+    64, forward, and backward too when ``backward``."""
+    total = 0.0
+    for s, f, row, col in ((b.x.shape[1], 32, b.row, b.col),
+                           (b.pool0_mask.shape[1], 64, b.pe_row, b.pe_col)):
+        total += k3_bound_ms(s, f, row, col)
+        if backward:
+            total += k3_bound_ms(s, f, col, row)
+    return total
+
+
 def dense_bound_per_batch(loader, backward: bool) -> float:
-    """K3's bound per batch of ``loader``: conv1 at 32 columns, conv2 at 64,
-    forward, and backward too when ``backward``."""
-    bounds = []
-    for b, _ in loader:
-        total = 0.0
-        for s, f, row, col in ((b.x.shape[1], 32, b.row, b.col),
-                               (b.pool0_mask.shape[1], 64, b.pe_row, b.pe_col)):
-            total += k3_bound_ms(s, f, row, col)
-            if backward:
-                total += k3_bound_ms(s, f, col, row)
-        bounds.append(total)
-    return float(np.mean(bounds))
+    """K3's bound per batch of ``loader`` (:func:`dense_bound`)."""
+    return float(np.mean([dense_bound(b, backward) for b, _ in loader]))
 
 
 def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_batch: dict,
@@ -2249,16 +2286,16 @@ def store_k3_check(dataset, seed: int, tmp: str, dense_parity: list) -> dict:
             "graphs": len(nn.train_loader.dataset)}
 
 
-def chunk_budget(dataset, batches: int) -> int:
+def chunk_budget(dataset, batches: int, batch: int = BATCH) -> int:
     """A ``device_cache_bytes`` whose chunks hold ``batches`` batches of
-    ``BATCH`` graphs (the operator path's store, the larger one)."""
+    ``batch`` graphs (the operator path's store, the larger one)."""
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
     from deeprank_gnn_tpu_torch.data.device_store import estimate_store_bytes
 
     nf, ef = dataset.feature_dims()
-    caps = GraphLoader(dataset, batch_size=BATCH, layout="dense")._dense_caps
+    caps = GraphLoader(dataset, batch_size=batch, layout="dense")._dense_caps
     per_slot = estimate_store_bytes(1, num_features=nf, num_edge_features=ef, **caps) // 2
-    return 2 * per_slot * (batches * BATCH + 1)
+    return 2 * per_slot * (batches * batch + 1)
 
 
 def chunked_check(dataset, ckpt: str, tmp: str, seed: int, store_pred) -> dict:
@@ -2382,17 +2419,18 @@ def store_phase(dataset, zoo, tmp: str, seed: int, dense_parity: list, served_de
 
 
 def scan_engine(dataset, seed: int, tmp: str, name: str, kdir: str, ops: bool = True,
-                percent=(0.8, 0.2), **kw):
-    """Paper-mode GINet on the device store at batch 128 from ``seed``;
-    ``ops=False`` gives it store loaders without the precomputed operators,
-    whose batches feed K3. ``kw``: ``scan_epochs``, ``dense_fast``,
-    ``mesh``, ``device_cache`` (default True) and ``device_cache_bytes``."""
+                percent=(0.8, 0.2), batch: int = BATCH, **kw):
+    """Paper-mode GINet on the device store at batch ``batch`` from
+    ``seed``; ``ops=False`` gives it store loaders without the precomputed
+    operators, whose batches feed K3. ``kw``: ``scan_epochs``,
+    ``dense_fast``, ``mesh``, ``device_cache`` (default True) and
+    ``device_cache_bytes``."""
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
     kw.setdefault("device_cache", True)
     nn = NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
-                   target="fnat", batch_size=BATCH, percent=list(percent), layout="dense",
+                   target="fnat", batch_size=batch, percent=list(percent), layout="dense",
                    seed=seed, device="cuda", executable_cache_dir=kdir,
                    outdir=os.path.join(tmp, f"scan_{name}"), **kw)
     if not ops:
@@ -2471,7 +2509,7 @@ def profile_run(run, patterns=()) -> dict:
     accum_ms = sum(e.device_time for e in on_card if INDEX_ACCUMULATION in e.name) / 1e3
     res = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": len(on_card),
-           "index_accumulation_ms": accum_ms}
+           "index_accumulation_ms": accum_ms, "nccl_kernels": nccl_kernels(on_card)}
     for pat in patterns:
         hits = [e for e in on_card if pat.lower() in e.name.lower()]
         res[f"trace[{pat}]"] = {"count": len(hits),
@@ -2760,11 +2798,18 @@ def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list,
 
 
 # ---------------------------------------------------------------------------
-# 11. multi-device: two gloo ranks on the one card, then an NCCL group of one
+# 11. multi-device: two gloo ranks on the one card, then an NCCL group of
+# one; with ``--cards 4``, four NCCL ranks, one a card
 
 MESH_GRAPHS = 512  # 4 batches of 128
 MESH_RANKS = 2
 MESH_TIMEOUT_S = 600
+# ``--cards 4``: 8 global batches of 512, so that each rank takes 128 graphs
+# a batch, the single card's batch: its kernels run at the shapes measured
+# on one card, and what differs is the collectives
+CARDS = 4
+CARDS_GRAPHS = 4096
+CARDS_BATCH = 512
 # per batch and rank: K1 runs 3 times per halo forward (the local and remote
 # sums of the fused towers, the pooled conv; its gradient is plain torch)
 # and 2 times per sparse graph-parallel forward; K3 2 times per dense
@@ -2774,27 +2819,90 @@ MESH_PATHS = {
     "dense_mesh": ("dense", {"fused_gin_conv": 2}, {"fused_gin_conv": 4}),
     "sparse_mesh": ("sparse", {"sorted_segment_sum": 2}, {"sorted_segment_sum": 2}),
 }
+SCAN_VARIANTS = ("epochs", "full", "chunked")
+
+
+def mesh_run(cards: bool) -> dict:
+    """What phase 11 runs: ``ranks`` processes over ``graphs`` graphs at a
+    global batch of ``batch``, in a gloo group whose ranks share cuda:0
+    (``nccl`` False), or in an NCCL group with rank ``r`` on cuda:r."""
+    if cards:
+        return {"ranks": CARDS, "graphs": CARDS_GRAPHS, "batch": CARDS_BATCH, "nccl": True}
+    return {"ranks": MESH_RANKS, "graphs": MESH_GRAPHS, "batch": BATCH, "nccl": False}
 
 
 def _no_nvcc():
     raise AssertionError("a mesh worker ran nvcc: it must load the kernels from the cache")
 
 
+@contextlib.contextmanager
+def rank_session(rank: int, store: str, kdir: str, run: dict):
+    """A spawned rank's work: a stack dump armed for a hang, fp32 numerics,
+    the kernels from ``kdir`` (running ``nvcc`` fails it), the run's group
+    over the ``file://`` ``store`` (NCCL with this rank on cuda:<rank>, or
+    gloo on cuda:0: NCCL refuses two ranks on one card, and gloo stages
+    CUDA tensors through the host), then the block, then the group left. A
+    failure prints its traceback and ends the process at once (exit code 1,
+    which ``spawn_ranks`` raises on): under NCCL a rank that raised would
+    otherwise wait in the group's teardown on peers that wait on it, and
+    its traceback would never print."""
+    import datetime
+
+    import torch
+
+    from deeprank_gnn_tpu_torch.device import set_fp32_numerics
+    from deeprank_gnn_tpu_torch.ops.kernels import build
+    from deeprank_gnn_tpu_torch.parallel import distributed
+    from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
+
+    # a rank still running near the spawn's limit prints every thread's
+    # stack and exits: a hang (a collective no peer joins) names its place
+    faulthandler.dump_traceback_later(MESH_TIMEOUT_S - 30, exit=True)
+    set_fp32_numerics()
+    build.nvcc = _no_nvcc
+    use_executable_cache(kdir)
+    timeout = datetime.timedelta(seconds=180)
+    if run["nccl"]:
+        distributed.initialize(f"file://{store}", run["ranks"], rank, device=f"cuda:{rank}",
+                               timeout=timeout)
+    else:
+        distributed.initialize(f"file://{store}", run["ranks"], rank, device="cuda:0",
+                               backend="gloo", timeout=timeout)
+    try:
+        yield
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    faulthandler.dump_traceback_later(120, exit=True)  # the teardown, bounded
+    distributed.shutdown()
+    torch.cuda.synchronize()
+    faulthandler.cancel_dump_traceback_later()
+
+
 def _mesh_of(path: str):
+    """The mesh of ``path`` over every rank of the group: the halo's 1-D
+    mesh, the dense graph-parallel ``(D, 1)`` mesh, or the sparse one on
+    JAX's default shape."""
+    from deeprank_gnn_tpu_torch.parallel.distributed import process_count
     from deeprank_gnn_tpu_torch.parallel.mesh import make_halo_mesh, make_mesh
 
     if path == "halo":
         return make_halo_mesh()
-    return make_mesh(dp=2, ep=1) if path == "dense_mesh" else make_mesh()
+    return make_mesh(dp=process_count(), ep=1) if path == "dense_mesh" else make_mesh()
 
 
 def _ranks_equal(model) -> bool:
     """Whether every rank holds bitwise this rank's parameters (gathered
-    straight through torch.distributed, outside the byte counter)."""
+    straight through torch.distributed, outside the byte counter: on the
+    card under NCCL, through the host under gloo)."""
     import torch
     import torch.distributed as dist
 
-    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    if dist.get_backend() == "gloo":
+        flat = flat.cpu()
     parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, flat)
     return all(torch.equal(p, flat) for p in parts)
@@ -2826,45 +2934,89 @@ def mesh_epoch(nn, steps=None, check_ranks: bool = False):
     return losses, time.perf_counter() - t0
 
 
-def _train_engine(dataset, layout: str, seed: int, outdir: str, mesh=None):
+def _train_engine(dataset, layout: str, seed: int, outdir: str, mesh=None, batch: int = BATCH):
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
     return NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
-                     target="fnat", batch_size=BATCH, percent=[1.0, 0.0], seed=seed,
+                     target="fnat", batch_size=batch, percent=[1.0, 0.0], seed=seed,
                      layout=layout, mesh=mesh, device="cuda", outdir=outdir)
 
 
-def mesh_bounds(path: str, nn, loader, training: bool) -> dict:
-    """The hand kernel's bound per batch on this rank for ``loader``'s
-    batches as the mesh engine ``nn`` places them: K1 over the halo's local
-    and remote sums (32 columns) and its pooled conv (64), or over a sparse
-    range's two convs; K3 over a dense slice's two convs (and backward when
-    ``training``)."""
-    if path == "dense_mesh":
-        return {"fused_gin_conv": dense_bound_per_batch(loader, training)}
-    bounds = []
+@contextlib.contextmanager
+def no_dropout():
+    """Paper-mode GINet with dropout off inside the block."""
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    rate = GINet.dropout_rate
+    GINet.dropout_rate = 0.0
+    try:
+        yield
+    finally:
+        GINet.dropout_rate = rate
+
+
+def halo_step_bytes(d: int, h: int, c0: int, n_params: int, training: bool) -> dict:
+    """The collective bytes a rank issues in one halo step over ``d``
+    ranks: ``d * h * 32 * 4`` per boundary exchange each way (both
+    towers, 32 wide, in one exchange; ``h`` rows a peer), the pooled
+    combine's all-gather of ``c0 * 33 * 4`` and its backward of ``d`` times
+    that, one all-reduce of the gradients."""
+    plan = {"all_to_all/forward": d * h * 32 * 4, "all_gather/forward": c0 * 33 * 4}
+    if training:
+        plan.update({"all_to_all/backward": d * h * 32 * 4,
+                     "all_gather/backward": d * c0 * 33 * 4,
+                     "all_reduce/gradients": n_params * 4})
+    return plan
+
+
+def mesh_plan(path: str, nn, loader, training: bool) -> tuple:
+    """For ``loader``'s batches as the mesh engine ``nn`` places them on
+    this rank: the hand kernel's bound per batch (K1 over the halo's local
+    and remote sums, 32 columns, and its pooled conv, 64; or over a sparse
+    range's two convs; K3 over a dense slice's two convs, and backward when
+    ``training``), and the collective bytes of a pass over them (the halo's
+    steps, :func:`halo_step_bytes`; per graph-parallel batch the loss
+    terms, 8, this rank's predictions gathered, ``4 * ceil(G / D)``, and
+    when training every gradient)."""
+    import torch.distributed as dist
+
+    d = dist.get_world_size()
+    n_params = sum(p.numel() for p in nn.model.parameters())
+    bounds, nbytes = [], Counter()
     for batch, _ in loader:
         item = nn._shard(nn._map_targets_host(batch))
         if path == "halo":
             bounds.append(k1_bound_ms(int(item.loc_rowptr[-1]), item.nl, 32)
                           + k1_bound_ms(int(item.rem_rowptr[-1]), item.nl, 32)
                           + k1_bound_ms(int(item.pe_rowptr[-1]), item.num_clusters0, 64))
+            nbytes.update(halo_step_bytes(d, item.send_idx.shape[-1], item.num_clusters0,
+                                          n_params, training))
+            continue
+        b = item.batch
+        if path == "dense_mesh":
+            bounds.append(dense_bound(b, training))
         else:
-            b = item.batch
             bounds.append(k1_bound_ms(int(b.edge_rowptr[-1]), b.num_nodes, 32)
                           + k1_bound_ms(int(b.pe_rowptr[-1]), b.num_clusters0, 64))
-    return {"sorted_segment_sum": float(np.mean(bounds))}
+        nbytes.update({"all_gather/loss": 8, "all_gather/outputs": -(-item.num_graphs // d) * 4})
+        if training:
+            nbytes["all_reduce/gradients"] += n_params * 4
+    kernel = "fused_gin_conv" if path == "dense_mesh" else "sorted_segment_sum"
+    return {kernel: float(np.mean(bounds))}, dict(nbytes)
 
 
-def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> dict:
-    """One mesh path on this rank: served from ``ckpt`` against the
-    single-process card run (``ref``), K1/K3 launches per batch, then
-    trained: the first 4 Adam steps with dropout off against the
-    single-process card run, and with dropout on the engine's training
-    pass twice from one seed, bitwise equal, the ranks bitwise equal after
-    each epoch, and once a step at a time, the ranks bitwise equal after
-    every step."""
+def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict, run: dict) -> dict:
+    """One mesh path on this rank at the run's global batch: served from
+    ``ckpt`` against the single-card run (``ref``), K1/K3 launches per
+    batch and the collective bytes against the plan (``mesh_plan``), then
+    trained: the first 4 Adam steps with dropout off against the single-card
+    run, and with dropout on the engine's training pass twice from one seed,
+    the ranks bitwise equal after each epoch, with its launches and
+    collective bytes; the two runs bitwise equal (under NCCL a difference is
+    recorded, which values and by how much), and once a step at a time, the
+    ranks bitwise equal after every step; then a warm epoch and a profiled
+    one."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
@@ -2873,7 +3025,7 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> 
     from deeprank_gnn_tpu_torch.parallel.distributed import process_index
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    rank = process_index()
+    rank, batch = process_index(), run["batch"]
     ref_layout, serve_per_batch, train_per_batch = MESH_PATHS[path]
     layout = "halo" if path == "halo" else ref_layout
     out = {}
@@ -2888,10 +3040,13 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> 
         pred, _om, _ys, loss, data = nn.eval(nn.test_loader)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = dict(LAUNCHES)
+        launches, nbytes = dict(LAUNCHES), collectives.collective_bytes()
         if launches != per_pass(serve_per_batch, batches):
             raise AssertionError(f"{path} serve: rank {rank} launched {launches} in {batches} "
                                  f"batches, want {serve_per_batch} per batch")
+    bounds, plan = mesh_plan(path, nn, nn.test_loader, False)
+    if nbytes != plan:
+        raise AssertionError(f"{path} serve: rank {rank} collective bytes {nbytes}, plan {plan}")
     want = np.array([ref["pred"][m] for m in data["mol"]])
     pred = np.asarray(pred, dtype=np.float64)
     if not np.isfinite(pred).all():
@@ -2900,19 +3055,14 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> 
     np.testing.assert_allclose(loss, ref["loss"], **TOL)
     out["serve"] = {"graphs": len(pred), "batches": batches, "walls": walls,
                     "graphs_per_s": [len(pred) / w for w in walls], "launches": launches,
-                    "max_abs": float(np.abs(pred - want).max()),
-                    "collective_bytes": collectives.collective_bytes(),
+                    "max_abs": float(np.abs(pred - want).max()), "collective_bytes": nbytes,
                     "where": profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader,
-                                          mesh_bounds(path, nn, nn.test_loader, False))}
+                                          bounds)}
 
-    rate = GINet.dropout_rate
-    GINet.dropout_rate = 0.0
-    try:
+    with no_dropout():
         parity, _ = mesh_epoch(_train_engine(dataset, layout, seed,
                                              os.path.join(tmp, f"{path}_p{rank}"),
-                                             _mesh_of(path)), PARITY_STEPS)
-    finally:
-        GINet.dropout_rate = rate
+                                             _mesh_of(path), batch), PARITY_STEPS)
     np.testing.assert_allclose(parity, ref["parity"], **TOL)
 
     # the main path: the engine's training pass, dropout on (counts and
@@ -2937,11 +3087,15 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> 
         return all(torch.equal(v, pb[k]) for k, v in pa.items())
 
     engines = [_train_engine(dataset, layout, seed, os.path.join(tmp, f"{path}_{name}{rank}"),
-                             _mesh_of(path)) for name in ("a", "b")]
+                             _mesh_of(path), batch) for name in ("a", "b")]
     (la, wa, launches, nbytes), (lb, _wb, _lcb, _nb) = [epoch(nn) for nn in engines]
     pa, pb = params(engines[0]), params(engines[1])
-    if la != lb or not same(pa, pb):
-        raise AssertionError(f"{path} train: two runs from one seed differ: {la} {lb}")
+    repeat = {"bitwise": la == lb and same(pa, pb)}
+    if not repeat["bitwise"]:
+        repeat.update(losses=[la, lb], params_max_abs={
+            k: float((v - pb[k]).abs().max()) for k, v in pa.items() if not torch.equal(v, pb[k])})
+        if not run["nccl"]:
+            raise AssertionError(f"{path} train: two runs from one seed differ: {repeat}")
     nn = engines[1]
     batches = len(nn.train_loader)
     if launches != per_pass(train_per_batch, batches) or not np.isfinite(la):
@@ -2950,67 +3104,68 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict) -> 
     # the same epoch a step at a time: the ranks' parameters equal after
     # every step, and losses and parameters bitwise the engine pass's
     c = _train_engine(dataset, layout, seed, os.path.join(tmp, f"{path}_c{rank}"),
-                      _mesh_of(path))
+                      _mesh_of(path), batch)
     steps, _ = mesh_epoch(c, check_ranks=True)
-    if sum(steps) != la or not same(params(c), pa):
+    if repeat["bitwise"] and (sum(steps) != la or not same(params(c), pa)):
         raise AssertionError(f"{path} train: step by step {steps}, engine pass {la}")
-    # run b's second epoch (warm), then a third under the profiler
+    # the bytes of the epoch against the plan (the halo's per batch depend
+    # on the shuffled batches: its steps are held to the plan in
+    # ``halo_bytes_check``, its gradients here); then run b's second epoch
+    # (warm), and a third under the profiler
+    bounds, plan = mesh_plan(path, nn, nn.train_loader, True)
+    if path == "halo":
+        plan = {k: v if k == "all_reduce/gradients" else nbytes.get(k) for k, v in plan.items()}
+    if nbytes != plan:
+        raise AssertionError(f"{path} train: rank {rank} collective bytes {nbytes}, plan {plan}")
     graphs = len(nn.train_loader.dataset)
     warm = epoch(nn)[1]
     where = profile_pass(lambda: nn._run_pass(nn.train_loader, training=True), nn.train_loader,
-                         mesh_bounds(path, nn, nn.train_loader, True))
+                         bounds)
     out["train"] = {"graphs": graphs, "batches": batches, "parity_losses": parity,
                     "parity_max_abs": float(np.abs(np.subtract(parity, ref["parity"])).max()),
                     "epoch_loss": la, "step_losses": steps, "walls": [wa, warm],
                     "graphs_per_s": [graphs / wa, graphs / warm], "launches": launches,
-                    "collective_bytes": nbytes, "where": where}
+                    "collective_bytes": nbytes, "run_to_run": repeat, "where": where}
     return out
 
 
-def halo_bytes_check(dataset, seed: int, tmp: str) -> dict:
-    """One halo training step's collective bytes against its plan: ``D *
-    H * 32 * 4`` per boundary exchange each way (both towers, 32 wide, in
-    one exchange), the pooled combine's all-gather of ``C0 * 33 * 4`` and
-    its backward of ``D`` times that, one all-reduce of the gradients; the
-    exchange below an all-gather of the ``[Nl, 32]`` node array (forward
-    and backward) at the same batch."""
+def halo_bytes_check(dataset, seed: int, tmp: str, batch: int) -> dict:
+    """One halo training step's collective bytes over the group's ``D``
+    ranks against its plan (:func:`halo_step_bytes`), the exchange below an
+    all-gather of the ``[Nl, 32]`` node array (forward and backward) at the
+    same batch."""
+    import torch.distributed as dist
+
     from deeprank_gnn_tpu_torch.parallel import collectives, halo
 
-    nn = _train_engine(dataset, "halo", seed, os.path.join(tmp, "bytes"), _mesh_of("halo"))
-    batch, _ = next(iter(nn.train_loader))
-    plan = halo.partition_batch(nn._map_targets_host(batch), MESH_RANKS)
-    d, h, nl, c0 = MESH_RANKS, plan.send_idx.shape[-1], plan.nl, plan.num_clusters0
+    nn = _train_engine(dataset, "halo", seed, os.path.join(tmp, f"bytes{dist.get_rank()}"),
+                       _mesh_of("halo"), batch)
+    first, _ = next(iter(nn.train_loader))
+    d = dist.get_world_size()
+    plan = halo.partition_batch(nn._map_targets_host(first), d)
+    h, nl, c0 = plan.send_idx.shape[-1], plan.nl, plan.num_clusters0
     n_params = sum(p.numel() for p in nn.model.parameters())
     item = halo.shard_halo_batch(plan, nn._mesh_steps.mesh).to(nn.device)
     collectives.reset_collective_bytes()
     nn._mesh_steps.train(item, nn._dropout_generator)
     counted = collectives.collective_bytes()
-    want = {"all_to_all/forward": d * h * 32 * 4, "all_to_all/backward": d * h * 32 * 4,
-            "all_gather/forward": c0 * 33 * 4, "all_gather/backward": d * c0 * 33 * 4,
-            "all_reduce/gradients": n_params * 4}
+    want = halo_step_bytes(d, h, c0, n_params, True)
     node_gather = nl * 32 * 4 + d * nl * 32 * 4
     if counted != want or not counted["all_to_all/forward"] * 2 < node_gather:
         raise AssertionError(f"halo bytes: counted {counted}, plan {want}, node all-gather "
                              f"{node_gather}")
-    return {"counted": counted, "H": h, "Nl": nl, "C0": c0, "node_all_gather_bytes": node_gather}
+    return {"ranks": d, "counted": counted, "H": h, "Nl": nl, "C0": c0,
+            "node_all_gather_bytes": node_gather}
 
 
-def _dense_mesh():
-    """The dense graph-parallel mesh over every rank of the group."""
-    import torch.distributed as dist
-
-    from deeprank_gnn_tpu_torch.parallel.mesh import make_mesh
-
-    return make_mesh(dp=dist.get_world_size(), ep=1)
-
-
-def scan_bytes_plan(batches: int, ranks: int, params: int, training: bool) -> dict:
+def scan_bytes_plan(batches: int, ranks: int, params: int, training: bool,
+                    batch: int = BATCH) -> dict:
     """The collective bytes a rank issues in a scanned mesh pass over
-    ``batches`` batches of ``BATCH`` graphs (those of the looped pass):
+    ``batches`` batches of ``batch`` graphs (those of the looped pass):
     the normalizers and the numerators of the losses, 4 bytes a batch
-    each; the predictions gathered, this rank's ``BATCH / ranks`` a batch;
+    each; the predictions gathered, this rank's ``batch / ranks`` a batch;
     when training, every gradient once a step."""
-    plan = {"all_reduce/loss": 8 * batches, "all_gather/outputs": batches * BATCH // ranks * 4}
+    plan = {"all_gather/loss": 8 * batches, "all_gather/outputs": batches * batch // ranks * 4}
     if training:
         plan["all_reduce/gradients"] = batches * params * 4
     return plan
@@ -3025,23 +3180,26 @@ def same_training(label: str, looped, scanned, world: int) -> None:
 
 
 def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bool,
-                    variant: str = "epochs", epochs: int = 3) -> dict:
+                    variant: str = "epochs", epochs: int = 3, batch: int = BATCH) -> dict:
     """Scanned dense mesh epochs on this rank beside the looped mesh engine
     from one seed, dropout on, on the mesh of every rank of the group
-    (``percent=[1.0, 0.0]``; ``ops=False``: store batches without the
-    operators, K3 inside the graphs). ``variant``: ``"epochs"``
-    (``scan_epochs=True``: ``epochs`` training passes and a scanned serving
-    pass over the training store), ``"full"`` (``_train_full_scan`` over
-    ``epochs``, ``save_model="best"``) or ``"chunked"`` (the chunked store,
-    a batch a chunk, ``scan_epochs=True``; its looped engine is built
-    scanned and switched to the loop, since a mesh refuses the chunked
-    store without scanned epochs). Losses, predictions, parameters, Adam
-    state and the generator's state bitwise the looped run's, and the ranks'
-    parameters equal; the hand-kernel launches and the collective bytes
-    that ran (captures times replays, plus what the host issued) equal the
-    looped run's and the plan (``scan_bytes_plan``); a profiled scanned
-    epoch traces K3 as often as the counts say; whether the gradient
-    all-reduce ran inside a captured graph."""
+    (``percent=[1.0, 0.0]``, global batch ``batch``; ``ops=False``: store
+    batches without the operators, K3 inside the graphs). ``variant``:
+    ``"epochs"`` (``scan_epochs=True``: ``epochs`` training passes and a
+    scanned serving pass over the training store), ``"full"``
+    (``_train_full_scan`` over ``epochs``, ``save_model="best"``) or
+    ``"chunked"`` (the chunked store, a batch a chunk, ``scan_epochs=True``;
+    its looped engine is built scanned and switched to the loop, since a
+    mesh refuses the chunked store without scanned epochs). Losses,
+    predictions, parameters, Adam state and the generator's state bitwise
+    the looped run's, and the ranks' parameters equal; the hand-kernel
+    launches and the collective bytes that ran (captures times replays,
+    plus what the host issued) equal the looped run's and the plan
+    (``scan_bytes_plan``); the replays per epoch equal the plan (one eager
+    warm-up step per set of store buffers in the first epoch, then a replay
+    per step, two under gloo); a profiled scanned epoch traces K3 as often
+    as the counts say; whether the gradient all-reduce ran inside a
+    captured graph."""
     import torch
     import torch.distributed as dist
 
@@ -3050,12 +3208,12 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
     rank, world = process_index(), dist.get_world_size()
     kw = {}
     if variant == "chunked":
-        kw = dict(device_cache="chunked", device_cache_bytes=chunk_budget(dataset, 1))
+        kw = dict(device_cache="chunked", device_cache_bytes=chunk_budget(dataset, 1, batch))
     scan = "full" if variant == "full" else True
 
     def engine(name, scanned):
         nn = scan_engine(dataset, seed, tmp, f"mesh_{label}_{name}{rank}", kdir, ops,
-                         percent=(1.0, 0.0), mesh=_dense_mesh(),
+                         percent=(1.0, 0.0), batch=batch, mesh=_mesh_of("dense_mesh"),
                          scan_epochs=scan if scanned or variant == "chunked" else False, **kw)
         if not scanned:
             nn.scan_epochs = False
@@ -3066,13 +3224,22 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
     lt = [run_pass(looped, True) for _ in range(epochs)]
     batches = lt[0]["batches"]
     k3 = {} if ops else {"fused_gin_conv": 4 * batches}
-    plan = scan_bytes_plan(batches, world, params, True)
+    plan = scan_bytes_plan(batches, world, params, True, batch)
     if any(t["ran"] != k3 or t["bytes"] != plan for t in lt):
         raise AssertionError(f"mesh scan {label}: looped ran {[t['ran'] for t in lt]}, bytes "
                              f"{[t['bytes'] for t in lt]}; want {k3} {plan}")
     res = {"variant": variant, "ops": ops, "ranks": world, "batches": batches,
            "graphs": lt[0]["graphs"], "looped_walls": [t["wall"] for t in lt],
            "looped_bytes": [t["bytes"] for t in lt]}
+    per_step = 1 if scanned._scan.split is None else 2
+
+    def warm_steps():
+        """The first epoch's eager steps: one per set of store buffers
+        (two for the chunked store's chunks in turn), read once the
+        scanned engine's store is built."""
+        cs = scanned.train_loader._chunk_store
+        return 1 if cs is None else min(2, cs.num_chunks)
+
     if variant == "full":
         from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
         from deeprank_gnn_tpu_torch.parallel import collectives
@@ -3100,9 +3267,10 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
                                  f"{[t['loss'] for t in lt]}")
         want_ran = {k: v * epochs for k, v in k3.items()}
         want_bytes = {k: v * epochs for k, v in plan.items()}
-        if ran != want_ran or nbytes != want_bytes:
-            raise AssertionError(f"mesh scan {label}: ran {ran} bytes {nbytes}, want "
-                                 f"{want_ran} {want_bytes}")
+        if ran != want_ran or nbytes != want_bytes or replays != per_step * (
+                epochs * batches - warm_steps()):
+            raise AssertionError(f"mesh scan {label}: ran {ran} bytes {nbytes} replays "
+                                 f"{replays}, want {want_ran} {want_bytes}")
         res.update(losses=list(scanned.train_loss), wall=wall, replays=replays, ran=ran,
                    bytes=nbytes)
         best = int(np.argmin(scanned.train_loss)) + 1
@@ -3111,11 +3279,12 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
             raise AssertionError(f"mesh scan {label}: checkpoints {ckpts}, best epoch {best}")
         same_training(label, looped, scanned, world)
         # a second call (warm: every graph captured) goes on training
-        warm, warm_ran, warm_bytes, warm_replays = call()
-        if warm_ran != want_ran or warm_bytes != want_bytes or warm_replays != epochs * batches:
+        warm_wall, warm_ran, warm_bytes, warm_replays = call()
+        if warm_ran != want_ran or warm_bytes != want_bytes or (
+                warm_replays != per_step * epochs * batches):
             raise AssertionError(f"mesh scan {label}: warm call ran {warm_ran} {warm_bytes}, "
                                  f"{warm_replays} replays")
-        res.update(graphs_per_s=[epochs * res["graphs"] / w for w in (wall, warm)],
+        res.update(graphs_per_s=[epochs * res["graphs"] / w for w in (wall, warm_wall)],
                    warm_replays=warm_replays,
                    host_ms_per_batch=1e3 * scanned._scan.last_issue_s / batches)
     else:
@@ -3131,8 +3300,12 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
         if any(t["ran"] != k3 or t["bytes"] != plan for t in st[:epochs]):
             raise AssertionError(f"mesh scan {label}: ran {[t['ran'] for t in st]}, bytes "
                                  f"{[t['bytes'] for t in st]}; want {k3} {plan}")
-        if st[-1]["bytes"] != scan_bytes_plan(batches, world, params, False):
+        if st[-1]["bytes"] != scan_bytes_plan(batches, world, params, False, batch):
             raise AssertionError(f"mesh scan {label}: serving bytes {st[-1]['bytes']}")
+        replays, warm = [t["replays"] for t in st[:epochs]], warm_steps()
+        if replays != [per_step * (batches - warm)] + [per_step * batches] * (epochs - 1):
+            raise AssertionError(f"mesh scan {label}: replays per epoch {replays}, {batches} "
+                                 f"batches, {warm} warm-up steps, {per_step} a step")
         same_training(label, looped, scanned, world)
         # one more scanned epoch, profiled (the engines part here)
         prof = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
@@ -3145,10 +3318,12 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
                    graphs_per_s=[t["graphs"] / t["wall"] for t in st[:epochs]],
                    looped_graphs_per_s=[t["graphs"] / t["wall"] for t in lt[:epochs]],
                    host_ms_per_batch=[1e3 * t["issue_s"] / batches for t in st[:epochs]],
-                   replays_per_epoch=[t["replays"] for t in st[:epochs]],
-                   ran_per_epoch=[t["ran"] for t in st[:epochs]],
+                   replays_per_epoch=replays, ran_per_epoch=[t["ran"] for t in st[:epochs]],
                    bytes_per_epoch=[t["bytes"] for t in st[:epochs]], profile=prof,
                    trace_k3=traced)
+    cs = scanned.train_loader._chunk_store
+    if cs is not None:
+        res["chunks"] = cs.num_chunks
     stats = scanned._scan.graph_stats()
     res["graph_parts"] = sorted({(st["part"], st["training"]) for st in stats})
     res["all_reduce_captured"] = any(st["collective_bytes"].get("all_reduce/gradients")
@@ -3158,73 +3333,81 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
     return res
 
 
-def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str) -> None:
-    """A spawned rank of phase 11: joins the gloo group over ``store`` on
-    cuda:0, loads the kernels from ``kdir`` (running ``nvcc`` fails it),
-    computes the single-process card references, runs every mesh path and
-    writes its results to ``results/rank<r>.json``."""
-    import datetime
+def mesh_refs(dataset, ckpt: str, tmp: str, seed: int, kdir: str, batch: int) -> dict:
+    """The single-card references of the mesh paths, in this process on
+    cuda:0 at the mesh's global batch ``batch`` (``ckpt`` holds it): per
+    layout the predictions served from ``ckpt`` by molecule and their loss,
+    and the first ``PARITY_STEPS`` losses with dropout off; per store path
+    (the operators, K3) a scanned run's three training losses and its
+    scanned serving pass's predictions."""
+    from deeprank_gnn_tpu_torch.models import GINet
 
+    mols = [g.mol for g in dataset.graphs]  # the test loader keeps the dataset's order
+    refs = {}
+    for layout in ("sparse", "dense"):
+        _nn, pred, loss, _w, _l = serve(dataset, ckpt, "cuda",
+                                        os.path.join(tmp, f"mref_{layout}"), 1, layout, GINet)
+        with no_dropout():
+            parity = first_steps(_train_engine(dataset, layout, seed,
+                                               os.path.join(tmp, f"mref_train_{layout}"),
+                                               batch=batch), PARITY_STEPS)
+        refs[layout] = {"pred": dict(zip(mols, pred.tolist())), "loss": loss, "parity": parity}
+    for ops, label in ((True, "scan_operators"), (False, "scan_k3")):
+        single = scan_engine(dataset, seed, tmp, f"single_{label}", kdir, ops,
+                             percent=(1.0, 0.0), batch=batch, scan_epochs=True)
+        sp = [run_pass(single, True) for _ in range(3)]
+        sp.append(run_pass(single, False, single.train_loader))
+        refs[label] = {"losses": [p["loss"] for p in sp[:3]],
+                       "pred": np.asarray(sp[-1]["out"], dtype=np.float64).tolist()}
+    return refs
+
+
+def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str,
+                run: dict) -> None:
+    """A spawned rank of phase 11 (``rank_session``): every mesh path
+    against the single-card references that the parent wrote to
+    ``run["refs"]``, the halo step's bytes, then the scanned mesh epochs
+    (under gloo: ``scan_epochs=True`` on both store paths; under NCCL every
+    variant of ``SCAN_VARIANTS`` on both, each with the all-reduce captured
+    in the step's graph), the ``"epochs"`` runs against the single card's
+    scanned runs at ``TOL``. Writes its results to ``results/rank<r>.json``."""
     import torch
 
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
-    from deeprank_gnn_tpu_torch.device import set_fp32_numerics
-    from deeprank_gnn_tpu_torch.models import GINet
-    from deeprank_gnn_tpu_torch.ops.kernels import build
-    from deeprank_gnn_tpu_torch.parallel import distributed
-    from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
 
-    set_fp32_numerics()
-    build.nvcc = _no_nvcc
-    use_executable_cache(kdir)
     t0 = time.perf_counter()
-    distributed.initialize(f"file://{store}", MESH_RANKS, rank, device="cuda:0",
-                           backend="gloo", timeout=datetime.timedelta(seconds=180))
-    try:
-        dataset = GraphListDataSet(build_graphs(seed, MESH_GRAPHS))
-        ckpt = os.path.join(tmp, "ginet_fold6_fnat.pth.tar")
-        out = {"start_s": time.perf_counter() - t0}
-        refs = {}
-        for ref_layout in ("sparse", "dense"):
-            nn, pred, loss, _w, _l = serve(dataset, ckpt, "cuda",
-                                           os.path.join(tmp, f"mref_{ref_layout}{rank}"), 1,
-                                           ref_layout, GINet)
-            rate = GINet.dropout_rate
-            GINet.dropout_rate = 0.0
-            try:
-                parity = first_steps(_train_engine(dataset, ref_layout, seed, os.path.join(
-                    tmp, f"mref_train_{ref_layout}{rank}")), PARITY_STEPS)
-            finally:
-                GINet.dropout_rate = rate
-            # the test loader keeps the dataset's order
-            mols = [g.mol for g in dataset.graphs]
-            refs[ref_layout] = {"pred": dict(zip(mols, pred)), "loss": loss, "parity": parity}
+    with rank_session(rank, store, kdir, run):
+        dataset = GraphListDataSet(build_graphs(seed, run["graphs"]))
+        with open(run["refs"]) as fh:
+            refs = json.load(fh)
+        out = {"start_s": time.perf_counter() - t0, "device": str(torch.cuda.current_device())}
         for path, (ref_layout, _s, _t) in MESH_PATHS.items():
             t1 = time.perf_counter()
-            out[path] = mesh_path(path, dataset, ckpt, tmp, seed, refs[ref_layout])
+            out[path] = mesh_path(path, dataset, run["ckpt"], tmp, seed, refs[ref_layout], run)
             out[path]["phase_s"] = time.perf_counter() - t1
-        out["halo_bytes"] = halo_bytes_check(dataset, seed, tmp)
-        for ops, label in ((True, "scan_operators"), (False, "scan_k3")):
-            t1 = time.perf_counter()
-            res = mesh_scan_check(label, dataset, seed, tmp, kdir, ops)
-            # the single-process scanned run from the same seed
-            single = scan_engine(dataset, seed, tmp, f"single_{label}{rank}", kdir, ops,
-                                 percent=(1.0, 0.0), scan_epochs=True)
-            sp = [run_pass(single, True) for _ in range(3)]
-            sp.append(run_pass(single, False, single.train_loader))
-            np.testing.assert_allclose(res["losses"], [p["loss"] for p in sp[:3]], **TOL)
-            np.testing.assert_allclose(res["pred"], sp[-1]["out"], **TOL)
-            res["single_process_losses"] = [p["loss"] for p in sp[:3]]
-            res["single_process_max_abs"] = float(np.abs(np.subtract(res["pred"],
-                                                                     sp[-1]["out"])).max())
-            res["phase_s"] = time.perf_counter() - t1
-            out[label] = res
+        out["halo_bytes"] = halo_bytes_check(dataset, seed, tmp, run["batch"])
+        variants = SCAN_VARIANTS if run["nccl"] else ("epochs",)
+        for ops, kind in ((True, "operators"), (False, "k3")):
+            for variant in variants:
+                t1 = time.perf_counter()
+                label = f"scan_{kind}" if variant == "epochs" else f"scan_{variant}_{kind}"
+                res = mesh_scan_check(label, dataset, seed, tmp, kdir, ops, variant,
+                                      batch=run["batch"])
+                if run["nccl"] and not res["all_reduce_captured"]:
+                    raise AssertionError(f"nccl {label}: the all-reduce ran outside the "
+                                         f"graphs: {res['graph_parts']}")
+                if variant == "epochs":
+                    single = refs[f"scan_{kind}"]
+                    np.testing.assert_allclose(res["losses"], single["losses"], **TOL)
+                    np.testing.assert_allclose(res["pred"], single["pred"], **TOL)
+                    res["single_card_losses"] = single["losses"]
+                    res["single_card_max_abs"] = float(np.abs(np.subtract(
+                        res["pred"], single["pred"])).max())
+                res["phase_s"] = time.perf_counter() - t1
+                out[label] = res
         out["worker_s"] = time.perf_counter() - t0
         with open(os.path.join(results, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
-    finally:
-        distributed.shutdown()
-        torch.cuda.synchronize()
 
 
 def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
@@ -3240,7 +3423,6 @@ def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
     import torch
 
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
-    from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.parallel import collectives, distributed
     from deeprank_gnn_tpu_torch.parallel.mesh import make_halo_mesh, make_mesh
 
@@ -3253,9 +3435,7 @@ def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
         dataset = GraphListDataSet(build_graphs(seed, BATCH))
         for label, layout, mesh in (("halo", "halo", make_halo_mesh()),
                                     ("dense_mesh", "dense", make_mesh())):
-            rate = GINet.dropout_rate
-            GINet.dropout_rate = 0.0
-            try:
+            with no_dropout():
                 ref = first_steps(_train_engine(dataset, "dense" if layout == "dense" else "sparse",
                                                 seed, os.path.join(tmp, f"nccl_ref_{label}")), 1)
                 nn = _train_engine(dataset, layout, seed, os.path.join(tmp, f"nccl_{label}"),
@@ -3266,15 +3446,13 @@ def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
                 loss = nn._run_pass(nn.train_loader, training=True)[3]
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            finally:
-                GINet.dropout_rate = rate
             np.testing.assert_allclose([loss], ref, **TOL)
             out[label] = {"loss": loss, "single_process_loss": ref[0], "wall_s": wall,
                           "collective_bytes": collectives.collective_bytes()}
         if not out["halo"]["collective_bytes"].get("all_to_all/backward"):
             raise AssertionError(f"nccl: the halo step issued no all-to-all: {out}")
         dataset = GraphListDataSet(build_graphs(seed, MESH_GRAPHS))
-        for variant in ("epochs", "full", "chunked"):
+        for variant in SCAN_VARIANTS:
             t0 = time.perf_counter()
             res = mesh_scan_check(f"nccl_{variant}", dataset, seed, tmp, kdir, False, variant)
             res["phase_s"] = time.perf_counter() - t0
@@ -3287,9 +3465,9 @@ def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
     return out
 
 
-def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int) -> list:
-    """``MESH_RANKS`` spawned processes of ``worker(rank, store, kdir, tmp,
-    seed, results)``, each exit code checked (all killed after
+def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int, run: dict) -> list:
+    """``run["ranks"]`` spawned processes of ``worker(rank, store, kdir, tmp,
+    seed, results, run)``, each exit code checked (all killed after
     ``MESH_TIMEOUT_S``): each rank's results, the JSON it wrote to
     ``results/rank<r>.json``."""
     import torch.multiprocessing as mp
@@ -3298,8 +3476,8 @@ def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int) -> list:
     os.makedirs(results)
     t0 = time.perf_counter()
     ctx = mp.start_processes(worker, args=(os.path.join(tmp, f"{name}_store"), kdir, tmp, seed,
-                                           results),
-                             nprocs=MESH_RANKS, join=False, start_method="spawn")
+                                           results, run),
+                             nprocs=run["ranks"], join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > MESH_TIMEOUT_S:
@@ -3310,65 +3488,122 @@ def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int) -> list:
                 p.kill()
             p.join(10)
     codes = [p.exitcode for p in ctx.processes]
-    if codes != [0] * MESH_RANKS:
+    if codes != [0] * run["ranks"]:
         raise AssertionError(f"{name} workers exited {codes}")
     ranks = []
-    for r in range(MESH_RANKS):
+    for r in range(run["ranks"]):
         with open(os.path.join(results, f"rank{r}.json")) as fh:
             ranks.append(json.load(fh))
     return ranks
 
 
-def mesh_phase(tmp: str, kdir: str, seed: int) -> dict:
-    """Phase 11: two spawned gloo ranks on the card (``mesh_worker``), each
-    exit code checked, then the NCCL group of one in this process."""
+def single_card_rates(dataset, tmp: str, seed: int, kdir: str) -> dict:
+    """The single card's warm graphs/s at the single card's batch of 128,
+    beside which the four cards' rates stand (``--cards 4``): serving from
+    a seeded checkpoint and the engine's training pass in both layouts
+    (a cold pass, then a warm one), and the scanned K3 store epochs (three)."""
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    ckpt = os.path.join(tmp, "rates_ginet.pth.tar")
+    write_checkpoint(ckpt, seed)
+    out = {}
+    for layout in ("sparse", "dense"):
+        _nn, pred, _loss, walls, _l = serve(dataset, ckpt, "cuda",
+                                            os.path.join(tmp, f"rate_serve_{layout}"), 2,
+                                            layout, GINet)
+        out[f"serve_{layout}"] = [len(pred) / w for w in walls]
+        nn = _train_engine(dataset, layout, seed, os.path.join(tmp, f"rate_train_{layout}"))
+        out[f"train_{layout}"] = [p["graphs"] / p["wall"]
+                                  for p in (run_pass(nn, True), run_pass(nn, True))]
+    nn = scan_engine(dataset, seed, tmp, "rate_scan_k3", kdir, False, percent=(1.0, 0.0),
+                     scan_epochs=True)
+    out["scan_k3"] = [p["graphs"] / p["wall"] for p in (run_pass(nn, True) for _ in range(3))]
+    return out
+
+
+def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False) -> dict:
+    """Phase 11: the single-card references (``mesh_refs``), then the run's
+    spawned ranks (``mesh_worker``), each exit code checked; by default two
+    gloo ranks on the card and after them the NCCL group of one in this
+    process, with ``cards`` four NCCL ranks, one a card, beside the single
+    card's rates (``single_card_rates``)."""
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
 
     t0 = time.perf_counter()
-    ranks = spawn_ranks(mesh_worker, "mesh", tmp, kdir, seed)
-    spawn_s = time.perf_counter() - t0
+    run = mesh_run(cards)
+    dataset = GraphListDataSet(build_graphs(seed, run["graphs"]))
+    run["ckpt"] = os.path.join(tmp, "mesh_ginet.pth.tar")
+    write_checkpoint(run["ckpt"], seed, batch_size=run["batch"])
+    refs = mesh_refs(dataset, run["ckpt"], tmp, seed, kdir, run["batch"])
+    run["refs"] = os.path.join(tmp, "mesh_refs.json")
+    with open(run["refs"], "w") as fh:
+        json.dump(refs, fh)
+    rates = single_card_rates(dataset, tmp, seed, kdir) if cards else None
+    refs_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(mesh_worker, "mesh", tmp, kdir, seed, run)
+    spawn_s = time.perf_counter() - t1
+    how = (f"NCCL, {run['ranks']} ranks, one a card" if cards
+           else "gloo, CUDA tensors staged through the host")
     for r, res in enumerate(ranks):
         for path in MESH_PATHS:
             s, t = res[path]["serve"], res[path]["train"]
-            log(f"mesh {path} rank {r} (gloo, CUDA tensors staged through the host): serve "
+            log(f"mesh {path} rank {r} ({how}): serve "
                 f"{s['graphs']} graphs in {s['batches']} batches, graphs/s {s['graphs_per_s']} "
-                f"(cold, warm), launches {s['launches']}, max abs vs single process "
+                f"(cold, warm), launches {s['launches']}, max abs vs single card "
                 f"{s['max_abs']}, collective bytes {s['collective_bytes']}; train "
                 f"{t['graphs']} graphs in {t['batches']} batches, graphs/s {t['graphs_per_s']} "
                 f"(the engine's training pass: first epoch, warm epoch), epoch loss "
                 f"{t['epoch_loss']} (step by step {t['step_losses']}), launches "
                 f"{t['launches']}, first {PARITY_STEPS} "
-                f"losses {t['parity_losses']} (max abs vs single process "
-                f"{t['parity_max_abs']}), collective bytes {t['collective_bytes']}")
+                f"losses {t['parity_losses']} (max abs vs single card "
+                f"{t['parity_max_abs']}), collective bytes {t['collective_bytes']}, run to "
+                f"run {t['run_to_run']}")
             log(f"mesh {path} rank {r} serve breakdown " + json.dumps(s["where"]))
             log(f"mesh {path} rank {r} train breakdown " + json.dumps(t["where"]))
         log(f"mesh halo bytes rank {r}: " + json.dumps(res["halo_bytes"]))
-        log(f"mesh rank {r}: start {res['start_s']:.1f} s, worker {res['worker_s']:.1f} s")
+        log(f"mesh rank {r} on cuda:{res['device']}: start {res['start_s']:.1f} s, worker "
+            f"{res['worker_s']:.1f} s")
+    labels = [k for k in ranks[0] if k.startswith("scan_")]
     for r, res in enumerate(ranks):
-        for label in ("scan_operators", "scan_k3"):
+        for label in labels:
             sc = res[label]
             parts = [tuple(p) for p in sc["graph_parts"]]
-            if sc["all_reduce_captured"] or ("gradients", True) not in parts or (
-                    "update", True) not in parts:
-                raise AssertionError(f"mesh {label} rank {r}: gloo graphs {parts}, all-reduce "
-                                     f"captured {sc['all_reduce_captured']}")
-            log(f"mesh {label} rank {r} (gloo; each training step two graph replays around "
-                f"the host's all-reduce, all-reduce captured: {sc['all_reduce_captured']}): "
+            if cards:
+                ok = sc["all_reduce_captured"] and ("gradients", True) not in parts
+            else:
+                ok = (not sc["all_reduce_captured"] and ("gradients", True) in parts
+                      and ("update", True) in parts)
+            if not ok:
+                raise AssertionError(f"mesh {label} rank {r} ({how}): graphs {parts}, "
+                                     f"all-reduce captured {sc['all_reduce_captured']}")
+            steps = ("the all-reduce captured inside the step's graph" if cards else
+                     "each training step two graph replays around the host's all-reduce")
+            log(f"mesh {label} rank {r} ({how}; {steps}): "
                 + json.dumps({k: v for k, v in sc.items() if k not in ("pred", "profile")}))
-            log(f"mesh {label} rank {r} profiled scanned epoch " + json.dumps(sc["profile"]))
-    t1 = time.perf_counter()
-    nccl = nccl_group_check(tmp, seed, kdir)
-    for variant in ("epochs", "full", "chunked"):
-        sc = nccl[f"scan_{variant}"]
-        log(f"mesh nccl scan {variant} (NCCL group of one, K3 store path; all-reduce "
-            f"captured inside the step's graph: {sc['all_reduce_captured']}): "
-            + json.dumps({k: v for k, v in sc.items() if k not in ("pred", "profile")}))
-        if "profile" in sc:
-            log(f"mesh nccl scan {variant} profiled scanned epoch " + json.dumps(sc["profile"]))
-    log("mesh nccl group of one: " + json.dumps(
-        {k: v for k, v in nccl.items() if not k.startswith("scan_")}))
-    log(f"phase mesh: {time.perf_counter() - t0:.1f} s (spawned ranks {spawn_s:.1f} s, nccl "
-        f"{time.perf_counter() - t1:.1f} s)")
-    return {"ranks": ranks, "nccl": nccl}
+            if "profile" in sc:
+                log(f"mesh {label} rank {r} profiled scanned epoch " + json.dumps(sc["profile"]))
+    out = {"ranks": ranks, "run": run, "rates": rates}
+    if cards:
+        log("single card at batch 128, graphs/s (cold, warm; scanned: three epochs): "
+            + json.dumps(rates))
+    else:
+        t1 = time.perf_counter()
+        nccl = out["nccl"] = nccl_group_check(tmp, seed, kdir)
+        for variant in SCAN_VARIANTS:
+            sc = nccl[f"scan_{variant}"]
+            log(f"mesh nccl scan {variant} (NCCL group of one, K3 store path; all-reduce "
+                f"captured inside the step's graph: {sc['all_reduce_captured']}): "
+                + json.dumps({k: v for k, v in sc.items() if k not in ("pred", "profile")}))
+            if "profile" in sc:
+                log(f"mesh nccl scan {variant} profiled scanned epoch "
+                    + json.dumps(sc["profile"]))
+        log("mesh nccl group of one: " + json.dumps(
+            {k: v for k, v in nccl.items() if not k.startswith("scan_")}))
+        log(f"phase mesh nccl group of one: {time.perf_counter() - t1:.1f} s")
+    log(f"phase mesh: {time.perf_counter() - t0:.1f} s (single card {refs_s:.1f} s, spawned "
+        f"ranks {spawn_s:.1f} s)")
+    return out
 
 
 FEATURIZE_MODELS = 32
@@ -3660,26 +3895,15 @@ def digest_engines(dataset, seed: int, tmp: str, kdir: str) -> dict:
     }
 
 
-def digest_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str) -> None:
-    """A spawned rank of the digests: the mesh paths' training epochs (the
-    halo layout, the dense and sparse meshes, and the scanned K3 store
-    epoch on the dense mesh) in a gloo group of ``MESH_RANKS`` on cuda:0."""
-    import datetime
-
-    import torch
-
+def digest_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str,
+                  run: dict) -> None:
+    """A spawned rank of the digests (``rank_session``): the mesh paths'
+    training epochs (the halo layout, the dense and sparse meshes, and the
+    scanned K3 store epoch on the dense mesh) in a gloo group of
+    ``MESH_RANKS`` on cuda:0."""
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
-    from deeprank_gnn_tpu_torch.device import set_fp32_numerics
-    from deeprank_gnn_tpu_torch.ops.kernels import build
-    from deeprank_gnn_tpu_torch.parallel import distributed
-    from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
 
-    set_fp32_numerics()
-    build.nvcc = _no_nvcc
-    use_executable_cache(kdir)
-    distributed.initialize(f"file://{store}", MESH_RANKS, rank, device="cuda:0",
-                           backend="gloo", timeout=datetime.timedelta(seconds=180))
-    try:
+    with rank_session(rank, store, kdir, run):
         dataset = GraphListDataSet(build_graphs(seed, DIGEST_GRAPHS))
         out = {}
         for path, (ref_layout, _s, _t) in MESH_PATHS.items():
@@ -3689,12 +3913,9 @@ def digest_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results
                 mesh=_mesh_of(path)))
         out["mesh_scan_k3"] = training_digest(scan_engine(
             dataset, seed, tmp, f"digest_mesh_scan_k3{rank}", kdir, False, percent=(1.0, 0.0),
-            scan_epochs=True, mesh=_dense_mesh()))
+            scan_epochs=True, mesh=_mesh_of("dense_mesh")))
         with open(os.path.join(results, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
-    finally:
-        distributed.shutdown()
-        torch.cuda.synchronize()
 
 
 def digest_phase(tmp: str, kdir: str, seed: int) -> dict:
@@ -3708,7 +3929,7 @@ def digest_phase(tmp: str, kdir: str, seed: int) -> dict:
     dataset = GraphListDataSet(build_graphs(seed, DIGEST_GRAPHS))
     res = {label: training_digest(make())
            for label, make in digest_engines(dataset, seed, tmp, kdir).items()}
-    ranks = spawn_ranks(digest_worker, "digest", tmp, kdir, seed)
+    ranks = spawn_ranks(digest_worker, "digest", tmp, kdir, seed, mesh_run(False))
     for label, d in ranks[0].items():
         # the ranks hold the same parameters and loss; each its own outputs
         if any(r[label]["params_sha256"] != d["params_sha256"] or r[label]["loss"] != d["loss"]
@@ -3722,7 +3943,6 @@ def digest_phase(tmp: str, kdir: str, seed: int) -> dict:
     return res
 
 
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3734,6 +3954,9 @@ def main(argv=None) -> int:
     ap.add_argument("--digests", action="store_true",
                     help="build the kernels and print only each training path's digests "
                          "(phase 14), to compare a checkout with another on one card")
+    ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                    help=f"{CARDS}: build the kernels and run only the mesh paths, one NCCL "
+                         f"rank a card on cuda:0-{CARDS - 1}, held against one card")
     args = ap.parse_args(argv)
 
     import torch
@@ -3741,8 +3964,94 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if torch.cuda.device_count() < args.cards:
+        raise RuntimeError(f"--cards {args.cards} needs {args.cards} CUDA devices, this machine "
+                           f"has {torch.cuda.device_count()}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kernels_") as kdir:
         return run(args, kdir)
+
+
+def cards_summary(mesh: dict) -> dict:
+    """The ``--cards`` run in numbers, per rank where they differ: each mesh
+    path's warm graphs/s (each rank's share of the graphs over its wall,
+    and every graph over the slowest rank's wall: the cards together),
+    device busy time and idle share, NCCL kernel time (and by name on rank
+    0), the hand kernel's time per batch beside its bound, launches and
+    collective bytes per batch, the two runs' agreement; each scanned run's
+    graphs/s, replays, idle share and NCCL time; the single card's rates."""
+    ranks, run = mesh["ranks"], mesh["run"]
+    out = {"ranks": run["ranks"], "graphs": run["graphs"], "global_batch": run["batch"],
+           "single_card_graphs_per_s_batch_128": mesh["rates"]}
+
+    def nccl_ms(where):
+        return sum(k["device_ms"] for k in where["nccl_kernels"].values())
+
+    for path in MESH_PATHS:
+        kernel = "fused_gin_conv" if path == "dense_mesh" else "sorted_segment_sum"
+        for kind in ("serve", "train"):
+            per = [r[path][kind] for r in ranks]
+            wheres = [p["where"] for p in per]
+            warm = [p["walls"][-1] for p in per]
+            cell = out[f"{path}_{kind}"] = {
+                "graphs_per_s_each_rank": [p["graphs"] / run["ranks"] / w
+                                           for p, w in zip(per, warm)],
+                "graphs_per_s_all_cards": per[0]["graphs"] / max(warm),
+                "device_busy_ms": [w["device_busy_ms"] for w in wheres],
+                "device_idle_share": [w["device_idle_share"] for w in wheres],
+                "nccl_ms": [nccl_ms(w) for w in wheres],
+                "nccl_kernels_rank0": wheres[0]["nccl_kernels"],
+                "kernel": kernel,
+                "kernel_ms_per_batch": [w[f"{kernel}_ms_per_batch"] for w in wheres],
+                "kernel_bound_ms_per_batch": [w[f"{kernel}_bound_ms_per_batch"] for w in wheres],
+                "launches_per_batch": [{k: v / p["batches"] for k, v in p["launches"].items()}
+                                       for p in per],
+                "collective_bytes_per_batch": [
+                    {k: v / p["batches"] for k, v in p["collective_bytes"].items()} for p in per],
+            }
+            if kind == "train":
+                cell["run_to_run"] = [p["run_to_run"] for p in per]
+    for label in (k for k in ranks[0] if k.startswith("scan_")):
+        per = [r[label] for r in ranks]
+        out[f"mesh_{label}"] = {
+            "graphs_per_s": [p["graphs_per_s"] for p in per],
+            "replays": [p.get("replays_per_epoch", p.get("replays")) for p in per],
+            "all_reduce_captured": [p["all_reduce_captured"] for p in per],
+            "device_idle_share": [p["profile"]["device_idle_share"] for p in per
+                                  if "profile" in p],
+            "nccl_ms": [nccl_ms(p["profile"]) for p in per if "profile" in p],
+            "bytes_per_epoch_rank0": per[0].get("bytes_per_epoch", per[0].get("bytes")),
+        }
+    return out
+
+
+def cards_run(args, kdir: str, kind: str, t_start: float) -> int:
+    """``--cards 4``: the cards' links (``nvidia-smi topo -m`` or ``nvlink
+    --status``, where the machine allows them, and the peer-access matrix) and NCCL's
+    version, then phase 11 on four NCCL ranks, one a card, beside the single
+    card on cuda:0 (``mesh_phase(cards=True)``); the last lines are its
+    numbers (``cards_summary``) and the ``{"ok": true, ...}`` line."""
+    import torch
+
+    # how the cards are linked, from what the machine lets a program read
+    # (a sandbox may refuse the topology query: its exit code is printed)
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status"]):
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        log(f"{' '.join(cmd)}: exit {out.returncode}")
+        for line in (out.stdout + out.stderr).rstrip().splitlines():
+            log(f"  {line}")
+    n = torch.cuda.device_count()
+    log("peer access (torch.cuda.can_device_access_peer, row to column): " + json.dumps(
+        [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n)]
+         for i in range(n)]))
+    log(f"NCCL {torch.cuda.nccl.version()}; NCCL variables set: "
+        + json.dumps({k: v for k, v in os.environ.items() if k.startswith("NCCL_")}))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        mesh = mesh_phase(tmp, kdir, args.seed, cards=True)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(f"{CARDS} cards " + json.dumps(cards_summary(mesh)))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
 
 
 # a second process that points the build at the same directory: it must
@@ -3781,11 +4090,13 @@ def run(args, kdir: str) -> int:
 
     t_start = time.perf_counter()
     # 1. device
-    smi = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    ).stdout.strip().splitlines()
+    for line in cards:
+        log(line)
+    smi = cards[0]
     set_fp32_numerics()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3817,6 +4128,8 @@ def run(args, kdir: str) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             digest_phase(tmp, kdir, args.seed)
         return 0
+    if args.cards == CARDS:
+        return cards_run(args, kdir, kind, t_start)
 
     # 3. kernels, at the shapes of the paths' first batches
     graphs = build_graphs(args.seed, max(args.graphs, args.zoo_graphs))

@@ -84,6 +84,10 @@ class PackedStore:
     layout: tuple
     ready: Optional[object] = None
 
+    @property
+    def num_slots(self) -> int:
+        return next(iter(self.segments.values())).shape[0]
+
 
 def static_field_kinds(
     *, ng: int, eg: int, pg: int, c0g: int, c1g: int, pack: str = "lossless"
@@ -357,6 +361,10 @@ class DeviceGraphStore:
         self.store = PackedStore(
             segments={s: m.to(self.device) for s, m in segments.items()}, layout=layout)
 
+    @property
+    def num_graphs(self) -> int:
+        return self.pad_slot
+
     def batch(self, indices: np.ndarray, g_pad: int) -> Tuple[DenseGraphBatch, List[str]]:
         """The batch of store slots ``indices``, gathered on the device."""
         idx = np.full(g_pad, self.pad_slot, dtype=np.int64)
@@ -461,6 +469,10 @@ class ChunkedGraphStore:
         self._copy_stream = None
 
     @property
+    def num_graphs(self) -> int:
+        return len(self.mols)
+
+    @property
     def num_chunks(self) -> int:
         return len(self._host_chunks)
 
@@ -532,7 +544,7 @@ class ChunkedGraphStore:
         if store.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(store.ready)
         batch = gather_packed(store, _index(idx, self.device))
-        gl = np.minimum(start + idx, len(self.mols) - 1)
+        gl = np.minimum(start + idx, self.num_graphs - 1)
         y = np.where(idx < clen, self.y_host[gl], 0.0).astype(np.float32)
         ym = (idx < clen) & self.y_mask_host[gl]
         batch = dataclasses.replace(batch, y=torch.from_numpy(y), y_mask=torch.from_numpy(ym))

@@ -8,9 +8,9 @@ one rank is one shard, where JAX has one device of a ``Mesh``.
 - ``mesh.py``: the ``(dp, ep)`` mesh of ranks and the graph-parallel
   placement of a batch (each rank a contiguous range of the graphs, in
   both layouts);
-- ``step.py``: the graph-parallel train and eval steps (global loss by one
-  all-reduce, gradients summed by one all-reduce), and the scanned mesh
-  step's parts;
+- ``step.py``: the graph-parallel train and eval steps (global loss
+  summed in rank order from one all-gather, gradients summed by one
+  all-reduce), and the scanned mesh step's parts;
 - ``halo.py``: the explicit halo-exchange edge-parallel layout
   (``layout="halo"``);
 - ``collectives.py``: the all-to-all, all-gather and all-reduce those

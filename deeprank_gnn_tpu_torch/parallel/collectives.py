@@ -11,7 +11,9 @@ their transpose:
 - :func:`all_gather` (``lax.all_gather``) -> ``[D, ...]`` in rank order;
   its transpose is a reduce-scatter: the ranks' cotangents summed, each
   rank keeping its own block;
-- :func:`all_reduce` (``lax.psum``, a sum); its transpose is itself.
+- :func:`all_reduce` (``lax.psum``, a sum); its transpose is itself;
+- :func:`sum_values`, a sum outside autograd whose order of addition is
+  the ranks' order whatever the tensor's length (the loss terms).
 
 The route follows the group's backend, never a caught failure. NCCL takes
 CUDA tensors as they are (the reduce-scatter is NCCL's). Gloo stages CUDA
@@ -190,3 +192,19 @@ def all_gather_values(x: torch.Tensor, group, role: str) -> torch.Tensor:
         return x[None]
     _count("all_gather", role, x)
     return _all_gather(x.detach(), group)
+
+
+def sum_values(x: torch.Tensor, group, role: str) -> torch.Tensor:
+    """The sum of every rank's ``x`` outside autograd, from one all-gather
+    (counted under ``role``) added in rank order: each element is
+    ``((x_0 + x_1) + x_2) + ...`` whatever the length of ``x`` and the
+    backend. An all-reduce's order of addition follows where the element
+    falls in its buffer's chunks, so over more than two ranks the sums of
+    one batch's terms and of a pass's batches at once would differ in
+    their last bits; these agree bitwise (the looped and the scanned mesh
+    pass, ``parallel/step.py``)."""
+    parts = all_gather_values(x, group, role)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out

@@ -23,12 +23,20 @@ card, which NCCL refuses); its collectives then stage through host copies
 ``cuda:(rank % torch.cuda.device_count())`` unless the caller names one.
 The group has a finite ``timeout``, so that a lost peer fails the run
 instead of hanging it.
+
+NCCL cannot finalize a communicator while a CUDA graph that captured its
+collectives is alive (its teardown waits for every such graph to be
+destroyed), and over more than one rank the scanned mesh epochs capture
+the gradient all-reduce (``train/scan.py``). So an owner of such graphs
+registers with :func:`hold_graphs`, and :func:`shutdown` releases their
+graphs before it destroys the group.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import weakref
 from typing import Optional
 
 import torch
@@ -40,6 +48,8 @@ DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 
 # this process's rank device, set by initialize()
 _rank_device: Optional[torch.device] = None
+# owners of CUDA graphs that captured collectives (hold_graphs)
+_graph_owners: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def _init_method(coordinator_address: str) -> str:
@@ -124,9 +134,22 @@ def rank_device(device=None) -> torch.device:
     return dev
 
 
+def hold_graphs(owner) -> None:
+    """Have :func:`shutdown` call ``owner.release_graphs()`` before it
+    destroys the group (``owner`` holds CUDA graphs that captured the
+    group's collectives; it is held weakly)."""
+    _graph_owners.add(owner)
+
+
 def shutdown() -> None:
-    """Leave the process group (no-op without one)."""
+    """Release the registered owners' CUDA graphs (:func:`hold_graphs`),
+    then leave the process group (no-op without one)."""
     global _rank_device
+    for owner in list(_graph_owners):
+        owner.release_graphs()
+    _graph_owners.clear()
     if is_initialized():
+        if _rank_device is not None and _rank_device.type == "cuda":
+            torch.cuda.synchronize(_rank_device)
         dist.destroy_process_group()
     _rank_device = None

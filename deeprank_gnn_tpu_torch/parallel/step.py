@@ -12,8 +12,9 @@ itself:
   trajectory as JAX's global ``jax.random`` draw does;
 - the global loss: this rank's masked sum over the global normalizer (the
   valid targets, or under class weights the weight sum of the valid
-  targets, as ``train/losses.py`` normalizes), both summed by one
-  all-reduce;
+  targets, as ``train/losses.py`` normalizes), both summed in rank order
+  from one all-gather (``collectives.sum_values``: the scanned pass sums
+  the same terms over all its batches at once, and gets the same bits);
 - backward, then the gradients summed by one all-reduce of all of them at
   once, then the optimizer step, identical on every rank;
 - the global predictions, gathered in rank order, so that every rank sees
@@ -27,7 +28,7 @@ in needing no gather of the predictions.
 For scanned epochs on a mesh (``train/scan.py``; JAX's sharded
 ``lax.scan``) it also gives the step in parts, so that the gradient
 all-reduce is the step's only collective, as in JAX: the loss normalizers
-of a pass's batches, summed by one all-reduce before its first step
+of a pass's batches, summed by one all-gather before its first step
 (:meth:`MeshSteps.scan_normalizers`); per step the forward and backward on
 this rank's graphs into one flat gradient buffer
 (:meth:`MeshSteps.scan_gradients`), its all-reduce
@@ -48,6 +49,7 @@ from deeprank_gnn_tpu_torch.parallel.collectives import (
     all_gather_values,
     all_reduce_values,
     group_size,
+    sum_values,
 )
 from deeprank_gnn_tpu_torch.parallel.mesh import Mesh, RankBatch
 
@@ -151,8 +153,7 @@ class MeshSteps:
         pred = self.model(local, generator, dropout_rows=(rb.num_graphs, rb.lo))
         num, den, p = loss_terms(self.task, pred, local.y, local.y_mask, self.class_weights,
                                  self.transform_sigmoid)
-        sums = all_reduce_values(torch.stack([num.detach(), den.detach()]), self.mesh.group,
-                                 "loss")
+        sums = sum_values(torch.stack([num.detach(), den.detach()]), self.mesh.group, "loss")
         norm = torch.clamp(sums[1], min=floor)
         return (num / norm, sums[0] / norm,
                 gather_columns(p.detach()[None], rb.num_graphs, self.mesh.group)[0])
@@ -185,10 +186,10 @@ class MeshSteps:
     def scan_normalizers(self, y: torch.Tensor, y_mask: torch.Tensor,
                          num_classes: int) -> torch.Tensor:
         """``[B]``: each batch's global normalizer, clamped, from this
-        rank's targets ``y [B, hi - lo]`` and ``y_mask``; one all-reduce."""
+        rank's targets ``y [B, hi - lo]`` and ``y_mask``; one all-gather."""
         local = torch.stack([loss_normalizer(self.task, y[i], y_mask[i], self.class_weights,
                                              num_classes) for i in range(y.shape[0])])
-        sums = all_reduce_values(local, self.mesh.group, "loss")
+        sums = sum_values(local, self.mesh.group, "loss")
         return torch.clamp(sums, min=normalizer_floor(self.task))
 
     def _scan_terms(self, rb: RankBatch, generator):
@@ -245,9 +246,9 @@ class MeshSteps:
     def scan_finish(self, nums: torch.Tensor, norms: torch.Tensor, preds: torch.Tensor,
                     num_graphs: int):
         """A scanned pass's global ``[B]`` losses and ``[B, num_graphs,
-        ...]`` predictions from this rank's numerators and predictions: one
-        all-reduce, one all-gather."""
-        sums = all_reduce_values(nums, self.mesh.group, "loss")
+        ...]`` predictions from this rank's numerators and predictions: two
+        all-gathers."""
+        sums = sum_values(nums, self.mesh.group, "loss")
         return sums / norms, gather_columns(preds, num_graphs, self.mesh.group)
 
 

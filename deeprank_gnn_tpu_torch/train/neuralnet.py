@@ -222,10 +222,11 @@ class NeuralNet:
         ``scan_epochs``, as in JAX. Each rank holds the whole store (or
         uploads each chunk whole) and steps over its columns of every
         batch's slots (``parallel.mesh.dense_local_slice``): before a
-        pass's first step one all-reduce sums every batch's loss
+        pass's first step one all-gather sums every batch's loss
         normalizer, the step's only collective is the gradient all-reduce,
-        and after the last step one all-reduce sums the loss numerators and
-        one all-gather collects the predictions, so every number is the
+        and after the last step one all-gather sums the loss numerators and
+        one collects the predictions (the sums in rank order, as the looped
+        step's, ``parallel.collectives.sum_values``), so every number is the
         looped mesh pass's. On a card the backend decides the capture:
         under NCCL a graph holds whole steps, the all-reduce included; under
         gloo, which stages CUDA tensors through the host, each training
@@ -762,7 +763,7 @@ class NeuralNet:
         """Before a scanned mesh pass over ``B`` batches whose slots'
         targets and masks are ``y_rows`` / ``mask_rows [B, batch_size]``
         (host): the buffers of this rank's losses and predictions, and the
-        batches' global loss normalizers (one all-reduce)."""
+        batches' global loss normalizers (one all-gather)."""
         cols = self._scan_cols
         y = torch.from_numpy(np.ascontiguousarray(y_rows[:, cols], dtype=np.float32))
         mask = torch.from_numpy(np.ascontiguousarray(mask_rows[:, cols], dtype=bool))
@@ -842,8 +843,7 @@ class NeuralNet:
             sets = []
             for _ in range(min(2, cs.num_chunks)):
                 buf = cs.empty_chunk()
-                rows = next(iter(buf.segments.values())).shape[0]
-                sets.append({"store": buf, "y": torch.zeros(rows, device=self.device),
+                sets.append({"store": buf, "y": torch.zeros(buf.num_slots, device=self.device),
                              "released": None})
             kept = (cs, sets)
             self._chunk_buffers[id(cs)] = kept
@@ -867,7 +867,7 @@ class NeuralNet:
         counts = [len(slots) for _, slots, _ in plan]
         # each slot's row of the dataset (a chunk's pad slot: its last
         # graph's) and whether it holds a target
-        grows = np.concatenate([np.minimum(cs.chunk_ranges[ci][0] + slots, len(cs.mols) - 1)
+        grows = np.concatenate([np.minimum(cs.chunk_ranges[ci][0] + slots, cs.num_graphs - 1)
                                 for ci, slots, _ in plan])
         valids = np.concatenate([slots < cs.chunk_ranges[ci][1] for ci, slots, _ in plan])
         valids &= y_mask[grows]

@@ -42,7 +42,10 @@ captures in the global mode); gloo stages CUDA tensors through the host,
 which no graph can hold, so the step runs split (``split``): a graph up to
 the flat gradients, the host's all-reduce, a graph of the update. Each
 graph records the collective bytes counted while it was captured, beside
-its launches.
+its launches. A graph that captured a collective keeps NCCL from
+finalizing its communicator, so :class:`EpochSteps` then registers with
+``parallel.distributed.hold_graphs`` and gives its graphs up
+(:meth:`EpochSteps.release_graphs`) when the process leaves the group.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ import torch
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 from deeprank_gnn_tpu_torch.data.device_store import PackedStore, gather_packed
 from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+from deeprank_gnn_tpu_torch.parallel import distributed
 from deeprank_gnn_tpu_torch.parallel.collectives import BYTES
 
 
@@ -244,6 +248,8 @@ class EpochSteps:
         launches, nbytes = Counter(LAUNCHES), Counter(BYTES)
         launches.subtract(launches_before)
         nbytes.subtract(bytes_before)
+        if +nbytes:
+            distributed.hold_graphs(self)
         return _Captured(graph=graph, steps=n, training=training, part=part, idx=idx,
                          aux=aux_buf, loss=loss, pred=pred, launches=+launches,
                          collective_bytes=+nbytes, inputs=inputs)
@@ -260,6 +266,14 @@ class EpochSteps:
     def reset_replays(self) -> None:
         for cap in self._graphs.values():
             cap.replays = 0
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph (a later run warms up and captures
+        anew): ``parallel.distributed.shutdown`` calls it before the
+        process group goes, since NCCL cannot finalize a communicator that
+        a live graph's collectives still reference."""
+        self._graphs.clear()
+        self._warm.clear()
 
 
 def _aux_at(aux, i: int) -> tuple:

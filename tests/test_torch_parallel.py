@@ -4,15 +4,21 @@
 The torch ranks are gloo processes (``tests/torch_mesh_worker.py``) over a
 ``file://`` store in ``tmp_path``; the JAX side runs in this process.
 
-- the graph-parallel dense mesh (``make_mesh(dp=2, ep=1)``) and sparse mesh
-  (``make_mesh()``, dp=1 x ep=2 by JAX's default): 3 Adam steps with
-  dropout off against JAX's single-device trajectory (losses at rtol 1e-5,
-  atol 1e-7, parameters at rtol 1e-4, atol 1e-6, ``tests/test_halo.py``'s
-  tolerances), both ranks' parameters bitwise equal;
-- ``NeuralNet(mesh=...)`` on 2 ranks (halo, sparse and dense layouts, dropout
-  on) trains, validates and tests like the single-process port;
+- on 2 and 4 ranks, the graph-parallel dense mesh (``make_mesh(dp=D,
+  ep=1)``) and sparse mesh (``make_mesh()``: dp=1 x ep=2 and dp=2 x ep=2 by
+  JAX's default): 3 Adam steps with dropout off against JAX's trajectory
+  (single-device for 2 ranks; for 4, JAX's sharded step on a mesh of 4 of
+  conftest's virtual devices, dp=4 x ep=1 dense and the default dp=2 x ep=2
+  sparse) with losses at rtol 1e-5, atol 1e-7 and parameters at rtol 1e-4,
+  atol 1e-6 (``tests/test_halo.py``'s tolerances), every rank's parameters
+  bitwise equal;
+- ``NeuralNet(mesh=...)`` on 2 and 4 ranks (halo, sparse and dense layouts,
+  dropout on) trains, validates and tests like the single-process port;
 - ``GraphLoader(host_batch_slice=...)`` loads only its slice and matches
   the full batch's content (``tests/test_host_shard_loader.py``'s analog);
+- the loss terms' sum over the ranks (``collectives.sum_values``) the same
+  bits for one batch and for a pass's batches at once, on 2 and 4 ranks;
+- ``shutdown()`` gives up the registered CUDA graphs before the group goes;
 - ``initialize()`` from the ``DEEPRANK_*`` variables in 2 processes
   (``tests/test_multihost.py``'s analog);
 - ``make_mesh``'s defaults and errors, and ``member_max_partial`` forward
@@ -23,6 +29,7 @@ The torch ranks are gloo processes (``tests/torch_mesh_worker.py``) over a
 import os
 import subprocess
 import sys
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -84,15 +91,29 @@ def start(db):
     return jm, params, tm.state_dict()
 
 
-def jax_trajectory(jm, params, batch):
-    """3 single-device Adam steps of the JAX net (dropout off):
-    ``tests/test_halo.py``'s ``single_step``."""
+def jax_trajectory(jm, params, batch, mesh=None):
+    """3 Adam steps of the JAX net (dropout off): single-device
+    (``tests/test_halo.py``'s ``single_step``), or with ``mesh`` JAX's
+    sharded step (``parallel/step.py``) on the batch placed over it."""
     import jax
     import optax
 
     from deeprank_gnn_tpu.train.losses import mse_loss
 
     opt = optax.adam(LR)
+    if mesh is not None:
+        from deeprank_gnn_tpu.data.dense_batch import DenseGraphBatch
+        from deeprank_gnn_tpu.parallel import mesh as JM
+        from deeprank_gnn_tpu.parallel.step import make_sharded_train_step
+
+        place = JM.shard_dense_batch if isinstance(batch, DenseGraphBatch) else JM.shard_batch
+        step = make_sharded_train_step(jm, opt, mesh)
+        b = place(batch, mesh)
+        p, s, rng, losses = params, opt.init(params), jax.random.PRNGKey(0), []
+        for _ in range(STEPS):
+            p, s, loss, _pred, rng = step(p, s, b, rng)
+            losses.append(float(loss))
+        return np.array(losses), p
 
     def single_step(p, s, b, rng):
         rng, key = jax.random.split(rng)
@@ -122,53 +143,70 @@ def assert_params_match(jax_params, got: dict, prefix: str):
                                    **PARAM_TOL)
 
 
-@pytest.fixture(scope="module")
-def mesh_ranks(db, start, tmp_path_factory):
-    """One 2-rank run of every mesh check of this file."""
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"d{d}")
+def mesh_ranks(request, db, start, tmp_path_factory):
+    """One run of every mesh check of this file on ``d`` ranks."""
+    d = request.param
     common = dict(db=db, g_pad=8, state=start[2], lr=LR, steps=STEPS)
-    tmp = tmp_path_factory.mktemp("mesh_ranks")
+    tmp = tmp_path_factory.mktemp(f"mesh_ranks_d{d}")
     tasks = [
         dict(kind="mesh_train", layout="sparse", **common),
-        dict(kind="mesh_train", layout="dense", dp=2, ep=1, **common),
+        dict(kind="mesh_train", layout="dense", dp=d, ep=1, **common),
         *(dict(kind="engine", label=layout, layout=layout, db=db, outdir=str(tmp))
           for layout in ("halo", "sparse", "dense")),
         dict(kind="engine", label="store", layout="dense", device_cache=True, db=db,
              outdir=str(tmp)),
+        dict(kind="rank_sums", batches=64),
     ]
-    return run_ranks(tmp, 2, tasks)[0]
+    return d, run_ranks(tmp, d, tasks)[0]
+
+
+def assert_ranks_equal(results, prefix: str, skip=()):
+    """Every rank's results under ``prefix`` bitwise rank 0's."""
+    for key in results[0]:
+        if key.startswith(prefix) and key not in skip:
+            for other in results[1:]:
+                np.testing.assert_array_equal(other[key], results[0][key], err_msg=key)
 
 
 @pytest.mark.parametrize("layout", ["sparse", "dense"])
 def test_mesh_trajectory_matches_jax(db, start, mesh_ranks, layout, monkeypatch):
-    """The graph-parallel mesh's 3 Adam steps follow JAX's single-device
-    trajectory; both ranks hold bitwise-equal parameters and the whole
-    batch's predictions."""
+    """The graph-parallel mesh's 3 Adam steps follow JAX's trajectory
+    (single-device for 2 ranks, JAX's mesh of 4 virtual devices for 4);
+    every rank holds bitwise-equal parameters and the whole batch's
+    predictions."""
+    import jax
+
     from deeprank_gnn_tpu.data.batch import collate as jax_collate
     from deeprank_gnn_tpu.data.dense_batch import collate_dense as jax_collate_dense
     from deeprank_gnn_tpu.models import GINet as JaxGINet
+    from deeprank_gnn_tpu.parallel import make_mesh as jax_make_mesh
 
     monkeypatch.setattr(JaxGINet, "dropout_rate", 0.0)
+    d, results = mesh_ranks
     jds, _ = datasets(db, node_feature=FEATURE_NAMES)
     graphs = [jds.get(i) for i in range(len(jds))]
     jb = (jax_collate_dense if layout == "dense" else jax_collate)(graphs, g_pad=8)[0]
-    losses, params = jax_trajectory(start[0], start[1], jb)
-    for rank, got in enumerate(mesh_ranks):
+    jax_mesh = None
+    if d == 4:
+        jax_mesh = jax_make_mesh(jax.devices()[:4], **({"dp": 4, "ep": 1}
+                                                       if layout == "dense" else {}))
+    losses, params = jax_trajectory(start[0], start[1], jb, jax_mesh)
+    dp, ep = (d, 1) if layout == "dense" else {2: (1, 2), 4: (2, 2)}[d]
+    for rank, got in enumerate(results):
         # the mesh's shape and this rank's (dp, ep) coordinates
-        want = [2, 1, rank, 0] if layout == "dense" else [1, 2, 0, rank]
-        assert got[f"{layout}_mesh"].tolist() == want
+        assert got[f"{layout}_mesh"].tolist() == [dp, ep, rank // ep, rank % ep]
         np.testing.assert_allclose(got[f"{layout}_losses"], losses, **LOSS_TOL)
         assert_params_match(params, got, f"{layout}_")
         assert got[f"{layout}_pred"].shape == (8,)
-    for key in mesh_ranks[0]:
-        if key.startswith(f"{layout}_") and key != f"{layout}_mesh":
-            np.testing.assert_array_equal(mesh_ranks[1][key], mesh_ranks[0][key], err_msg=key)
+    assert_ranks_equal(results, f"{layout}_", skip=(f"{layout}_mesh",))
 
 
 @pytest.mark.parametrize("layout", ["halo", "sparse", "dense", "store"])
 def test_neuralnet_on_a_mesh_matches_single_process(db, mesh_ranks, tmp_path, layout):
     """``NeuralNet(mesh=...)`` trains 2 epochs with validation (dropout on)
-    and tests on 2 ranks as the single-process port does: the same losses,
-    bitwise-equal parameters on both ranks, and the same predictions (a
+    and tests on 2 and 4 ranks as the single-process port does: the same
+    losses, bitwise-equal parameters on every rank, and the same predictions (a
     streaming dense rank's cover its slice of each batch; with the store,
     ``"store"``, each rank holds the whole store and sees every graph)."""
     from deeprank_gnn_tpu_torch import GINet, NeuralNet
@@ -180,21 +218,64 @@ def test_neuralnet_on_a_mesh_matches_single_process(db, mesh_ranks, tmp_path, la
                    outdir=str(tmp_path))
     nn.train(nepoch=2, validate=True)
     nn.test(db)
-    for rank, got in enumerate(mesh_ranks):
+    d, results = mesh_ranks
+    for rank, got in enumerate(results):
         np.testing.assert_allclose(got[f"{layout}:train_loss"], nn.train_loss, **ENGINE_TOL)
         np.testing.assert_allclose(got[f"{layout}:valid_loss"], nn.valid_loss, **ENGINE_TOL)
         np.testing.assert_allclose(got[f"{layout}:test_loss"], nn.test_loss, **ENGINE_TOL)
         want = np.array(nn.test_out)
         if layout == "dense":
-            # positions 2r:2r+2 of each test batch of 4, in dataset order
-            want = want.reshape(-1, 4)[:, 2 * rank: 2 * rank + 2].reshape(-1)
+            # positions w r : w (r + 1) of each test batch of 4 (w = 4 / d),
+            # in dataset order
+            w = 4 // d
+            want = want.reshape(-1, 4)[:, w * rank: w * (rank + 1)].reshape(-1)
         np.testing.assert_allclose(got[f"{layout}:test_out"], want, **ENGINE_TOL)
         for name, p in nn.model.named_parameters():
             np.testing.assert_allclose(got[f"{layout}:param:{name}"], p.detach().numpy(),
                                        err_msg=name, **PARAM_TOL)
-    for key in mesh_ranks[0]:
-        if key.startswith(f"{layout}:param:"):
-            np.testing.assert_array_equal(mesh_ranks[1][key], mesh_ranks[0][key], err_msg=key)
+    assert_ranks_equal(results, f"{layout}:param:")
+
+
+def test_sums_over_ranks_do_not_depend_on_length(mesh_ranks):
+    """``collectives.sum_values`` adds the ranks' terms in rank order for
+    every element, whatever the tensor's length: a batch's pair summed as a
+    mesh step sums its loss terms, and all batches' first terms at once as
+    a scanned pass does, agree bitwise with each other and with the sum in
+    rank order, on every rank. (Over four gloo ranks an all-reduce's
+    order follows the buffer's chunks, and the two forms differ.)"""
+    d, results = mesh_ranks
+    terms = [got["sums:terms"] for got in results]
+    want = terms[0]
+    for t in terms[1:]:
+        want = want + t  # float32, in rank order
+    for got in results:
+        np.testing.assert_array_equal(got["sums:step"], want)
+        np.testing.assert_array_equal(got["sums:pass"], want[:, 0])
+        np.testing.assert_allclose(got["sums:all_reduce_pass"], want[:, 0], rtol=1e-6)
+    assert_ranks_equal(results, "sums:", skip=("sums:terms",))
+
+
+def test_shutdown_releases_captured_graphs():
+    """``distributed.shutdown()`` first gives up the CUDA graphs of every
+    owner registered with ``hold_graphs`` (NCCL cannot finalize a
+    communicator while a graph holds its collectives): ``EpochSteps``
+    drops its graphs and its warm-up state, and a later run warms up and
+    captures anew."""
+    from deeprank_gnn_tpu_torch.parallel import distributed
+    from deeprank_gnn_tpu_torch.train.scan import EpochSteps, _Captured
+
+    steps = EpochSteps(lambda *a: None)
+    steps._graphs["step"] = _Captured(graph=None, steps=1, training=True, part="step",
+                                      idx=None, aux=None, loss=None, pred=None,
+                                      launches=Counter(), collective_bytes=Counter(),
+                                      inputs=())
+    steps._warm.add(("inputs", True))
+    distributed.hold_graphs(steps)
+    distributed.shutdown()
+    assert steps.graph_stats() == [] and not steps._warm
+    steps._warm.add(("inputs", True))
+    distributed.shutdown()  # released owners are not held any more
+    assert steps._warm
 
 
 def test_initialize_from_env(db, start, tmp_path):

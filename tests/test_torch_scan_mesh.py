@@ -1,21 +1,21 @@
 """PyTorch port: scanned epochs and the chunked store on a dense mesh, on
 the CPU.
 
-Two gloo ranks (``tests/torch_mesh_worker.py``'s ``scan_engine``, spawned
-once for the module) train ``NeuralNet(layout="dense", mesh=make_mesh(dp=2,
-ep=1), device_cache=...)`` with dropout on:
+Two and four gloo ranks (``tests/torch_mesh_worker.py``'s ``scan_engine``,
+spawned once for each rank count) train ``NeuralNet(layout="dense",
+mesh=make_mesh(dp=D, ep=1), device_cache=...)`` with dropout on:
 
 - ``scan_epochs=True``, ``"full"`` with ``save_model="best"``, and the
   chunked store split into more than one chunk, each bitwise the looped
   mesh run from the same seed: losses, epoch data, parameters, Adam state
-  and the dropout generator's state, on both ranks; a pass's collective
+  and the dropout generator's state, on every rank; a pass's collective
   bytes equal the looped pass's;
 - the same runs against the single-process scanned run at the north star's
   tolerance (rtol 2e-4, atol 1e-5), and ``"full"``'s one "best" checkpoint
   named as the single-process run's;
 - with dropout off, from one JAX checkpoint, against JAX's scanned mesh run
-  on two of conftest's virtual CPU devices (``make_mesh(jax.devices()[:2],
-  dp=2, ep=1)``), at that tolerance.
+  on as many of conftest's virtual CPU devices (``make_mesh(jax.devices()[:D],
+  dp=D, ep=1)``), at that tolerance.
 
 JAX's argument checks of these options are in ``tests/test_torch_scan.py``.
 """
@@ -61,17 +61,18 @@ def start(db, tmp_path_factory):
     return path
 
 
-@pytest.fixture(scope="module")
-def ranks(db, start, tmp_path_factory):
-    """One 2-rank run of every scanned mesh run of this file."""
-    tmp = tmp_path_factory.mktemp("scan_mesh_ranks")
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"d{d}")
+def ranks(request, db, start, tmp_path_factory):
+    """One run of every scanned mesh run of this file on ``d`` ranks."""
+    d = request.param
+    tmp = tmp_path_factory.mktemp(f"scan_mesh_ranks_d{d}")
     tasks = [dict(kind="scan_engine", label=label, scan=scan, kw={**COMMON, **kw}, train=train,
                   db=db, outdir=str(tmp))
              for label, (scan, kw, train) in RUNS.items()]
     tasks.append(dict(kind="scan_engine", label="jax_start", scan=True, no_dropout=True,
                       kw=dict(pretrained_model=start, device_cache=True),
                       train=dict(nepoch=3), db=db, outdir=str(tmp)))
-    return run_ranks(tmp, 2, tasks)[0]
+    return d, run_ranks(tmp, d, tasks)[0]
 
 
 def _keys(ranks, label):
@@ -82,8 +83,9 @@ def _keys(ranks, label):
 @pytest.mark.parametrize("scanned,looped", PAIRS, ids=[p[0] for p in PAIRS])
 def test_scanned_mesh_is_the_looped_mesh(ranks, scanned, looped):
     """Bitwise, dropout on: every loss, epoch datum, parameter, Adam state
-    and generator state, on both ranks, which agree with each other; and
+    and generator state, on every rank, which agree with each other; and
     the collective bytes of one more training pass."""
+    _d, ranks = ranks
     keys = _keys(ranks, scanned)
     assert any(":bytes:all_reduce/gradients" in k for k in keys)
     # the scanned run stepped through EpochSteps, the looped one did not
@@ -96,21 +98,23 @@ def test_scanned_mesh_is_the_looped_mesh(ranks, scanned, looped):
         for k in keys:
             want = got[k.replace(f"{scanned}:", f"{looped}:", 1)]
             np.testing.assert_array_equal(got[k], want, err_msg=k)
-    for k in keys:
-        np.testing.assert_array_equal(ranks[1][k], ranks[0][k], err_msg=k)
+    for other in ranks[1:]:
+        for k in keys:
+            np.testing.assert_array_equal(other[k], ranks[0][k], err_msg=k)
 
 
 def test_scanned_mesh_bytes_match_the_plan(ranks):
     """A scanned training pass over ``B`` batches issues what the looped
     pass does: ``B`` loss normalizers and ``B`` numerators (8 B bytes), each
-    batch's 2 predictions gathered, and one all-reduce of every gradient
-    per step."""
-    got = ranks[0]
-    b, n = int(got["scan:batches"]), int(got["scan:params"])
-    assert {k.split(":bytes:")[1]: int(v) for k, v in got.items()
-            if k.startswith("scan:bytes:")} == {
-        "all_reduce/loss": 8 * b, "all_gather/outputs": b * 2 * 4,
-        "all_reduce/gradients": b * n * 4}
+    batch's ``4 / D`` predictions of this rank gathered, and one all-reduce
+    of every gradient per step."""
+    d, ranks = ranks
+    for got in ranks:
+        b, n = int(got["scan:batches"]), int(got["scan:params"])
+        assert {k.split(":bytes:")[1]: int(v) for k, v in got.items()
+                if k.startswith("scan:bytes:")} == {
+            "all_gather/loss": 8 * b, "all_gather/outputs": b * (4 // d) * 4,
+            "all_reduce/gradients": b * n * 4}
 
 
 @pytest.mark.parametrize("label", ["scan", "full_best", "chunked"])
@@ -118,6 +122,7 @@ def test_scanned_mesh_matches_single_process(db, ranks, tmp_path, label):
     """The single-process port's scanned run from the same seed, within
     the north star's tolerance; ``"full"`` writes one "best" checkpoint,
     under the single-process run's name."""
+    _d, ranks = ranks
     scan, kw, train = RUNS[label]
     nn = port_engine(db, str(tmp_path), layout="dense", scan_epochs=scan, **COMMON, **kw)
     nn.train(**train)
@@ -139,17 +144,18 @@ def test_scanned_mesh_matches_single_process(db, ranks, tmp_path, label):
 
 
 def test_scanned_mesh_matches_jax_mesh(db, start, ranks, tmp_path, monkeypatch):
-    """Dropout off, from one JAX checkpoint: three scanned epochs on two
-    ranks against JAX's scanned run on a mesh of two virtual devices."""
+    """Dropout off, from one JAX checkpoint: three scanned epochs on ``D``
+    ranks against JAX's scanned run on a mesh of ``D`` virtual devices."""
     import jax
 
     from deeprank_gnn_tpu.models import GINet as JaxGINet
     from deeprank_gnn_tpu.parallel import make_mesh
 
     monkeypatch.setattr(JaxGINet, "dropout_rate", 0.0)
+    d, ranks = ranks
     j = jax_engine(db, str(tmp_path / "j"), pretrained_model=start, layout="dense",
                    device_cache=True, scan_epochs=True,
-                   mesh=make_mesh(jax.devices()[:2], dp=2, ep=1))
+                   mesh=make_mesh(jax.devices()[:d], dp=d, ep=1))
     j.train(nepoch=3)
     assert len(set(np.round(j.train_loss, 6))) == 3
     for got in ranks:

@@ -201,6 +201,26 @@ def test_shuffled_store_epochs_match_jax(db, device_cache):
         assert tl._chunk_store.num_chunks == jl._chunk_store.num_chunks == 3
 
 
+@pytest.mark.parametrize("device_cache", [True, "chunked"], ids=["resident", "chunked"])
+def test_store_counts_match_jax(db, device_cache):
+    """``num_graphs`` of both stores and ``num_slots`` of their packed
+    matrices (the resident store, a chunk, the fixed chunk buffers of a
+    scanned epoch) are JAX's."""
+    jl, tl = store_loaders(db, device_cache=device_cache,
+                           device_cache_bytes=1 if device_cache == "chunked" else 2 ** 31)
+    list(jl), list(tl)
+    if device_cache is True:
+        js, ts = jl._store, tl._store
+        assert ts.num_graphs == js.num_graphs == NUM_GRAPHS
+        assert ts.store.num_slots == js.store.num_slots == NUM_GRAPHS + 1
+        return
+    js, ts = jl._chunk_store, tl._chunk_store
+    assert ts.num_graphs == js.num_graphs == NUM_GRAPHS
+    for ci in range(ts.num_chunks):
+        assert ts.upload(ci).num_slots == js.upload(ci).num_slots == ts.chunk_ranges[ci][1] + 1
+    assert ts.empty_chunk().num_slots == max(n for _, n in ts.chunk_ranges) + 1
+
+
 def tiled_case(rng, g=3, c=7, f=8):
     """Striped feature-major activations on the run-padded layout (cluster
     sizes 1..12, a pad tile), with planted ties: in graph 0, cluster 0 has

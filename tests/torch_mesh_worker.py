@@ -161,7 +161,7 @@ def engine(task, out, rank):
 
 
 def scan_engine(task, out, rank):
-    """NeuralNet on the dense mesh (dp=2) with the device store:
+    """NeuralNet on the dense mesh over every rank with the device store:
     ``train(**task["train"])`` with ``scan_epochs=task["scan"]``, then one
     more training pass with the collective bytes counted. ``looped``: the
     per-batch loop over the same loaders (the constructor refuses the
@@ -173,7 +173,10 @@ def scan_engine(task, out, rank):
 
     label = task["label"]
     outdir = os.path.join(task["outdir"], f"{label}{rank}")
-    kw = dict(layout="dense", mesh=make_mesh(dp=2, ep=1, device="cpu"), device="cpu",
+    from deeprank_gnn_tpu_torch.parallel.distributed import process_count
+
+    kw = dict(layout="dense", mesh=make_mesh(dp=process_count(), ep=1, device="cpu"),
+              device="cpu",
               outdir=outdir, scan_epochs=task["scan"] or True, **task["kw"])
     if "pretrained_model" not in kw:
         kw.update(node_feature=FEATURES, edge_feature=["dist"])
@@ -206,6 +209,29 @@ def scan_engine(task, out, rank):
         out[f"{label}:params"] = np.int64(sum(p.numel() for p in nn.model.parameters()))
 
 
+def rank_sums(task, out, rank):
+    """Float terms of ``task["batches"]`` batches on this rank, seeded by
+    the rank: each batch's pair summed over the ranks as a mesh step sums
+    its loss terms, and the batches' first terms at once as a scanned pass
+    does (``collectives.sum_values``); the same by all-reduce, kept for the
+    record."""
+    from deeprank_gnn_tpu_torch.parallel import collectives as C
+    from deeprank_gnn_tpu_torch.parallel.mesh import make_mesh
+
+    group = make_mesh(device="cpu").group
+    rng = np.random.default_rng(100 + rank)
+    b = task["batches"]
+    terms = torch.from_numpy((rng.standard_normal((b, 2))
+                              * 10.0 ** rng.integers(-3, 4, (b, 2))).astype(np.float32))
+    out["sums:terms"] = terms.numpy()
+    out["sums:step"] = np.stack([C.sum_values(t, group, "loss").numpy() for t in terms])
+    out["sums:pass"] = C.sum_values(terms[:, 0].contiguous(), group, "loss").numpy()
+    out["sums:all_reduce_step"] = np.stack([C.all_reduce_values(t, group, "loss").numpy()
+                                            for t in terms])
+    out["sums:all_reduce_pass"] = C.all_reduce_values(terms[:, 0].contiguous(), group,
+                                                      "loss").numpy()
+
+
 def env_step(task, out, rank):
     """One graph-parallel training step from a group formed from the
     DEEPRANK_* variables; prints the global loss."""
@@ -224,7 +250,7 @@ def env_step(task, out, rank):
 
 
 TASKS = {f.__name__: f for f in (halo_eval, halo_train, mesh_train, engine, scan_engine,
-                                 env_step)}
+                                 rank_sums, env_step)}
 
 
 def main():
