@@ -1771,6 +1771,8 @@ def profile_pass(run, loader, kernel_bounds) -> dict:
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     annotations = [e for e in on_card if e.is_user_annotation]
     on_card = [e for e in on_card if not e.is_user_annotation]
+    if not on_card:
+        raise AssertionError("the profiler traced no device operation")
     busy_ms = sum(e.device_time for e in on_card) / 1e3
     by_name: dict = {}
     for e in on_card:
@@ -1787,7 +1789,7 @@ def profile_pass(run, loader, kernel_bounds) -> dict:
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ops": len(on_card),
         "index_accumulation_ms": accum_ms,
-        "index_accumulation_share_of_busy": accum_ms / busy_ms if busy_ms else 0.0,
+        "index_accumulation_share_of_busy": accum_ms / busy_ms,
         "annotation_ms_not_counted": sum(e.device_time for e in annotations) / 1e3,
         "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
         "nccl_kernels": nccl_kernels(on_card),
@@ -2505,6 +2507,8 @@ def profile_run(run, patterns=()) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
+    if not on_card:
+        raise AssertionError("the profiler traced no device operation")
     busy_ms = sum(e.device_time for e in on_card) / 1e3
     accum_ms = sum(e.device_time for e in on_card if INDEX_ACCUMULATION in e.name) / 1e3
     res = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
