@@ -2,13 +2,15 @@
 """Drive the PyTorch port's serving and training paths on one CUDA card and
 check them.
 
-    python3 chip_smoke.py [--seed N] [--graphs N] [--digests]
+    python3 chip_smoke.py [--seed N] [--graphs N] [--digests] [--atomic]
     python3 chip_smoke.py --cards 4
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``
 (``$CUDA_HOME/bin`` or PATH), and nothing beyond torch, numpy and scipy.
-With ``--cards 4`` it needs four and runs phases 1, 2 and 11 only (below).
-Phases, each of which raises on failure:
+With ``--cards 4`` it needs four and runs phases 1, 2 and 11 only (below);
+with ``--atomic`` phases 1, 2 and 15. Phases, each of which raises on
+failure (phase 15 runs right after phase 3b, so that its profiled passes
+come early in the process):
 
 1. device: the card's name and power limit (``nvidia-smi``); fp32
    numerics with TF32 off; the cuBLAS workspace setting that
@@ -216,7 +218,40 @@ Phases, each of which raises on failure:
    of the final parameters, printed as ``digest <path>: ...``. With
    ``--digests`` the script builds the kernels and runs only this phase:
    run it in a checkout of another commit (with this script copied in) and
-   here, in one call, to hold two commits' training bitwise equal.
+   here, in one call, to hold two commits' training bitwise equal;
+15. atomic scale: paper-mode GINet at the JAX package's own headline
+   shapes, ``bench.py``'s atomic arms: 128 graphs of ``build_big_graphs``
+   (2,560 nodes of 48 features, 15,000 edges doubled to 30,000, level-0
+   clusters of ~4 nodes; reproduced value for value from the seed by
+   ``build_atomic_graphs``), batch 64, two batches, target ``irmsd``, every
+   graph in training. Each graph's pooling plan is made once (timed) and
+   found by every later loader (``plans_once``). Path 1, data: an unshuffled
+   epoch of the sparse, dense and operator collation (host ms per batch),
+   each batch moved to the card as the engine moves it bitwise the CPU
+   batch, and ``community_pooling`` of one graph (2 K1 launches) bitwise the
+   CPU run. Then K1 (conv1 E 1.92 M into 163,840 rows at F 32, conv2 ~1.8 M
+   pooled edges at F 64), K3 (conv1 ``[64, ~5,200, 32]`` over ~30,100 edges
+   a graph, without the slab in shared memory over 15 edge tiles, which the
+   check requires; conv2 ``[64, 640, 64]``) and K3 fast at the first batch's
+   shapes, forward and backward, bitwise their plain versions run on the
+   CPU, with their launch plans, flushed and L2-warm times, bounds, plain
+   and library times; K3 fast's calls trace no bf16 cast. Paths 2 and 3,
+   sparse and dense: served (K1 2, K3 2 launches a batch; against the CPU
+   run and each other at ``TOL``; a pass profiled) and trained (the first
+   4 Adam steps against the CPU, dropout off, at ``TOL``; one epoch with
+   dropout on, K1 2 and K3 4 launches a batch, run twice from one seed
+   bitwise; a profiled epoch with its index accumulation's sites). Path 4,
+   the fast mode: phase 10's check on the atomic store (K3 fast 4 launches
+   a batch, no cast traced). Path 5, the operator path: the store's batches
+   bitwise path 1's, its bytes against ``estimate_store_bytes``; served and
+   trained against the CPU with no hand kernel; scanned epochs bitwise the
+   looped ones, dropout on. Path 6: ``AtomGraph(..., device="cuda")`` on 32
+   of phase 12's docking models, 2 of them also on the CPU path (lists
+   bitwise, features within ``FEATURE_TOL``), clustered, converted with
+   ``bench.py``'s atomic features (51) and served sparse (K1 2 a batch)
+   against the CPU. Each path logs its peak ``max_memory_allocated`` beside
+   the card's name and power limit; the last lines' kernels carry an
+   ``atomic`` entry each.
 
 Phase 3b holds the padding rule (no accumulating op sees a run of padding
 lanes, ``ops/lanes.py``): each repaired op at the first batches' shapes,
@@ -235,6 +270,7 @@ import argparse
 import contextlib
 import faulthandler
 import functools
+import gc
 import hashlib
 import json
 import os
@@ -501,24 +537,26 @@ def write_docking_models(root: str, seed: int, n_models: int, res_a: int, res_b:
 
 
 def write_checkpoint(path: str, seed: int, Net=None, task: str = "reg",
-                     target: str = "fnat", batch_size: int = BATCH) -> None:
+                     target: str = "fnat", batch_size: int = BATCH, node=FOLD6_FEATURES,
+                     width: int = 48) -> None:
     """A reference-format torch checkpoint of a seeded random ``Net``
-    (default GINet) at the paper's width: a regressor of ``target``, or
-    with ``task="class"`` a classifier of two classes; an engine built from
-    it serves at ``batch_size``."""
+    (default GINet) of ``width`` node features named by ``node`` (default
+    the paper's 48 of ``fold6``): a regressor of ``target``, or with
+    ``task="class"`` a classifier of two classes; an engine built from it
+    serves at ``batch_size``."""
     import torch
 
     from deeprank_gnn_tpu_torch.models import GINet
 
     outputs = 2 if task == "class" else 1
-    model = (Net or GINet)(48, outputs, 1, device="cpu",
+    model = (Net or GINet)(width, outputs, 1, device="cpu",
                            generator=torch.Generator().manual_seed(seed))
     torch.save(
         {
             "model": model.state_dict(),
             "optimizer": {},
             "net": type(model).__name__,
-            "node": FOLD6_FEATURES,
+            "node": list(node),
             "edge": ["dist"],
             "target": target,
             "task": task,
@@ -619,11 +657,13 @@ def errors(got, want) -> dict:
 # K1: sorted segment sum
 
 
-def k1_case(name, data, row_ptr, rows, timed: bool):
+def k1_case(name, data, row_ptr, rows, timed: bool, reordered: bool = False):
     """Check the sorted segment sum kernel against its plain version on
-    the card (``KERNEL_TOL``) and bitwise against the plain version run on
-    the CPU (both sum in edge order); log its launch plan; time it when
-    ``timed``. Returns a dict of numbers."""
+    the card (``KERNEL_TOL``; with ``reordered``, within the rounding bound
+    of an fp32 sum taken in another order, for runs long enough that the
+    card's atomics exceed ``KERNEL_TOL``) and bitwise against the plain
+    version run on the CPU (both sum in edge order); log its launch plan;
+    time it when ``timed``. Returns a dict of numbers."""
     import torch
 
     from deeprank_gnn_tpu_torch.ops.kernels.segment import (
@@ -638,7 +678,17 @@ def k1_case(name, data, row_ptr, rows, timed: bool):
     torch.cuda.synchronize()
     if not torch.equal(a, b):
         raise AssertionError(f"K1 {name}: two launches differ")
-    torch.testing.assert_close(a, want, **KERNEL_TOL, msg=f"K1 {name}")
+    if reordered:
+        # the plain version's index_add_ adds with atomics in no fixed
+        # order: two orders of an fp32 sum of n terms differ by at most
+        # 2 (n - 1) 2^-24 times the sum of the terms' magnitudes
+        n_max = int(row_ptr.diff().max())
+        mag = sorted_segment_sum_plain(data.abs(), row_ptr, rows)
+        if ((a - want).abs() > 2 * max(n_max - 1, 0) * 2.0 ** -24 * mag).any():
+            raise AssertionError(f"K1 {name}: beyond the reordering bound of the plain "
+                                 f"version on the card: {errors(a, want)}")
+    else:
+        torch.testing.assert_close(a, want, **KERNEL_TOL, msg=f"K1 {name}")
     want_cpu = sorted_segment_sum_plain(data.cpu(), row_ptr.cpu())
     if not torch.equal(a.cpu(), want_cpu):
         raise AssertionError(f"K1 {name}: not bitwise the plain version on the cpu: "
@@ -960,7 +1010,8 @@ def k3_fast_path_kernels(xw, row, col, cot, cast_kernel: str) -> dict:
     return res
 
 
-def k3_fast_case(name, xw, row, col, gen, timed: bool, cast_kernel: str = "") -> dict:
+def k3_fast_case(name, xw, row, col, gen, timed: bool, cast_kernel: str = "",
+                 trace: bool = True) -> dict:
     """K3's fast variant as the path runs it (``exact=False`` on fp32
     ``xw``: the kernel rounds it to bf16 itself; fp32 sums and output),
     forward and backward through its autograd Function, bitwise equal to the
@@ -969,9 +1020,9 @@ def k3_fast_case(name, xw, row, col, gen, timed: bool, cast_kernel: str = "") ->
     exact kernel's. Timed when ``timed``: the path's call beside the exact
     kernel on the same inputs in this call; the cast that the path no longer
     launches, alone; the plain version and the library pair on the rounded
-    fp32 values; the bound (fp32 ``xw``, as the path reads it); and the
-    kernels one call's forward and backward launch, traced, casts (by the
-    name ``cast_kernel``) counted against a control
+    fp32 values; the bound (fp32 ``xw``, as the path reads it); and with
+    ``trace`` the kernels one call's forward and backward launch, traced,
+    casts (by the name ``cast_kernel``) counted against a control
     (:func:`k3_fast_path_kernels`)."""
     import torch
 
@@ -1014,8 +1065,7 @@ def k3_fast_case(name, xw, row, col, gen, timed: bool, cast_kernel: str = "") ->
            # how far the rounding moves the result from the exact kernel's
            "vs_exact_max_abs": float((fwd.detach() - fused_gin_conv_forward(xw, row, col))
                                      .abs().max())}
-    if timed:
-        lib_fwd, lib_bwd = k3_library_pair(xr, row, col), k3_library_pair(cr, col, row)
+    if timed and trace:
         traced = k3_fast_path_kernels(xw, row, col, cot, cast_kernel)
         res.update(
             # one call's forward and backward, traced: bf16 casts, device
@@ -1023,7 +1073,10 @@ def k3_fast_case(name, xw, row, col, gen, timed: bool, cast_kernel: str = "") ->
             cast_kernel=cast_kernel,
             cast_launches_fwd_bwd=traced["path"]["casts"],
             device_ops_fwd_bwd=traced["path"]["device_ops"],
-            control_casts=traced["control"]["casts"],
+            control_casts=traced["control"]["casts"])
+    if timed:
+        lib_fwd, lib_bwd = k3_library_pair(xr, row, col), k3_library_pair(cr, col, row)
+        res.update(
             ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xw, row, col, False)),
             ms_bwd=cold_ms(lambda: fused_gin_conv_forward(cot, col, row, False)),
             exact_ms_fwd=cold_ms(lambda: fused_gin_conv_forward(xw, row, col)),
@@ -1921,14 +1974,15 @@ def dense_bound_per_batch(loader, backward: bool) -> float:
 
 
 def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_batch: dict,
-                bounds=None, passes: int = 2, **engine_kw) -> dict:
+                bounds=None, passes: int = 2, sites: bool = True, **engine_kw) -> dict:
     """Score ``dataset`` with ``Net`` from ``ckpt`` on the card (``passes``
     passes, launch counts cleared before each and read after: ``per_batch``
     launches per batch, nothing else) and once on the CPU: finite
     predictions that match the CPU's at ``TOL``. With ``bounds`` (a function
     of the test loader giving each kernel's bound per batch) one more pass
-    runs under ``torch.profiler``. ``engine_kw`` (the store options) go to
-    both engines."""
+    runs under ``torch.profiler``, and with ``sites`` another with the
+    index accumulation's sites labelled. ``engine_kw`` (the store options)
+    go to both engines."""
     nn, pred, loss, walls, launches = serve(
         dataset, ckpt, "cuda", os.path.join(tmp, f"serve_{label}"), passes, layout, Net,
         **engine_kw)
@@ -1937,7 +1991,9 @@ def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_
     if bounds is not None:
         where = profile_pass(lambda: nn.eval(nn.test_loader), nn.test_loader,
                              bounds(nn.test_loader))
-        where["index_accumulation_sites"] = accumulation_sites(lambda: nn.eval(nn.test_loader))
+        if sites:
+            where["index_accumulation_sites"] = accumulation_sites(
+                lambda: nn.eval(nn.test_loader))
     _, pred_cpu, loss_cpu, walls_cpu, launches_cpu = serve(
         dataset, ckpt, "cpu", os.path.join(tmp, f"serve_{label}_cpu"), 1, layout, Net,
         **engine_kw)
@@ -1987,31 +2043,35 @@ def serve_phase(dataset, tmp: str, seed: int):
 
 def first_steps(nn, steps: int):
     """The losses of the first ``steps`` Adam steps of ``nn``'s training
-    loader, as ``_run_pass(training=True)`` takes them."""
+    loader, as ``_run_pass(training=True)`` takes them, over as many
+    epochs as that takes."""
     from deeprank_gnn_tpu_torch.device import deterministic
 
     losses = []
     nn.model.train()
     with deterministic():
-        for i, (batch, _mols) in enumerate(nn.train_loader):
-            if i == steps:
-                break
-            loss, _pred = nn._train_step(nn._map_targets_host(batch).to(nn.device))
-            losses.append(float(loss))
+        while len(losses) < steps:  # epoch after epoch where one has fewer batches
+            for batch, _mols in nn.train_loader:
+                if len(losses) == steps:
+                    break
+                loss, _pred = nn._train_step(nn._map_targets_host(batch).to(nn.device))
+                losses.append(float(loss))
     nn.model.eval()
     return losses
 
 
 def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_batch: dict,
-                bounds=None, **engine_kw) -> dict:
-    """Train ``Net`` at the paper's width, batch 128, percent [0.8, 0.2]:
-    the first 4 Adam steps (dropout off) against the CPU's at ``TOL``; the
-    epoch passes of ``train()`` with ``per_batch`` launches per training
-    batch (counts cleared before each epoch and read after) and finite
-    losses. With ``bounds`` (a function of the training loader giving each
-    kernel's bound per batch) the whole check: two epochs, a second run
-    from the same seed bitwise equal, a profiled warm epoch, and save,
-    reload and resume. ``engine_kw`` (the store options) go to every
+                bounds=None, epochs: int = 2, resume: bool = True, config=None,
+                **engine_kw) -> dict:
+    """Train ``Net`` at the paper's width, batch 128, percent [0.8, 0.2]
+    (``config`` overrides these, the features and the target): the first 4
+    Adam steps (dropout off) against the CPU's at ``TOL``; the epoch passes
+    of ``train()`` with ``per_batch`` launches per training batch (counts
+    cleared before each epoch and read after) and finite losses. With
+    ``bounds`` (a function of the training loader giving each kernel's
+    bound per batch) the whole check: ``epochs`` epochs, a second run from
+    the same seed bitwise equal, a profiled warm epoch, and with ``resume``
+    save, reload and resume. ``engine_kw`` (the store options) go to every
     engine."""
     import torch
 
@@ -2021,6 +2081,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
 
     kw = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat",
               batch_size=BATCH, percent=[0.8, 0.2], layout=layout, seed=seed, **engine_kw)
+    kw.update(config or {})
     full = bounds is not None
 
     def engine(device, name, **extra):
@@ -2042,7 +2103,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     np.testing.assert_allclose(card, cpu, **TOL)
 
     # the main path: the epoch passes of train(), dropout on
-    def epochs(nn, count):
+    def run_epochs(nn, count):
         walls, launches, losses, valid = [], [], [], []
         for _ in range(count):
             LAUNCHES.clear()
@@ -2052,11 +2113,12 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
             walls.append(time.perf_counter() - t0)
             launches.append(dict(LAUNCHES))
             losses.append(loss)
-            valid.append(nn._run_pass(nn.valid_loader, training=False)[3])
+            if nn.valid_loader is not None:
+                valid.append(nn._run_pass(nn.valid_loader, training=False)[3])
         return walls, launches, losses, valid
 
     a = engine("cuda", "a")
-    walls, launches, losses, valid = epochs(a, 2 if full else 1)
+    walls, launches, losses, valid = run_epochs(a, epochs if full else 1)
     batches = len(a.train_loader)
     graphs = len(a.train_loader.dataset)
     log(f"train {label}: {graphs} graphs in {batches} batches per epoch; epoch walls (s) {walls} "
@@ -2069,14 +2131,14 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     if not np.isfinite(losses + valid).all():
         raise AssertionError(f"train {label}: losses {losses}, valid {valid}")
     res = {"walls": walls, "launches": launches[0], "where": None, "graphs": graphs,
-           "parity_max_abs": float(diff.max()), "parity_losses": card}
+           "parity_max_abs": float(diff.max()), "parity_losses": card, "losses": losses}
     if not full:
         return res
 
     # determinism: a second run from the same seed
     params = {k: v.clone() for k, v in a.model.state_dict().items()}
     b = engine("cuda", "b")
-    _w, _l, losses_b, valid_b = epochs(b, 2)
+    _w, _l, losses_b, valid_b = run_epochs(b, epochs)
     same = all(torch.equal(v, b.model.state_dict()[k]) for k, v in params.items())
     log(f"train {label}: second run losses {losses_b} valid {valid_b}; parameters equal {same}")
     if losses_b != losses or valid_b != valid or not same:
@@ -2089,6 +2151,8 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     res["where"]["index_accumulation_sites"] = accumulation_sites(
         lambda: b._run_pass(b.train_loader, training=True))
     log(f"train {label} breakdown " + json.dumps(res["where"]))
+    if not resume:
+        return res
 
     # save, reload, resume
     path = os.path.join(tmp, f"{label}_a", "resume.pth.tar")
@@ -2099,7 +2163,7 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
         raise AssertionError(f"train {label}: the reloaded weights differ")
     state = r.optimizer.state_dict()["state"]
     steps = {float(s["step"]) for s in state.values()}
-    if len(state) != len(list(r.model.parameters())) or steps != {3.0 * batches}:
+    if len(state) != len(list(r.model.parameters())) or steps != {(epochs + 1.0) * batches}:
         raise AssertionError(f"train {label}: reloaded Adam steps {steps}")
     resumed = r._run_pass(r.train_loader, training=True)[3]
     log(f"train {label}: reloaded {path}, Adam step {steps}; resumed epoch loss {resumed}")
@@ -2175,23 +2239,45 @@ def zoo_phase(dataset, tmp: str, seed: int) -> dict:
 # the device store
 
 
-def store_batches_check(dataset, precompute_ops: bool) -> dict:
-    """One unshuffled epoch of ``GraphLoader(device_cache=True)`` on the card
-    against the streaming loader with the same ``precompute_ops``: the same
-    molecules, and every field of every batch bitwise the streamed batch
-    moved to the card (the same dtype and shape; a field is None in both or
-    in neither). Also the store's build time and its bytes, as
-    ``estimate_store_bytes`` gives them and as ``torch.cuda.memory_allocated``
-    grows."""
+def same_fields(label: str, want, got) -> int:
+    """Every field of batch ``got`` (on the card) bitwise ``want`` (on the
+    CPU): dtype, shape and values; a field None in both or in neither.
+    Returns the fields compared (those not None)."""
     import dataclasses
 
+    import torch
+
+    fields = 0
+    for f in dataclasses.fields(want):
+        a, b = getattr(want, f.name), getattr(got, f.name)
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label} field {f.name}: None in one only")
+        if a is None:
+            continue
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b.cpu()):
+            raise AssertionError(f"{label} field {f.name} differs")
+        fields += 1
+    return fields
+
+
+def store_batches_check(dataset, precompute_ops: bool, batch: int = BATCH,
+                        streamed=None) -> dict:
+    """One unshuffled epoch of ``GraphLoader(device_cache=True)`` on the card
+    at batch ``batch`` against the streaming loader with the same
+    ``precompute_ops`` (or the epoch ``streamed`` it gave: its ``(batch,
+    molecules)`` pairs): the same molecules, and every field of every batch
+    bitwise the streamed batch moved to the card (the same dtype and shape;
+    a field is None in both or in neither). Also the store's build time and
+    its bytes, as ``estimate_store_bytes`` gives them and as
+    ``torch.cuda.memory_allocated`` grows."""
     import torch
 
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
     from deeprank_gnn_tpu_torch.data.device_store import estimate_store_bytes
 
-    kw = dict(batch_size=BATCH, layout="dense", precompute_ops=precompute_ops)
-    streamed = GraphLoader(dataset, **kw)
+    kw = dict(batch_size=batch, layout="dense", precompute_ops=precompute_ops)
+    if streamed is None:
+        streamed = list(GraphLoader(dataset, **kw))
     stored = GraphLoader(dataset, device_cache=True, device="cuda", **kw)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2213,24 +2299,16 @@ def store_batches_check(dataset, precompute_ops: bool) -> dict:
             raise AssertionError(f"store batch {bi}: molecules differ")
         if cb.x.device.type != "cuda":
             raise AssertionError(f"store batch {bi} is on {cb.x.device}")
-        want, got = sb.to("cuda"), cb.to("cuda")
-        for f in dataclasses.fields(want):
-            a, b = getattr(want, f.name), getattr(got, f.name)
-            if (a is None) != (b is None):
-                raise AssertionError(f"store batch {bi} field {f.name}: None in one only")
-            if a is not None and (a.dtype != b.dtype or a.shape != b.shape
-                                  or not torch.equal(a, b)):
-                raise AssertionError(f"store batch {bi} field {f.name} differs")
-            fields += a is not None
+        fields += same_fields(f"store batch {bi}", sb, cb)
     # one batch's gather and unpack, eager (the host's launches included),
     # and the packed bytes it reads
-    store, slots = stored._store, np.arange(BATCH)
-    gather_ms = call_ms(lambda: store.batch(slots, BATCH), iters=50, warmup=5)
+    store, slots = stored._store, np.arange(batch)
+    gather_ms = call_ms(lambda: store.batch(slots, batch), iters=50, warmup=5)
     res = {"precompute_ops": precompute_ops, "batches": len(pairs),
            "fields_per_batch": fields // len(pairs), "build_s": build_s,
            "estimate_bytes": estimate, "packed_bytes": store.nbytes,
            "allocated_bytes": allocated, "gather_call_ms": gather_ms,
-           "gather_bytes": BATCH * store.nbytes // (len(dataset) + 1)}
+           "gather_bytes": batch * store.nbytes // (len(dataset) + 1)}
     log("store batches bitwise the streamed ones " + json.dumps(res))
     return res
 
@@ -2425,16 +2503,18 @@ def scan_engine(dataset, seed: int, tmp: str, name: str, kdir: str, ops: bool = 
     """Paper-mode GINet on the device store at batch ``batch`` from
     ``seed``; ``ops=False`` gives it store loaders without the precomputed
     operators, whose batches feed K3. ``kw``: ``scan_epochs``,
-    ``dense_fast``, ``mesh``, ``device_cache`` (default True) and
-    ``device_cache_bytes``."""
+    ``dense_fast``, ``mesh``, ``device_cache`` (default True),
+    ``device_cache_bytes``, and the features and target (default those of
+    ``fold6`` and ``fnat``)."""
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    kw.setdefault("device_cache", True)
-    nn = NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
-                   target="fnat", batch_size=batch, percent=list(percent), layout="dense",
+    args = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat",
+                device_cache=True)
+    args.update(kw)
+    nn = NeuralNet(dataset, GINet, batch_size=batch, percent=list(percent), layout="dense",
                    seed=seed, device="cuda", executable_cache_dir=kdir,
-                   outdir=os.path.join(tmp, f"scan_{name}"), **kw)
+                   outdir=os.path.join(tmp, f"scan_{name}"), **args)
     if not ops:
         for attr in ("train_loader", "valid_loader"):
             ld = getattr(nn, attr)
@@ -2555,9 +2635,11 @@ def scan_training_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops
     scanned = scan_engine(dataset, seed, tmp, f"{label}_scanned", kdir, ops, scan_epochs=True,
                           **kw)
     runs = {"looped": [], "scanned": []}
+    none = {"loss": None, "out": None}  # no validation set
     for name, nn in (("looped", looped), ("scanned", scanned)):
         for _ in range(epochs):
-            runs[name].append((run_pass(nn, True), run_pass(nn, False)))
+            runs[name].append((run_pass(nn, True),
+                               none if nn.valid_loader is None else run_pass(nn, False)))
     for i, ((lt, lv), (st, sv)) in enumerate(zip(runs["looped"], runs["scanned"])):
         if (lt["loss"], lv["loss"], lv["out"]) != (st["loss"], sv["loss"], sv["out"]):
             raise AssertionError(f"scan {label} epoch {i}: losses {lt['loss']} {lv['loss']} "
@@ -2754,7 +2836,7 @@ def scan_phase(dataset, tmp: str, seed: int, kdir: str, store_pred) -> dict:
 
 
 def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list,
-               cast_kernel: str) -> dict:
+               cast_kernel: str, label: str = "fast", **engine_kw) -> dict:
     """The fast mode (``dense_fast=True``) scanned on store batches without
     the operators: a fresh engine's first epoch is the main path of K3's
     fast variant (its launches: the warm-up step's, and the capture's
@@ -2763,37 +2845,39 @@ def fast_phase(dataset, tmp: str, seed: int, kdir: str, exact_k3_losses: list,
     bf16 kernel once per launch and the fp32 one never, and counts the
     casts to bf16 (``cast_kernel``, as phase 3 traced one). Then the fast
     operator path (``adj_conv`` with bf16 operands in the graph) for one
-    scanned epoch."""
+    scanned epoch. ``engine_kw`` go to every engine (``scan_engine``), and
+    ``label`` names them and the log lines."""
     out = {}
-    looped = scan_engine(dataset, seed, tmp, "fast_looped", kdir, False, dense_fast=True)
-    scanned = scan_engine(dataset, seed, tmp, "fast_scanned", kdir, False, dense_fast=True,
-                          scan_epochs=True)
+    looped = scan_engine(dataset, seed, tmp, f"{label}_looped", kdir, False, dense_fast=True,
+                         **engine_kw)
+    scanned = scan_engine(dataset, seed, tmp, f"{label}_scanned", kdir, False, dense_fast=True,
+                          scan_epochs=True, **engine_kw)
     lt = run_pass(looped, True)
     st = run_pass(scanned, True)
     if st["loss"] != lt["loss"]:
-        raise AssertionError(f"fast k3: scanned {st['loss']} != looped {lt['loss']}")
-    assert_same_training("fast", looped, scanned)
+        raise AssertionError(f"{label} k3: scanned {st['loss']} != looped {lt['loss']}")
+    assert_same_training(label, looped, scanned)
     want = {"fused_gin_conv_bf16": 4 * st["batches"]}
     prof = profile_run(lambda: scanned._run_pass(scanned.train_loader, training=True),
                        (K3_EXACT_NAME, K3_FAST_NAME, cast_kernel))
     traced = (prof[f"trace[{K3_FAST_NAME}]"]["count"], prof[f"trace[{K3_EXACT_NAME}]"]["count"])
-    log(f"fast k3: looped loss {lt['loss']} ran {lt['ran']}; scanned loss {st['loss']} ran "
+    log(f"{label} k3: looped loss {lt['loss']} ran {lt['ran']}; scanned loss {st['loss']} ran "
         f"{st['ran']} counted {st['counted']} replays {st['replays']}; exact K3 path's first "
         f"loss {exact_k3_losses[0]}; traced fast/exact K3 {traced}, bf16 casts "
         f"{prof[f'trace[{cast_kernel}]']}; profile {json.dumps(prof)}")
     if st["ran"] != want or lt["ran"] != want or traced != (want["fused_gin_conv_bf16"], 0):
-        raise AssertionError(f"fast k3: launches scanned {st['ran']} looped {lt['ran']}, "
+        raise AssertionError(f"{label} k3: launches scanned {st['ran']} looped {lt['ran']}, "
                              f"traced {traced}, want {want}")
     np.testing.assert_allclose(st["loss"], exact_k3_losses[0], **BF16_TOL)
     out["k3"] = {"loss": st["loss"], "launches": st["ran"], "counted": st["counted"],
                  "replays": st["replays"], "wall": st["wall"], "graphs": st["graphs"],
                  "profile": prof, "casts": prof[f"trace[{cast_kernel}]"]["count"]}
-    ops = scan_engine(dataset, seed, tmp, "fast_operators", kdir, True, dense_fast=True,
-                      scan_epochs=True)
+    ops = scan_engine(dataset, seed, tmp, f"{label}_operators", kdir, True, dense_fast=True,
+                      scan_epochs=True, **engine_kw)
     ot = run_pass(ops, True)
-    log(f"fast operators: scanned loss {ot['loss']}, ran {ot['ran']}, replays {ot['replays']}")
+    log(f"{label} operators: scanned loss {ot['loss']}, ran {ot['ran']}, replays {ot['replays']}")
     if not np.isfinite(ot["loss"]) or ot["ran"]:
-        raise AssertionError(f"fast operators: loss {ot['loss']}, launches {ot['ran']}")
+        raise AssertionError(f"{label} operators: loss {ot['loss']}, launches {ot['ran']}")
     out["operators"] = {"loss": ot["loss"], "wall": ot["wall"], "replays": ot["replays"]}
     return out
 
@@ -3947,6 +4031,468 @@ def digest_phase(tmp: str, kdir: str, seed: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 15. atomic scale: the JAX package's headline shapes (bench.py's atomic arms)
+
+ATOMIC_GRAPHS = 128  # two batches of 64, as bench.py's atomic_epoch_scan
+ATOMIC_BATCH = 64
+ATOMIC_NODES = 2560
+ATOMIC_EDGES = 15000  # stored undirected; 30,000 directed a graph
+ATOMIC_WIDTH = 48
+# bench.py's feature names (write_bench_hdf5) and target; all graphs train
+# (bench.py's epoch arm has no validation split)
+ATOMIC_CONFIG = dict(node_feature=[f"f{i}" for i in range(ATOMIC_WIDTH)], target="irmsd",
+                     batch_size=ATOMIC_BATCH, percent=[1.0, 0.0])
+ATOMGRAPH_MODELS = 32  # docking models featurized by AtomGraph on the card
+ATOMGRAPH_CPU_MODELS = 2  # of them also on the CPU path
+ATOMGRAPH_BATCH = 16
+# bench.py's atomic_real_dense_op features (bench.py:490-491): 20 + 4 + 5 + 1 + 1 + 20
+ATOMGRAPH_FEATURES = ["type", "polarity", "atomtype", "bsa", "charge", "pssm"]
+ATOMGRAPH_WIDTH = 51
+
+
+def build_atomic_graphs(seed: int, num_graphs: int, n: int = ATOMIC_NODES,
+                        e_und: int = ATOMIC_EDGES):
+    """The JAX package's atomic-scale synthetic graphs (``bench.py``'s
+    ``build_big_graphs``) value for value, from the same ``RandomState``
+    stream, as the port's ``GraphSample``: ``n`` nodes of 48 features,
+    ``e_und`` random edges doubled and row-sorted (every node a source),
+    uniform edge attributes, level-0 clusters drawn from ``n // 4`` labels
+    (about 4 nodes each) and level 1 grouping 3 of them."""
+    from deeprank_gnn_tpu_torch.data.dataset import GraphSample
+
+    rng = np.random.RandomState(seed)
+    graphs = []
+    for gi in range(num_graphs):
+        src = rng.randint(0, n, e_und)
+        dst = (src + 1 + rng.randint(0, n - 1, e_und)) % n
+        src[:n] = np.arange(n)
+        ei = np.stack([np.concatenate([src, dst]), np.concatenate([dst, src])]).astype(np.int32)
+        ea = rng.rand(2 * e_und, 1).astype(np.float32)
+        order = np.argsort(ei[0], kind="stable")
+        ei, ea = ei[:, order], ea[order]
+        _, c0 = np.unique(rng.randint(0, n // 4, n), return_inverse=True)
+        c1 = (np.arange(int(c0.max()) + 1) // 3).astype(np.int32)
+        graphs.append(GraphSample(
+            mol=f"g{gi}",
+            x=rng.randn(n, ATOMIC_WIDTH).astype(np.float32),
+            pos=rng.randn(n, 3).astype(np.float32),
+            edge_index=ei,
+            edge_attr=ea,
+            internal_edge_index=ei[:, :e_und],
+            internal_edge_attr=ea[:e_und],
+            cluster0=c0.astype(np.int32),
+            cluster1=c1,
+            y=float(rng.rand() * 10),
+        ))
+    return graphs
+
+
+@contextlib.contextmanager
+def plans_once():
+    """The block runs with the loaders' per-graph pooling plan
+    (``data.batch.make_graph_plan``) made once per sample: every loader and
+    store built in the block finds the plan the first call made, so each of
+    the many engines of the atomic phase pays its own collation and not the
+    plans again (~30 ms a graph on the host at this scale; path 1 times
+    them)."""
+    from deeprank_gnn_tpu_torch.data import batch as batch_mod
+
+    make = batch_mod.make_graph_plan
+    memo: dict = {}
+
+    def once(sample):
+        if id(sample) not in memo:
+            memo[id(sample)] = (sample, make(sample))  # the sample kept, so its id stays its own
+        return memo[id(sample)][1]
+
+    batch_mod.make_graph_plan = once
+    try:
+        yield memo
+    finally:
+        batch_mod.make_graph_plan = make
+
+
+@contextlib.contextmanager
+def peak_memory(label: str, smi: str, out: dict):
+    """The block's peak of ``torch.cuda.max_memory_allocated`` (what was
+    allocated when it began included, and given beside it), logged with the
+    card's name and power limit and kept in ``out[label]``."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    out[label] = {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                  "allocated_before_bytes": before, "seconds": time.perf_counter() - t0}
+    log(f"atomic {label} ({smi}): peak allocated {out[label]['peak_allocated_bytes']} B "
+        f"(allocated before {before} B); {out[label]['seconds']:.1f} s")
+
+
+def atomic_data_check(dataset) -> dict:
+    """Path 1: every graph's pooling plan (host, timed); then one unshuffled
+    epoch of the loader at batch 64 in each layout (sparse with its four CSR
+    row-pointer families, dense run-padded, dense with the precomputed
+    operators), each batch's host collation timed, and each batch moved to
+    the card as the engine moves it (``prefetch``: pinned, asynchronous)
+    bitwise the CPU batch; then ``community_pooling`` of one graph on the
+    card (its pooled edges summed by K1, one launch for each edge family)
+    against the CPU run: features, edges and their attributes bitwise,
+    positions at ``KERNEL_TOL``. Returns the numbers and the CPU batches."""
+    import types
+
+    import torch
+
+    from deeprank_gnn_tpu_torch.community_pooling import community_pooling
+    from deeprank_gnn_tpu_torch.data import batch as batch_mod
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.prefetch import prefetch
+    from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    for g in dataset.graphs:
+        batch_mod.make_graph_plan(g)
+    res = {"graphs": len(dataset),
+           "plans_ms_per_graph": 1e3 * (time.perf_counter() - t0) / len(dataset)}
+    batches = {}
+    for name, kw in (("sparse", dict(layout="sparse")), ("dense", dict(layout="dense")),
+                     ("operators", dict(layout="dense", precompute_ops=True))):
+        walls, cpu = [], []
+        t0 = time.perf_counter()
+        for b, mols in GraphLoader(dataset, batch_size=ATOMIC_BATCH, **kw):
+            walls.append(1e3 * (time.perf_counter() - t0))
+            cpu.append((b, mols))
+            t0 = time.perf_counter()
+        on_card = list(prefetch(cpu, "cuda"))
+        fields = [same_fields(f"atomic {name} batch {i}", want, got)
+                  for i, ((want, _), (got, _m)) in enumerate(zip(cpu, on_card))]
+        del on_card
+        b = cpu[0][0]
+        if name == "sparse":
+            shape = {"N": b.num_nodes, "E": b.edge_index.shape[1],
+                     "E_valid": int(b.edge_rowptr[-1]), "C0": b.num_clusters0,
+                     "pooled_edges": int(b.pe_rowptr[-1]),
+                     "internal_edges": int(b.iedge_rowptr[-1])}
+        else:
+            shape = {"G": b.x.shape[0], "S": b.x.shape[1], "E": b.row.shape[1],
+                     "E_valid": int(b.edge_mask.sum()), "C0g": b.pool0_mask.shape[1],
+                     "P": b.pe_row.shape[1], "pooled_edges": int(b.pe_mask.sum())}
+        res[name] = {"batches": len(cpu), "host_collate_ms_per_batch": walls,
+                     "fields_per_batch": fields, "first_batch": shape}
+        batches[name] = cpu
+        log(f"atomic data {name}: " + json.dumps(res[name]))
+
+    g = dataset.graphs[0]
+
+    def graph_on(dev):
+        t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+        return types.SimpleNamespace(
+            x=t(g.x), pos=t(g.pos), edge_index=t(g.edge_index.astype(np.int64)),
+            edge_attr=t(g.edge_attr), internal_edge_index=t(g.internal_edge_index.astype(np.int64)),
+            internal_edge_attr=t(g.internal_edge_attr)), t(g.cluster0)
+
+    data, cluster = graph_on("cuda")
+    LAUNCHES.clear()
+    card = community_pooling(cluster, data)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    data, cluster = graph_on("cpu")
+    cpu_pool = community_pooling(cluster, data)
+    for f in ("x", "edge_index", "edge_attr", "internal_edge_index", "internal_edge_attr"):
+        if not torch.equal(getattr(card, f).cpu(), getattr(cpu_pool, f)):
+            raise AssertionError(f"atomic community_pooling: {f} differs from the cpu run")
+    torch.testing.assert_close(card.pos.cpu(), cpu_pool.pos, **KERNEL_TOL)
+    if launches != {"sorted_segment_sum": 2}:
+        raise AssertionError(f"atomic community_pooling launched {launches}, want 2 K1")
+    res["community_pooling"] = {"clusters": card.num_nodes,
+                                "pooled_edges": card.edge_index.shape[1],
+                                "pooled_internal_edges": card.internal_edge_index.shape[1],
+                                "launches": launches}
+    log(f"atomic data: plans {res['plans_ms_per_graph']:.2f} ms a graph; community_pooling "
+        + json.dumps(res["community_pooling"]))
+    return res, batches
+
+
+def atomic_kernels(sparse_batch, dense_batch, seed: int) -> dict:
+    """K1, K3 and K3 fast at the first atomic batch's shapes, forward and
+    backward, each bitwise its plain version run on the CPU (``k1_case``,
+    ``k3_case``, ``k3_fast_case``), with its launch plan, L2-flushed and
+    L2-warm times, the plain version's and the library call's times and
+    the bound. K3's conv1 must take the branch without the slab in shared
+    memory over several edge tiles, in both variants. No call is traced
+    here: a one-call trace after other traces in one process has come back
+    without device events (PERF.md §7); path 4's traced epoch counts the
+    fast path's casts."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    b, d = sparse_batch.to(dev), dense_batch.to(dev)
+    k1 = []
+    for name, f, ptr, rows in (("atomic-conv1", 32, b.edge_rowptr, b.edge_index[0]),
+                               ("atomic-conv2", 64, b.pe_rowptr, b.pe_index[0])):
+        data = rand(rows.shape[0], f)
+        res = k1_case(name, data, ptr, rows, timed=True, reordered=True)
+        if (res["vec"], res["lanes_per_row"], res["loads_in_flight"]) != \
+                k1_plan_want(res["N"], res["F"]):
+            raise AssertionError(f"K1 {name}: launch plan {res}")
+        k1 += [res, k1_backward_case(name, data, ptr, rows, gen)]
+    g, s, c0g = d.x.shape[0], d.x.shape[1], d.pool0_mask.shape[1]
+    main = [("atomic-conv1", rand(g, s, 32), d.row, d.col),
+            ("atomic-conv2", rand(g, c0g, 64), d.pe_row, d.pe_col)]
+    k3 = [k3_case(name, x, r, c, gen, timed=True) for name, x, r, c in main]
+    fast = [k3_fast_case(name, x, r, c, gen, timed=True, trace=False) for name, x, r, c in main]
+    for res in k1:
+        log("K1 " + json.dumps(res))
+    for res in k3:
+        log("K3 " + json.dumps(res))
+    for res in fast:
+        log("K3 fast " + json.dumps(res))
+    for res in (k3[0], fast[0]):
+        if res["slab"] or res["edge_tiles"] < 2:
+            raise AssertionError(f"K3 {res['case']}: want the branch without the slab over "
+                                 f"several edge tiles, plan {res}")
+    return {"k1": k1, "k3": k3, "k3_fast": fast}
+
+
+def atomgraph_check(tmp: str, seed: int, smi: str) -> dict:
+    """Path 6: ``write_docking_models``' seeded complex (~4,744 atoms a
+    model) through ``AtomGraph(..., device="cuda")``, scored against the
+    first model; ``ATOMGRAPH_CPU_MODELS`` of them also on the CPU path:
+    node, edge and contact lists and ``pos`` bitwise, features, per-atom
+    SASA, distances and scores within ``FEATURE_TOL`` (``same_graph``).
+    The graphs are clustered (MCL), converted (``Graph.to_sample``) with
+    bench.py's atomic features and served in the sparse layout from a
+    seeded checkpoint (K1 2 launches a batch, against the CPU at ``TOL``)."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet, cluster_sample
+    from deeprank_gnn_tpu_torch.featurize.atom_graph import AtomGraph
+    from deeprank_gnn_tpu_torch.featurize.sasa import atom_sasa
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    cx = write_docking_models(os.path.join(tmp, "atomic_docking"), seed, ATOMGRAPH_MODELS,
+                              *FEATURIZE_RESIDUES)
+
+    def run(k, dev):
+        t0 = time.perf_counter()
+        g = AtomGraph(pdb=cx["pdbs"][k], pssm=cx["pssm_files"], device=dev)
+        g.get_score(cx["ref_file"])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return g, time.perf_counter() - t0
+
+    card, card_s = zip(*(run(k, "cuda") for k in range(ATOMGRAPH_MODELS)))
+    cpu, cpu_s = zip(*(run(k, "cpu") for k in range(ATOMGRAPH_CPU_MODELS)))
+    errs = [same_graph(k, card[k], cpu[k], atom_sasa(card[k].struct, device="cuda"),
+                       atom_sasa(cpu[k].struct, device="cpu"))
+            for k in range(ATOMGRAPH_CPU_MODELS)]
+    samples = [cluster_sample(g.to_sample(ATOMGRAPH_FEATURES, ["dist"], target="irmsd"), "mcl")
+               for g in card]
+    res = {
+        "models": ATOMGRAPH_MODELS, "atoms": [min(g.struct.natoms for g in card),
+                                              max(g.struct.natoms for g in card)],
+        "nodes": [min(len(g.nodes) for g in card), max(len(g.nodes) for g in card)],
+        "edges": [min(len(g.edges) for g in card), max(len(g.edges) for g in card)],
+        "clusters0": [min(int(s.cluster0.max()) + 1 for s in samples),
+                      max(int(s.cluster0.max()) + 1 for s in samples)],
+        "features": int(samples[0].x.shape[1]),
+        "cold_first_model_s": card_s[0],
+        "card_models_per_s": (ATOMGRAPH_MODELS - 1) / sum(card_s[1:]),
+        "cpu_models_per_s": ATOMGRAPH_CPU_MODELS / sum(cpu_s),
+        "cpu_max_abs": {k: max(e[k] for e in errs) for k in errs[0]},
+    }
+    log(f"atomic featurize ({smi}): " + json.dumps(res))
+    if res["features"] != ATOMGRAPH_WIDTH:
+        raise AssertionError(f"atomic featurize: {res['features']} features, want "
+                             f"{ATOMGRAPH_WIDTH}")
+    ckpt = os.path.join(tmp, "ginet_atomgraph_irmsd.pth.tar")
+    write_checkpoint(ckpt, seed, target="irmsd", batch_size=ATOMGRAPH_BATCH,
+                     node=ATOMGRAPH_FEATURES, width=ATOMGRAPH_WIDTH)
+    res["serve"] = serve_check("atomgraph", GINet, GraphListDataSet(samples), ckpt, tmp,
+                               "sparse", {"sorted_segment_sum": 2},
+                               lambda ld: {"sorted_segment_sum": sparse_bound_per_batch(ld)},
+                               sites=False)
+    return res
+
+
+def atomic_phase(tmp: str, seed: int, kdir: str, smi: str, cast_kernel: str = "") -> dict:
+    """Phase 15: paper-mode GINet at the JAX package's atomic-graph scale
+    (``bench.py``'s headline arms: 128 graphs of 2,560 nodes and 30,000
+    directed edges, batch 64, two batches), paths 1-6 through the port's
+    entry points, each with its peak of allocated device memory.
+    ``cast_kernel``: the name a cast to bf16 traces as (phase 3's), else
+    traced here before any other trace."""
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    t_start = time.perf_counter()
+    out, memory = {}, {}
+    dataset = GraphListDataSet(build_atomic_graphs(seed, ATOMIC_GRAPHS))
+    ckpt = os.path.join(tmp, "ginet_atomic_irmsd.pth.tar")
+    write_checkpoint(ckpt, seed, target="irmsd", batch_size=ATOMIC_BATCH,
+                     node=ATOMIC_CONFIG["node_feature"], width=ATOMIC_WIDTH)
+    sparse_bounds = lambda ld: {"sorted_segment_sum": sparse_bound_per_batch(ld)}
+    with plans_once():
+        with peak_memory("data", smi, memory):
+            out["data"], batches = atomic_data_check(dataset)
+        with peak_memory("kernels", smi, memory):
+            if not cast_kernel:
+                cast_kernel = bf16_cast_kernel(batches["dense"][0][0].x.to("cuda"))
+            out["kernels"] = atomic_kernels(batches["sparse"][0][0], batches["dense"][0][0],
+                                            seed)
+        with peak_memory("sparse", smi, memory):
+            out["serve_sparse"] = serve_check(
+                "atomic_sparse", GINet, dataset, ckpt, tmp, "sparse", {"sorted_segment_sum": 2},
+                sparse_bounds, sites=False)
+            out["train_sparse"] = train_phase(
+                "atomic_sparse", GINet, dataset, "sparse", seed, tmp, {"sorted_segment_sum": 2},
+                sparse_bounds, epochs=1, resume=False, config=ATOMIC_CONFIG)
+        with peak_memory("dense", smi, memory):
+            out["serve_dense"] = serve_check(
+                "atomic_dense", GINet, dataset, ckpt, tmp, "dense", {"fused_gin_conv": 2},
+                lambda ld: {"fused_gin_conv": dense_bound_per_batch(ld, False)}, sites=False)
+            diff = np.abs(out["serve_dense"]["pred"] - out["serve_sparse"]["pred"])
+            log(f"atomic serve: dense vs sparse on the card, max abs {diff.max()}")
+            np.testing.assert_allclose(out["serve_dense"]["pred"], out["serve_sparse"]["pred"],
+                                       **TOL)
+            out["train_dense"] = train_phase(
+                "atomic_dense", GINet, dataset, "dense", seed, tmp, {"fused_gin_conv": 4},
+                lambda ld: {"fused_gin_conv": dense_bound_per_batch(ld, True)}, epochs=1,
+                resume=False, config=ATOMIC_CONFIG)
+        engine_kw = dict(batch=ATOMIC_BATCH, percent=ATOMIC_CONFIG["percent"],
+                         node_feature=ATOMIC_CONFIG["node_feature"],
+                         target=ATOMIC_CONFIG["target"])
+        with peak_memory("fast", smi, memory):
+            out["fast"] = fast_phase(dataset, tmp, seed, kdir, out["train_dense"]["losses"],
+                                     cast_kernel, label="atomic_fast", **engine_kw)
+            if out["fast"]["k3"]["casts"]:
+                raise AssertionError(f"atomic fast: {out['fast']['k3']['casts']} casts traced")
+        with peak_memory("operators", smi, memory):
+            # the store's batches bitwise path 1's, and its bytes
+            out["store"] = store_batches_check(dataset, True, ATOMIC_BATCH, batches["operators"])
+            del batches
+            if out["store"]["packed_bytes"] > out["store"]["estimate_bytes"]:
+                raise AssertionError(f"atomic store: over its estimate {out['store']}")
+            out["serve_operators"] = serve_check(
+                "atomic_operators", GINet, dataset, ckpt, tmp, "dense", {}, lambda ld: {},
+                sites=False, device_cache=True)
+            np.testing.assert_allclose(out["serve_operators"]["pred"],
+                                       out["serve_dense"]["pred"], **TOL)
+            out["train_operators"] = train_phase(
+                "atomic_operators", GINet, dataset, "dense", seed, tmp, {}, config=ATOMIC_CONFIG,
+                device_cache=True)
+            out["scan_operators"] = scan_training_check(
+                "atomic_operators", dataset, seed, tmp, kdir, True, epochs=2, **engine_kw)[0]
+            if any(out["scan_operators"]["ran_per_epoch"]):
+                raise AssertionError(f"atomic scan: hand kernels ran {out['scan_operators']}")
+        with peak_memory("atomgraph", smi, memory):
+            out["atomgraph"] = atomgraph_check(tmp, seed, smi)
+    out["memory"] = memory
+    log(f"phase atomic: {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+ATOMIC_PASS_KEYS = ("device_idle_share", "device_busy_ms", "index_accumulation_ms",
+                    "index_accumulation_share_of_busy", "host_collate_ms",
+                    "sorted_segment_sum_ms_per_batch", "sorted_segment_sum_bound_ms_per_batch",
+                    "fused_gin_conv_ms_per_batch", "fused_gin_conv_bound_ms_per_batch",
+                    "index_accumulation_sites")
+
+
+def atomic_summary(atomic: dict) -> dict:
+    """Phase 15's numbers per path: graphs/s of each pass (the first cold),
+    launches, the profiled pass's busy and idle shares, index accumulation
+    and its sites, host collation and hand kernels against their bounds;
+    the store's bytes, the scanned and looped epochs, the fast mode, the
+    featurizer, and peak memory."""
+    out = {"data": atomic["data"], "memory": atomic["memory"]}
+    for label in ("serve_sparse", "train_sparse", "serve_dense", "train_dense",
+                  "serve_operators", "train_operators"):
+        v = atomic[label]
+        count = len(v["pred"]) if label.startswith("serve") else v["graphs"]
+        out[label] = {"graphs_per_s": [count / w for w in v["walls"]], "launches": v["launches"]}
+        if v["where"] is not None:
+            out[label].update({k: v["where"][k] for k in ATOMIC_PASS_KEYS if k in v["where"]})
+    out["store"] = atomic["store"]
+    scan = atomic["scan_operators"]
+    out["scan_operators"] = {k: scan[k] for k in ("looped_graphs_per_s", "scanned_graphs_per_s",
+                                                 "scanned_host_ms_per_batch", "replays_per_epoch")}
+    out["scan_operators"]["device_idle_share"] = {
+        "scanned": scan["scanned_profile"]["device_idle_share"],
+        "looped": scan["looped_profile"]["device_idle_share"]}
+    fast = atomic["fast"]["k3"]
+    out["fast"] = {"loss": fast["loss"], "launches": fast["launches"], "casts": fast["casts"],
+                   "graphs_per_s": fast["graphs"] / fast["wall"],
+                   "device_idle_share": fast["profile"]["device_idle_share"]}
+    feat = atomic["atomgraph"]
+    out["atomgraph"] = {k: v for k, v in feat.items() if k != "serve"}
+    out["atomgraph"]["serve"] = {
+        "graphs_per_s": [len(feat["serve"]["pred"]) / w for w in feat["serve"]["walls"]],
+        "launches": feat["serve"]["launches"],
+        "device_idle_share": feat["serve"]["where"]["device_idle_share"]}
+    return out
+
+
+def atomic_kernel_line(atomic: dict, name: str) -> dict:
+    """A kernel's numbers at the atomic shapes for the last lines' JSON:
+    launches on each atomic path, and the first batch's calls (forward and
+    backward, L2 flushed) beside the plain version, the library call and
+    the bound, with each shape's launch plan."""
+    k = atomic["kernels"]
+    sums = ("ms", "plain_ms", "library_ms", "bound_ms", "l2_warm_ms", "call_ms")
+    if name == "sorted_segment_sum":
+        main = [r for r in k["k1"] if "ms" in r]
+        s_where, t_where = atomic["serve_sparse"]["where"], atomic["train_sparse"]["where"]
+        return {
+            "max_abs_err": max(r["max_abs_err"] for r in k["k1"]),
+            "serve_launches": atomic["serve_sparse"]["launches"][name],
+            "train_launches": atomic["train_sparse"]["launches"][name],
+            "atomgraph_serve_launches": atomic["atomgraph"]["serve"]["launches"][name],
+            "community_pooling_launches": atomic["data"]["community_pooling"]["launches"][name],
+            **{key: sum(r[key] for r in main) for key in sums},
+            "served_ms_per_batch": s_where[f"{name}_ms_per_batch"],
+            "served_bound_ms_per_batch": s_where[f"{name}_bound_ms_per_batch"],
+            "train_ms_per_batch": t_where[f"{name}_ms_per_batch"],
+            "train_bound_ms_per_batch": t_where[f"{name}_bound_ms_per_batch"],
+            "shapes": [{key: r[key] for key in ("case", "E", "E_valid", "N", "F", *sums, "vec",
+                                                 "lanes_per_row", "rows_per_block", "blocks",
+                                                 "loads_in_flight", "blocks_per_sm")}
+                       for r in main],
+        }
+    plans = ("slab", "rows_per_block", "blocks_per_graph", "edge_tile", "edge_tiles",
+             "smem_bytes", "blocks_per_sm")
+    both = lambda r, key: r[f"{key}_fwd"] + r[f"{key}_bwd"]
+    if name == "fused_gin_conv":
+        rows, s_where = k["k3"], atomic["serve_dense"]["where"]
+        t_where = atomic["train_dense"]["where"]
+        line = {"serve_launches": atomic["serve_dense"]["launches"][name],
+                "train_launches": atomic["train_dense"]["launches"][name],
+                "served_ms_per_batch": s_where[f"{name}_ms_per_batch"],
+                "served_bound_ms_per_batch": s_where[f"{name}_bound_ms_per_batch"],
+                "train_ms_per_batch": t_where[f"{name}_ms_per_batch"],
+                "train_bound_ms_per_batch": t_where[f"{name}_bound_ms_per_batch"]}
+    else:
+        rows = k["k3_fast"]
+        line = {"launches": atomic["fast"]["k3"]["launches"][name],
+                "scan_cast_launches": atomic["fast"]["k3"]["casts"],
+                "exact_ms": sum(both(r, "exact_ms") for r in rows)}
+    line["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    line.update({key: sum(both(r, key) for r in rows)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms", "l2_warm_ms")})
+    line["shapes"] = [{key: r[key] for key in ("case", "G", "S", "F", "E", "E_valid", "ms_fwd",
+                                                "ms_bwd", "plain_ms_fwd", "plain_ms_bwd",
+                                                "library_ms_fwd", "library_ms_bwd",
+                                                "bound_ms_fwd", "bound_ms_bwd", *plans)}
+                      for r in rows]
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3958,6 +4504,8 @@ def main(argv=None) -> int:
     ap.add_argument("--digests", action="store_true",
                     help="build the kernels and print only each training path's digests "
                          "(phase 14), to compare a checkout with another on one card")
+    ap.add_argument("--atomic", action="store_true",
+                    help="build the kernels and run only the atomic-scale phase (15)")
     ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
                     help=f"{CARDS}: build the kernels and run only the mesh paths, one NCCL "
                          f"rank a card on cuda:0-{CARDS - 1}, held against one card")
@@ -4132,6 +4680,12 @@ def run(args, kdir: str) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             digest_phase(tmp, kdir, args.seed)
         return 0
+    if args.atomic:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            atomic = atomic_phase(tmp, args.seed, kdir, smi)
+        log("atomic " + json.dumps(atomic_summary(atomic)))
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.cards == CARDS:
         return cards_run(args, kdir, kind, t_start)
 
@@ -4151,6 +4705,11 @@ def run(args, kdir: str) -> int:
     padding = padding_phase(dataset, args.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 15. atomic scale, early: its passes are profiled, and late in a
+        # long process the profiler has returned traces without device events
+        atomic = atomic_phase(tmp, args.seed, kdir, smi, k3_fast[0]["cast_kernel"])
+        gc.collect()  # the phase's engines are gone: give their memory back
+        torch.cuda.empty_cache()
         # 4. serve paper-mode GINet, both layouts
         t0 = time.perf_counter()
         served = serve_phase(dataset, tmp, args.seed)
@@ -4226,6 +4785,8 @@ def run(args, kdir: str) -> int:
     line = {"kernels": [
         {
             "name": "sorted_segment_sum",
+            # phase 15: the atomic-scale paths and the first atomic batch's calls
+            "atomic": atomic_kernel_line(atomic, "sorted_segment_sum"),
             **KERNELS["sorted_segment_sum"],
             "mesh_launches_per_rank": mesh_launches("sorted_segment_sum"),
             "scan_mesh_launches": scan_mesh_launches("sorted_segment_sum"),
@@ -4275,6 +4836,8 @@ def run(args, kdir: str) -> int:
         },
         {
             "name": "fused_gin_conv",
+            # phase 15: the atomic-scale paths and the first atomic batch's calls
+            "atomic": atomic_kernel_line(atomic, "fused_gin_conv"),
             **KERNELS["fused_gin_conv"],
             "mesh_launches_per_rank": mesh_launches("fused_gin_conv"),
             "scan_mesh_launches": scan_mesh_launches("fused_gin_conv"),
@@ -4320,6 +4883,8 @@ def run(args, kdir: str) -> int:
         },
         {
             "name": "sorted_scatter_gather",
+            # no atomic-scale path runs K2 (only the attention softmax does)
+            "atomic": None,
             **KERNELS["sorted_scatter_gather"],
             "mesh_launches_per_rank": mesh_launches("sorted_scatter_gather"),
             "scan_mesh_launches": scan_mesh_launches("sorted_scatter_gather"),
@@ -4359,6 +4924,8 @@ def run(args, kdir: str) -> int:
         },
         {
             "name": "fused_gin_conv_bf16",
+            # phase 15: the atomic-scale paths and the first atomic batch's calls
+            "atomic": atomic_kernel_line(atomic, "fused_gin_conv_bf16"),
             **FAST_K3,
             "mesh_launches_per_rank": mesh_launches("fused_gin_conv_bf16"),
             "scan_mesh_launches": scan_mesh_launches("fused_gin_conv_bf16"),
@@ -4431,6 +4998,7 @@ def run(args, kdir: str) -> int:
             summary[label].update({k: v["where"].get(k) for k in (
                 "device_idle_share", "device_busy_ms", "index_accumulation_ms",
                 "index_accumulation_share_of_busy")})
+    summary["atomic"] = atomic_summary(atomic)
     summary["padding"] = padding
     summary["digests"] = digests
     summary["store_bytes"] = store["batches"]

@@ -643,6 +643,7 @@ cudaError_t plan_of(int n_slots, int n_cols, int n_edges, bool fast, int* plan) 
     plan[6] = fast_cols_per_lane(n_cols);
     plan[7] = kFastUnroll;
   }
+  plan[fast ? 8 : 5] = p.edge_tile;
   return cudaSuccess;
 }
 
@@ -668,9 +669,10 @@ cudaError_t launch(const float* xw, const int* row, const int* col, float* out, 
 }  // namespace
 
 // The launch fused_gin_conv_f32 makes for these sizes (all > 0), into
-// plan[0..4]: 1 when the slab is staged in shared memory (else 0), rows per
-// block, blocks per graph, dynamic shared memory per block in bytes, and
-// blocks resident per SM. Returns a CUDA error code (0 on success).
+// plan[0..5]: 1 when the slab is staged in shared memory (else 0), rows per
+// block, blocks per graph, dynamic shared memory per block in bytes, blocks
+// resident per SM, and edges per tile (a block walks ceil(E / tile) tiles).
+// Returns a CUDA error code (0 on success).
 extern "C" int fused_gin_conv_plan(int n_slots, int n_cols, int n_edges, int* plan) {
   return static_cast<int>(plan_of(n_slots, n_cols, n_edges, false, plan));
 }
@@ -686,8 +688,9 @@ extern "C" int fused_gin_conv_f32(const float* xw, const int* row, const int* co
 }
 
 // The launch fused_gin_conv_fast makes for these sizes (all > 0), into
-// plan[0..7]: the five fields of fused_gin_conv_plan, then lanes per row,
-// columns per lane and source rows loaded before they are added.
+// plan[0..8]: the first five fields of fused_gin_conv_plan, then lanes per
+// row, columns per lane, source rows loaded before they are added, and edges
+// per tile.
 extern "C" int fused_gin_conv_fast_plan(int n_slots, int n_cols, int n_edges, int* plan) {
   return static_cast<int>(plan_of(n_slots, n_cols, n_edges, true, plan));
 }

@@ -130,11 +130,14 @@ def launch_plan(device, s: int, f: int, e: int, fast: bool = False) -> dict:
     variant's with the slab's bf16 copy) and ``blocks_per_sm`` resident; the
     fast variant also ``lanes_per_row``, ``cols_per_lane`` (8: one 16-byte
     load of bf16) and ``unroll`` (source rows a lane loads before it adds
-    them)."""
+    them); both ``edge_tile`` (edges sorted in shared memory at a time) and
+    ``edge_tiles`` (the tiles a block walks, carrying its rows' sums through
+    ``out`` from one to the next)."""
     lib = build.load(NAME)
     keys = ["slab", "rows_per_block", "blocks_per_graph", "smem_bytes", "blocks_per_sm"]
     if fast:
         keys += ["lanes_per_row", "cols_per_lane", "unroll"]
+    keys.append("edge_tile")
     plan = (ctypes.c_int * len(keys))()
     with torch.cuda.device(device):
         plan_fn = lib.fused_gin_conv_fast_plan if fast else lib.fused_gin_conv_plan
@@ -143,6 +146,7 @@ def launch_plan(device, s: int, f: int, e: int, fast: bool = False) -> dict:
         raise RuntimeError(f"fused_gin_conv plan: CUDA error {err}")
     out = dict(zip(keys, plan))
     out["slab"] = bool(out["slab"])
+    out["edge_tiles"] = -(-e // out["edge_tile"])
     return out
 
 
