@@ -3,8 +3,9 @@ of the dense layout.
 
 The port's counterpart of ``deeprank_gnn_tpu/ops/dense.py``: the node
 gather and the edge-to-slot sums, counts, means and softmax that the
-attention conv, FoutNet and sGAT run (batched one-hot products, as XLA
-compiled them for the JAX package: deterministic, no atomics); the
+attention conv, FoutNet and sGAT run (sums and maxes over flattened
+per-graph slots, in edge order: the JAX package's one-hot products, which
+XLA fuses on a TPU, would each materialise a [G, E, size] tensor here); the
 member-table pool (which the sparse layout uses), the pool by assignment
 that the streaming dense path takes (its batches carry no member tables, so
 the JAX package's ``cluster_max_pool`` dispatch always lands there), and the
@@ -30,8 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from deeprank_gnn_tpu_torch.ops.lanes import gather_rows, needs_grad
-from deeprank_gnn_tpu_torch.ops.segment import segment_max
+from deeprank_gnn_tpu_torch.ops.lanes import gather_rows, index_add_rows, needs_grad
+from deeprank_gnn_tpu_torch.ops.segment import segment_max, segment_reduce_raw
 
 # Above this virtual broadcast size (G * C * S * F fp32 bytes) the pool
 # takes the member-table gathers, below it the pool by assignment: the JAX
@@ -55,21 +56,20 @@ def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_rows(x.reshape(g * s, f), flat, valid, g).reshape(g, idx.shape[1], f)
 
 
-def _one_hot(idx: torch.Tensor, size: int, dtype: torch.dtype) -> torch.Tensor:
-    """[G,E] -> [G,E,size]; a sentinel's row is all zero."""
-    iota = torch.arange(size, dtype=idx.dtype, device=idx.device)
-    return (idx[..., None] == iota).to(dtype)
-
-
 def edge_sum_to_slots(values: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
     """Sum edge values ``[G,E,F]`` into slots by ``idx [G,E]`` -> [G,size,F]
-    (the JAX package's one-hot einsum)."""
-    return torch.einsum("ges,gef->gsf", _one_hot(idx, size, values.dtype), values)
+    (the JAX package's one-hot einsum, ``ops/dense.py:33-39``), as one sum
+    over flattened slots in edge order (``index_add_rows``)."""
+    g, e = idx.shape
+    flat = values.reshape((g * e,) + tuple(values.shape[2:]))
+    out = index_add_rows(flat, _flat_idx(idx, size), g * size)
+    return out.reshape((g, size) + tuple(values.shape[2:]))
 
 
 def edge_count_to_slots(idx: torch.Tensor, size: int, dtype=torch.float32) -> torch.Tensor:
     """Number of edges per slot. [G,E] -> [G,size]."""
-    return _one_hot(idx, size, dtype).sum(dim=1)
+    ones = torch.ones(idx.numel(), dtype=dtype, device=idx.device)
+    return index_add_rows(ones, _flat_idx(idx, size), idx.shape[0] * size).reshape(-1, size)
 
 
 def edge_mean_to_slots(values: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -83,13 +83,15 @@ def dense_segment_softmax(logits: torch.Tensor, idx: torch.Tensor, size: int) ->
     """Per-slot softmax of edge logits ``[G,E]`` grouped by ``idx [G,E]``
     (a sentinel >= ``size`` drops out, weight 0) -> [G,E]; the dense analog
     of ``ops.segment.segment_softmax`` (JAX ``ops/dense.py:370-397``), with
-    its two NaN guards."""
+    its two NaN guards. The shift is a segment max over the flattened
+    slots and the denominator a sum over them (:func:`edge_sum_to_slots`):
+    JAX's broadcast max would materialise a [G, E, size] tensor here."""
+    g = idx.shape[0]
     valid = idx < size
-    member = (idx[..., None] == torch.arange(size, dtype=idx.dtype, device=idx.device)) \
-        & valid[..., None]  # [G,E,C]
-    neg_inf = torch.full((), float("-inf"), dtype=logits.dtype, device=logits.device)
     zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
-    slot_max = torch.where(member, logits[..., None], neg_inf).amax(dim=1)  # [G,C]
+    slot_max = segment_reduce_raw(logits.reshape(-1), _flat_idx(idx, size), g * size, "amax",
+                                  float("-inf")).reshape(g, size)
+    # an empty slot's -inf becomes 0 (no lane reads it)
     slot_max = torch.where(torch.isfinite(slot_max), slot_max, zero)
     # sanitize BEFORE exp: where()'s backward evaluates the branch it does
     # not take too, and exp of a huge pad logit turns a zero cotangent into
@@ -172,9 +174,7 @@ def slot_max_pool(h: torch.Tensor, assign: torch.Tensor, size: int) -> torch.Ten
     per-graph-offset ids, ``ops/dense.py:90-102``): its broadcast form
     would materialise a [G, size, S, F] tensor here."""
     g, s, f = h.shape
-    gid = torch.arange(g, dtype=assign.dtype, device=assign.device)[:, None]
-    flat_ids = torch.where((assign >= 0) & (assign < size), assign + gid * size, g * size)
-    return segment_max(h.reshape(g * s, f), flat_ids.reshape(-1), g * size).reshape(g, size, f)
+    return segment_max(h.reshape(g * s, f), _flat_idx(assign, size), g * size).reshape(g, size, f)
 
 
 def masked_mean(h: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -209,11 +209,14 @@ def _flat_rows(x: torch.Tensor, pad_value: float) -> torch.Tensor:
 
 
 def _flat_idx(idx: torch.Tensor, bound: int) -> torch.Tensor:
-    """Per-graph indices [G, ...] (pad sentinel >= ``bound``) -> flat row ids
-    into the [G*bound + 1]-row view, the pad at the sentinel row."""
+    """Per-graph indices [G, ...] -> flat row ids ``g * bound + idx`` into
+    the [G*bound + 1]-row view (or the G*bound flattened slots); an index
+    outside ``[0, bound)`` (the pad sentinel) gets the sentinel row
+    ``G * bound``."""
     g = idx.shape[0]
     goff = torch.arange(g, dtype=idx.dtype, device=idx.device).reshape((g,) + (1,) * (idx.ndim - 1))
-    return torch.where(idx < bound, idx + goff * bound, g * bound).reshape(-1).long()
+    valid = (idx >= 0) & (idx < bound)
+    return torch.where(valid, idx + goff * bound, g * bound).reshape(-1).long()
 
 
 def _tiles_to_clusters_sum(a_t: torch.Tensor, tile_mem: torch.Tensor) -> torch.Tensor:

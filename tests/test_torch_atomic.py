@@ -28,7 +28,19 @@ the weights go from JAX to the port through ``state_dict_from_jax_params``.
   (``PreCluster``), the port converts them in memory (``Graph.to_sample``,
   ``cluster_sample``); the samples bitwise, their collated batches' integer
   fields bitwise, and the scores of both engines served from one
-  checkpoint at rtol 2e-4, atol 1e-5.
+  checkpoint at rtol 2e-4, atol 1e-5;
+- the rest of the model zoo (``tests/test_torch_zoo.py``'s eight cases:
+  attention GINet in both layouts, the internal tower with and without
+  attention, FoutNet and sGAT in both layouts) on the atomic batch: forward
+  at rtol 2e-4, atol 1e-5 and every gradient at rtol 5e-4, atol 1e-5; the
+  dense ones run the flattened-slot edge ops
+  (``tests/test_torch_dense_ops.py`` holds those at ``bench.py``'s own
+  per-graph shapes);
+- the halo layout at ``d = 1`` (``bench.py``'s ``atomic_halo_step``:
+  ``make_halo_mesh``, ``partition_batch``, ``make_halo_train_step`` on one
+  device, here a one-rank mesh without a process group): the first 4 Adam
+  steps' losses, dropout off, against JAX's halo train step at rtol 2e-4,
+  atol 1e-5.
 """
 
 import dataclasses
@@ -40,6 +52,8 @@ import pytest
 import torch
 
 from chip_smoke import build_atomic_graphs, write_docking_models
+from test_torch_zoo import CASES, case_id
+from test_torch_zoo import models as zoo_models
 
 TOL = dict(rtol=2e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=1e-5)
@@ -167,6 +181,36 @@ def test_ginet_forward_and_gradients_match_jax(batches, layout):
             continue
         np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), err_msg=name,
                                    **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_zoo_forward_and_gradients_match_jax(batches, case):
+    import jax
+
+    from deeprank_gnn_tpu_torch.train.checkpoint import state_dict_from_jax_params
+
+    name, kw, layout = case
+    jb, tb = batches[layout]
+    jm, params, tm = zoo_models(name, kw, 48, seed=len(case_id(case)))
+
+    def loss(p):
+        return (jm.apply(p, jb)[:GRAPHS] ** 2).sum()
+
+    want = np.asarray(jm.apply(params, jb))
+    want_grads = state_dict_from_jax_params(name, jax.grad(loss)(params))
+    out = tm(tb)
+    (out[:GRAPHS] ** 2).sum().backward()
+    got = out.detach().numpy()
+    assert np.isfinite(got).all() and got[:GRAPHS].std() > 1e-4
+    np.testing.assert_allclose(got[:GRAPHS], want[:GRAPHS], **TOL)
+    for pname, p in tm.named_parameters():
+        want_grad = want_grads[pname].numpy()
+        if p.grad is None:  # paper mode's dead attention parameters (Q1)
+            assert not kw.get("attention") and pname.split(".")[1] in DEAD, pname
+            assert not want_grad.any(), pname
+            continue
+        assert np.isfinite(p.grad.numpy()).all(), pname
+        np.testing.assert_allclose(p.grad.numpy(), want_grad, err_msg=pname, **GRAD_TOL)
 
 
 def bf16(a: np.ndarray) -> np.ndarray:
@@ -330,3 +374,34 @@ def test_atom_graphs_served_like_jax(tmp_path):
     t.test(threshold=0.3)
     assert np.isfinite(t.test_out).all() and np.std(t.test_out) > 1e-6
     np.testing.assert_allclose(t.test_out, j.test_out, **TOL)
+
+
+def test_halo_d1_train_matches_jax(batches, no_dropout):
+    """``bench.py``'s ``atomic_halo_step`` (``bench.py:655-660``) at the atomic
+    batch: JAX's halo train step on one device against the port's on a
+    one-rank mesh, 4 Adam steps from the same weights."""
+    import jax
+    import optax
+
+    from deeprank_gnn_tpu.parallel import halo as JH
+    from deeprank_gnn_tpu_torch.parallel import halo as TH
+    from deeprank_gnn_tpu_torch.parallel.mesh import make_halo_mesh
+
+    jb, tb = batches["sparse"]
+    jm, params, tm = models(9)
+    opt = optax.adam(1e-3)
+    jmesh = JH.make_halo_mesh(jax.devices()[:1])
+    jstep = JH.make_halo_train_step(jm, opt, jmesh)
+    hb = JH.shard_halo_batch(JH.partition_batch(jb, 1), jmesh)
+    p, o, rng, want = params, opt.init(params), jax.random.PRNGKey(1), []
+    for _ in range(4):
+        p, o, loss, _pred, rng = jstep(p, o, hb, rng)
+        want.append(float(loss))
+
+    mesh = make_halo_mesh(device="cpu")
+    tm.train()
+    step = TH.make_halo_train_step(tm, torch.optim.Adam(tm.parameters(), lr=1e-3), mesh)
+    thb = TH.shard_halo_batch(TH.partition_batch(tb, 1), mesh)
+    got = [float(step(thb)[0]) for _ in range(4)]
+    assert len(set(np.round(got, 5))) == 4  # every step moved the weights
+    np.testing.assert_allclose(got, want, **TOL)
