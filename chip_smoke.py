@@ -3,12 +3,13 @@
 check them.
 
     python3 chip_smoke.py [--seed N] [--graphs N] [--digests] [--atomic]
-    python3 chip_smoke.py --cards 4
+    python3 chip_smoke.py --cards 4 [--atomic]
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``
 (``$CUDA_HOME/bin`` or PATH), and nothing beyond torch, numpy and scipy.
-With ``--cards 4`` it needs four and runs phases 1, 2 and 11 only (below);
-with ``--atomic`` phases 1, 2 and 15. Phases, each of which raises on
+With ``--cards 4`` it needs four and runs phases 1, 2, 11 and 16 only
+(below; with ``--atomic`` too, phases 1, 2 and 16); with ``--atomic`` alone
+phases 1, 2 and 15. Phases, each of which raises on
 failure (phase 15 runs right after phase 3b, so that its profiled passes
 come early in the process):
 
@@ -264,9 +265,18 @@ come early in the process):
    the host's ``partition_batch`` ms per batch and the served passes'
    collective bytes. "fast": phase 10's check on the atomic store (K3 fast
    4 launches a batch, no cast traced). "operators": the store's batches
-   bitwise the data path's, its bytes against ``estimate_store_bytes``;
+   bitwise the data path's (the weighted operators that only FoutNet and
+   sGAT read among the fields), its bytes against ``estimate_store_bytes``;
    served and trained against the CPU with no hand kernel; scanned epochs
-   bitwise the looped ones, dropout on. "chunked": the chunked store in two
+   bitwise the looped ones, dropout on. "foutnet_store" and "sgat_store"
+   (``STORE_ZOO``): FoutNet (``agg_x``, ``deg0``, ``adj1``) and sGAT
+   (``wagg_x``, ``ea_rowsum0``, ``wadj1``, ``ea_rowsum1``) from the store's
+   operators over the first batch of 64 graphs, served from their streamed
+   dense paths' checkpoints (two passes and a profiled one) within ``TOL``
+   of those paths' predictions, trained (the first 4 Adam steps against the
+   CPU, one epoch), no hand kernel launched, each engine from its store
+   (as every store engine's serve and train check asks), each peak under
+   ``DENSE_ZOO_PEAK_BYTES``. "chunked": the chunked store in two
    chunks of one batch, serving bitwise the resident store's, then three
    scanned epochs bitwise the looped chunked ones (each epoch's rate).
    "bf16": ``store_pack="bf16"`` served within ``BF16_TOL`` of the lossless
@@ -276,7 +286,25 @@ come early in the process):
    clustered, converted with ``bench.py``'s atomic features (51) and
    served sparse (K1 2 a batch) against the CPU. Each path logs its peak
    ``max_memory_allocated`` beside the card's name and power limit; the
-   last lines' kernels carry an ``atomic`` entry each.
+   last lines' kernels carry an ``atomic`` entry each;
+16. four cards at atomic scale (``--cards 4``, after phase 11): phase 11's
+   four NCCL ranks and every check of theirs, on phase 15's graphs (a
+   directory of its own). The meshes and the scanned mesh epochs run 512
+   graphs at a global batch of 256, 64 graphs a rank and batch (phase 15's
+   shapes); the halo runs the first 508 at a global batch of 254, whose
+   shard boundaries fall inside graphs 63 and 190, so that every shard has
+   remote edges (checked on every batch) and the exchange carries real
+   rows. This process first computes the single-card references on cuda:0
+   (the sparse and dense paths at 256, the sparse one at 254, scanned
+   operator and K3 runs at 256; their peak allocated memory is logged)
+   and the single card's graphs/s at 64 (served and trained in both
+   layouts, scanned operator and K3 epochs). Each rank makes each graph's
+   plan once (``plans_once``), logs each path's peak allocated memory, and
+   times ``partition_batch`` on every halo batch beside its ``H`` (rows a
+   peer) and each shard's local and remote edges; the halo step's bytes
+   are checked against ``halo_step_bytes`` at C0 ~161,700. The spawn's
+   limit, ``ATOMIC_MESH_TIMEOUT_S``, follows from the ranks' host work. The
+   ``4 cards {...}`` line carries its numbers under ``atomic``.
 
 Phase 3b holds the padding rule (no accumulating op sees a run of padding
 lanes, ``ops/lanes.py``): each repaired op at the first batches' shapes,
@@ -2068,7 +2096,8 @@ def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_
                 **engine_kw) -> dict:
     """Score ``dataset`` with ``Net`` from ``ckpt`` on the card (``passes``
     passes, launch counts cleared before each and read after: ``per_batch``
-    launches per batch, nothing else) and once on the CPU: finite
+    launches per batch, nothing else; a store engine from its store) and
+    once on the CPU: finite
     predictions that match the CPU's at ``TOL``; with ``ref`` (another
     path's card predictions of the same graphs) no CPU run, and the
     predictions match ``ref`` at ``tol`` instead. With ``bounds`` (a
@@ -2096,6 +2125,8 @@ def serve_check(label: str, Net, dataset, ckpt: str, tmp: str, layout: str, per_
     for i, count in enumerate(launches):
         if count != want:
             raise AssertionError(f"serve {label} pass {i}: launched {count}, want {want}")
+    if engine_kw.get("device_cache"):
+        store_built(nn.test_loader, f"serve {label}")
     if pred.shape != (len(dataset),) or not np.isfinite(pred).all():
         raise AssertionError(f"predictions: shape {pred.shape}, finite {np.isfinite(pred).all()}")
     if ref is not None:
@@ -2174,7 +2205,8 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     ``ref_losses`` another path's first 4 on the card, against those
     instead, and no CPU run); the epoch passes
     of ``train()`` with ``per_batch`` launches per training batch (counts
-    cleared before each epoch and read after) and finite losses. With
+    cleared before each epoch and read after; a store engine from its
+    store) and finite losses. With
     ``bounds`` (a function of the training loader giving each kernel's
     bound per batch) the whole check: ``epochs`` epochs, a second run from
     the same seed bitwise equal, a profiled warm epoch, and with ``resume``
@@ -2237,6 +2269,8 @@ def train_phase(label: str, Net, dataset, layout: str, seed: int, tmp: str, per_
     for i, count in enumerate(launches):
         if count != want:
             raise AssertionError(f"train {label} epoch {i}: launched {count}, want {want}")
+    if engine_kw.get("device_cache"):
+        store_built(a.train_loader, f"train {label}")
     if not np.isfinite(losses + valid).all():
         raise AssertionError(f"train {label}: losses {losses}, valid {valid}")
     res = {"walls": walls, "launches": launches[0], "where": None, "graphs": graphs,
@@ -2677,6 +2711,17 @@ def run_pass(nn, training: bool, loader=None) -> dict:
             "graphs": len(loader.dataset)}
 
 
+def store_built(ld, label: str) -> None:
+    """Raise unless the loader ``ld`` of a store engine serves from its
+    device store (resident or chunked): over its budget a store loader
+    streams (a scanned engine then loops over streamed batches, and the
+    operator path, with its operators collated per batch, gives the same
+    predictions)."""
+    if ld._store is None and ld._chunk_store is None:
+        raise AssertionError(f"{label}: no device store was built (over its budget of "
+                             f"{ld.device_cache_bytes} B?); the engine streamed")
+
+
 def ran_counts(counted: dict, stats: list, graphs_before: int, key: str) -> dict:
     """What ran, from what the host ``counted`` (captures included) and the
     graph stats: the captures of the graphs made since ``graphs_before``
@@ -3034,15 +3079,65 @@ MESH_PATHS = {
     "sparse_mesh": ("sparse", {"sorted_segment_sum": 2}, {"sorted_segment_sum": 2}),
 }
 SCAN_VARIANTS = ("epochs", "full", "chunked")
+# ``--cards 4`` at atomic scale (phase 16): phase 15's graphs, 512 at a
+# global batch of 256, so that each rank takes 64 graphs a batch, phase 15's
+# batch and kernel shapes; the halo at a global batch of 254 over 508 graphs
+# (two batches), whose shard boundaries at nodes 162,560 and 487,680 fall
+# inside graphs 63 and 190 (a global batch divisible by 4 puts every
+# boundary between two graphs, and no edge would cross)
+ATOMIC_MESH_GRAPHS = 512
+ATOMIC_MESH_BATCH = 256
+ATOMIC_HALO_GRAPHS = 508
+ATOMIC_HALO_BATCH = 254
+# a rank's work at atomic scale, the four ranks sharing the host's 8 cores:
+# the graphs and their plans (~40 ms a graph: ~20 s), two operator stores of
+# the 512 graphs for the scanned operator path (np.add.at, ~3 s a batch of
+# 64: ~25 s each), the halo's ~15 passes of two batches of 254 that every
+# rank collates and partitions whole (~1.5 s a batch: ~45 s), the meshes'
+# ~15 passes each (~0.2 s a batch) and the scanned K3 runs: ~150 s of host
+# work and ~300 s in all. The spawn's limit is three times that; a
+# collective waits up to 300 s for a peer still building a store
+ATOMIC_MESH_TIMEOUT_S = 900
+ATOMIC_GROUP_TIMEOUT_S = 300
+# the 512 graphs' padded operator store is ~3.65 GB, over the loader's
+# default budget of 2 GiB (JAX's), under which the loader streams: the
+# scanned store runs at atomic scale raise the budget as a user would
+ATOMIC_STORE_BUDGET = dict(device_cache_bytes=8 * 1024**3)
 
 
-def mesh_run(cards: bool) -> dict:
-    """What phase 11 runs: ``ranks`` processes over ``graphs`` graphs at a
-    global batch of ``batch``, in a gloo group whose ranks share cuda:0
-    (``nccl`` False), or in an NCCL group with rank ``r`` on cuda:r."""
+def mesh_run(cards: bool, atomic: bool = False) -> dict:
+    """What phase 11 (or with ``atomic`` phase 16) runs: ``ranks`` processes
+    over ``graphs`` graphs at a global batch of ``batch``, in a gloo group
+    whose ranks share cuda:0 (``nccl`` False), or in an NCCL group with rank
+    ``r`` on cuda:r; the scanned mesh ``variants``; the spawn's and a
+    collective's time limits. The halo runs over the first ``halo_graphs``
+    at a global batch of ``halo_batch``, the engines take ``config``'s
+    features and target, and the store engines ``store``'s budget: at
+    residue scale the mesh's own graphs and batch and the engines'
+    defaults."""
+    if atomic:
+        return {"ranks": CARDS, "graphs": ATOMIC_MESH_GRAPHS, "batch": ATOMIC_MESH_BATCH,
+                "nccl": True, "atomic": True, "halo_graphs": ATOMIC_HALO_GRAPHS,
+                "halo_batch": ATOMIC_HALO_BATCH, "config": ATOMIC_ENGINE,
+                "store": ATOMIC_STORE_BUDGET, "variants": ("epochs",),
+                "timeout_s": ATOMIC_MESH_TIMEOUT_S, "group_timeout_s": ATOMIC_GROUP_TIMEOUT_S}
     if cards:
-        return {"ranks": CARDS, "graphs": CARDS_GRAPHS, "batch": CARDS_BATCH, "nccl": True}
-    return {"ranks": MESH_RANKS, "graphs": MESH_GRAPHS, "batch": BATCH, "nccl": False}
+        run = {"ranks": CARDS, "graphs": CARDS_GRAPHS, "batch": CARDS_BATCH, "nccl": True,
+               "variants": SCAN_VARIANTS}
+    else:
+        run = {"ranks": MESH_RANKS, "graphs": MESH_GRAPHS, "batch": BATCH, "nccl": False,
+               "variants": ("epochs",)}
+    return dict(run, atomic=False, halo_graphs=run["graphs"], halo_batch=run["batch"],
+                config={}, store={}, timeout_s=MESH_TIMEOUT_S, group_timeout_s=180)
+
+
+def mesh_data(run: dict, seed: int) -> tuple:
+    """The run's dataset and the halo's: its first ``halo_graphs``."""
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+
+    build = build_atomic_graphs if run["atomic"] else build_graphs
+    dataset = GraphListDataSet(build(seed, run["graphs"]))
+    return dataset, dataset.subset(range(run["halo_graphs"]))
 
 
 def _no_nvcc():
@@ -3071,11 +3166,11 @@ def rank_session(rank: int, store: str, kdir: str, run: dict):
 
     # a rank still running near the spawn's limit prints every thread's
     # stack and exits: a hang (a collective no peer joins) names its place
-    faulthandler.dump_traceback_later(MESH_TIMEOUT_S - 30, exit=True)
+    faulthandler.dump_traceback_later(run["timeout_s"] - 30, exit=True)
     set_fp32_numerics()
     build.nvcc = _no_nvcc
     use_executable_cache(kdir)
-    timeout = datetime.timedelta(seconds=180)
+    timeout = datetime.timedelta(seconds=run["group_timeout_s"])
     if run["nccl"]:
         distributed.initialize(f"file://{store}", run["ranks"], rank, device=f"cuda:{rank}",
                                timeout=timeout)
@@ -3135,26 +3230,34 @@ def mesh_epoch(nn, steps=None, check_ranks: bool = False):
     losses = []
     t0 = time.perf_counter()
     with deterministic():
-        for i, (batch, _mols) in enumerate(nn.train_loader):
-            if i == steps:
+        while True:  # epoch after epoch where one has fewer batches than ``steps``
+            for batch, _mols in nn.train_loader:
+                if len(losses) == steps:
+                    break
+                item = nn._shard(nn._map_targets_host(batch)).to(nn.device)
+                loss, _pred = nn._mesh_steps.train(item, nn._dropout_generator)
+                losses.append(float(loss))
+                if check_ranks and not _ranks_equal(nn.model):
+                    raise AssertionError(f"step {len(losses) - 1}: the ranks' parameters "
+                                         f"differ")
+            if steps is None or len(losses) == steps:
                 break
-            item = nn._shard(nn._map_targets_host(batch)).to(nn.device)
-            loss, _pred = nn._mesh_steps.train(item, nn._dropout_generator)
-            losses.append(float(loss))
-            if check_ranks and not _ranks_equal(nn.model):
-                raise AssertionError(f"step {i}: the ranks' parameters differ")
     torch.cuda.synchronize()
     nn.model.eval()
     return losses, time.perf_counter() - t0
 
 
-def _train_engine(dataset, layout: str, seed: int, outdir: str, mesh=None, batch: int = BATCH):
+def _train_engine(dataset, layout: str, seed: int, outdir: str, mesh=None, batch: int = BATCH,
+                  config=None):
+    """Paper-mode GINet training every graph at batch ``batch`` (``config``:
+    the features and target, by default those of ``fold6`` and ``fnat``)."""
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    return NeuralNet(dataset, GINet, node_feature=FOLD6_FEATURES, edge_feature=["dist"],
-                     target="fnat", batch_size=batch, percent=[1.0, 0.0], seed=seed,
-                     layout=layout, mesh=mesh, device="cuda", outdir=outdir)
+    kw = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat")
+    kw.update(config or {})
+    return NeuralNet(dataset, GINet, batch_size=batch, percent=[1.0, 0.0], seed=seed,
+                     layout=layout, mesh=mesh, device="cuda", outdir=outdir, **kw)
 
 
 @contextlib.contextmanager
@@ -3239,7 +3342,7 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict, run
     from deeprank_gnn_tpu_torch.parallel.distributed import process_index
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
-    rank, batch = process_index(), run["batch"]
+    rank, batch, config = process_index(), run["batch"], run["config"]
     ref_layout, serve_per_batch, train_per_batch = MESH_PATHS[path]
     layout = "halo" if path == "halo" else ref_layout
     out = {}
@@ -3276,7 +3379,7 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict, run
     with no_dropout():
         parity, _ = mesh_epoch(_train_engine(dataset, layout, seed,
                                              os.path.join(tmp, f"{path}_p{rank}"),
-                                             _mesh_of(path), batch), PARITY_STEPS)
+                                             _mesh_of(path), batch, config), PARITY_STEPS)
     np.testing.assert_allclose(parity, ref["parity"], **TOL)
 
     # the main path: the engine's training pass, dropout on (counts and
@@ -3301,7 +3404,7 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict, run
         return all(torch.equal(v, pb[k]) for k, v in pa.items())
 
     engines = [_train_engine(dataset, layout, seed, os.path.join(tmp, f"{path}_{name}{rank}"),
-                             _mesh_of(path), batch) for name in ("a", "b")]
+                             _mesh_of(path), batch, config) for name in ("a", "b")]
     (la, wa, launches, nbytes), (lb, _wb, _lcb, _nb) = [epoch(nn) for nn in engines]
     pa, pb = params(engines[0]), params(engines[1])
     repeat = {"bitwise": la == lb and same(pa, pb)}
@@ -3318,7 +3421,7 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict, run
     # the same epoch a step at a time: the ranks' parameters equal after
     # every step, and losses and parameters bitwise the engine pass's
     c = _train_engine(dataset, layout, seed, os.path.join(tmp, f"{path}_c{rank}"),
-                      _mesh_of(path), batch)
+                      _mesh_of(path), batch, config)
     steps, _ = mesh_epoch(c, check_ranks=True)
     if repeat["bitwise"] and (sum(steps) != la or not same(params(c), pa)):
         raise AssertionError(f"{path} train: step by step {steps}, engine pass {la}")
@@ -3343,19 +3446,44 @@ def mesh_path(path: str, dataset, ckpt: str, tmp: str, seed: int, ref: dict, run
     return out
 
 
-def halo_bytes_check(dataset, seed: int, tmp: str, batch: int) -> dict:
+def halo_partitions(loader, d: int) -> dict:
+    """Every batch of ``loader`` partitioned over ``d`` shards on this
+    rank's host as a halo rank partitions it (``partition_batch``, timed):
+    per batch the ms, ``H`` (the exchange's rows per peer) and each shard's
+    valid local and remote edges (those whose source another shard owns)."""
+    from deeprank_gnn_tpu_torch.parallel import halo
+
+    out = {"partition_ms": [], "H": [], "local_edges": [], "remote_edges": []}
+    for b, _ in loader:
+        t0 = time.perf_counter()
+        plan = halo.partition_batch(b, d)
+        out["partition_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["H"].append(int(plan.send_idx.shape[-1]))
+        out["local_edges"].append([int(p[-1]) for p in plan.loc_rowptr])
+        out["remote_edges"].append([int(p[-1]) for p in plan.rem_rowptr])
+    return out
+
+
+def halo_bytes_check(dataset, seed: int, tmp: str, batch: int, config=None,
+                     remote: bool = False) -> dict:
     """One halo training step's collective bytes over the group's ``D``
     ranks against its plan (:func:`halo_step_bytes`), the exchange below an
     all-gather of the ``[Nl, 32]`` node array (forward and backward) at the
-    same batch."""
+    same batch; every training batch's partition on this host
+    (:func:`halo_partitions`), and with ``remote`` every shard of every
+    batch must have remote edges (at atomic scale, where the shard
+    boundaries fall inside graphs)."""
     import torch.distributed as dist
 
     from deeprank_gnn_tpu_torch.parallel import collectives, halo
 
     nn = _train_engine(dataset, "halo", seed, os.path.join(tmp, f"bytes{dist.get_rank()}"),
-                       _mesh_of("halo"), batch)
+                       _mesh_of("halo"), batch, config)
     first, _ = next(iter(nn.train_loader))
     d = dist.get_world_size()
+    parts = halo_partitions(nn.train_loader, d)
+    if remote and min(min(r) for r in parts["remote_edges"]) == 0:
+        raise AssertionError(f"halo: a shard without remote edges: {parts}")
     plan = halo.partition_batch(nn._map_targets_host(first), d)
     h, nl, c0 = plan.send_idx.shape[-1], plan.nl, plan.num_clusters0
     n_params = sum(p.numel() for p in nn.model.parameters())
@@ -3369,7 +3497,7 @@ def halo_bytes_check(dataset, seed: int, tmp: str, batch: int) -> dict:
         raise AssertionError(f"halo bytes: counted {counted}, plan {want}, node all-gather "
                              f"{node_gather}")
     return {"ranks": d, "counted": counted, "H": h, "Nl": nl, "C0": c0,
-            "node_all_gather_bytes": node_gather}
+            "node_all_gather_bytes": node_gather, "partitions": parts}
 
 
 def scan_bytes_plan(batches: int, ranks: int, params: int, training: bool,
@@ -3394,7 +3522,8 @@ def same_training(label: str, looped, scanned, world: int) -> None:
 
 
 def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bool,
-                    variant: str = "epochs", epochs: int = 3, batch: int = BATCH) -> dict:
+                    variant: str = "epochs", epochs: int = 3, batch: int = BATCH,
+                    **engine_kw) -> dict:
     """Scanned dense mesh epochs on this rank beside the looped mesh engine
     from one seed, dropout on, on the mesh of every rank of the group
     (``percent=[1.0, 0.0]``, global batch ``batch``; ``ops=False``: store
@@ -3413,16 +3542,17 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
     warm-up step per set of store buffers in the first epoch, then a replay
     per step, two under gloo); a profiled scanned epoch traces K3 as often
     as the counts say; whether the gradient all-reduce ran inside a
-    captured graph."""
+    captured graph. ``engine_kw`` (the features and target) go to both
+    engines."""
     import torch
     import torch.distributed as dist
 
     from deeprank_gnn_tpu_torch.parallel.distributed import process_index
 
     rank, world = process_index(), dist.get_world_size()
-    kw = {}
+    kw = dict(engine_kw)
     if variant == "chunked":
-        kw = dict(device_cache="chunked", device_cache_bytes=chunk_budget(dataset, 1, batch))
+        kw.update(device_cache="chunked", device_cache_bytes=chunk_budget(dataset, 1, batch))
     scan = "full" if variant == "full" else True
 
     def engine(name, scanned):
@@ -3436,6 +3566,7 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
     looped, scanned = engine("looped", False), engine("scanned", True)
     params = sum(p.numel() for p in scanned.model.parameters())
     lt = [run_pass(looped, True) for _ in range(epochs)]
+    store_built(looped.train_loader, f"mesh scan {label} looped")
     batches = lt[0]["batches"]
     k3 = {} if ops else {"fused_gin_conv": 4 * batches}
     plan = scan_bytes_plan(batches, world, params, True, batch)
@@ -3535,6 +3666,7 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
                    replays_per_epoch=replays, ran_per_epoch=[t["ran"] for t in st[:epochs]],
                    bytes_per_epoch=[t["bytes"] for t in st[:epochs]], profile=prof,
                    trace_k3=traced)
+    store_built(scanned.train_loader, f"mesh scan {label} scanned")
     cs = scanned.train_loader._chunk_store
     if cs is not None:
         res["chunks"] = cs.num_chunks
@@ -3547,29 +3679,35 @@ def mesh_scan_check(label: str, dataset, seed: int, tmp: str, kdir: str, ops: bo
     return res
 
 
-def mesh_refs(dataset, ckpt: str, tmp: str, seed: int, kdir: str, batch: int) -> dict:
+def mesh_refs(dataset, ckpt: str, tmp: str, seed: int, kdir: str, batch: int,
+              layouts=("sparse", "dense"), scans: bool = True, config=None,
+              store=None) -> dict:
     """The single-card references of the mesh paths, in this process on
     cuda:0 at the mesh's global batch ``batch`` (``ckpt`` holds it): per
-    layout the predictions served from ``ckpt`` by molecule and their loss,
-    and the first ``PARITY_STEPS`` losses with dropout off; per store path
-    (the operators, K3) a scanned run's three training losses and its
-    scanned serving pass's predictions."""
+    layout of ``layouts`` the predictions served from ``ckpt`` by molecule
+    and their loss, and the first ``PARITY_STEPS`` losses with dropout off;
+    with ``scans``, per store path (the operators, K3) a scanned run's three
+    training losses and its scanned serving pass's predictions. ``config``:
+    the training engines' features and target; ``store``: the store
+    engines' budget."""
     from deeprank_gnn_tpu_torch.models import GINet
 
     mols = [g.mol for g in dataset.graphs]  # the test loader keeps the dataset's order
     refs = {}
-    for layout in ("sparse", "dense"):
+    for layout in layouts:
         _nn, pred, loss, _w, _l = serve(dataset, ckpt, "cuda",
                                         os.path.join(tmp, f"mref_{layout}"), 1, layout, GINet)
         with no_dropout():
             parity = first_steps(_train_engine(dataset, layout, seed,
                                                os.path.join(tmp, f"mref_train_{layout}"),
-                                               batch=batch), PARITY_STEPS)
+                                               batch=batch, config=config), PARITY_STEPS)
         refs[layout] = {"pred": dict(zip(mols, pred.tolist())), "loss": loss, "parity": parity}
-    for ops, label in ((True, "scan_operators"), (False, "scan_k3")):
+    for ops, label in ((True, "scan_operators"), (False, "scan_k3")) if scans else ():
         single = scan_engine(dataset, seed, tmp, f"single_{label}", kdir, ops,
-                             percent=(1.0, 0.0), batch=batch, scan_epochs=True)
+                             percent=(1.0, 0.0), batch=batch, scan_epochs=True,
+                             **(config or {}), **(store or {}))
         sp = [run_pass(single, True) for _ in range(3)]
+        store_built(single.train_loader, f"mesh ref {label}")
         sp.append(run_pass(single, False, single.train_loader))
         refs[label] = {"losses": [p["loss"] for p in sp[:3]],
                        "pred": np.asarray(sp[-1]["out"], dtype=np.float64).tolist()}
@@ -3578,35 +3716,50 @@ def mesh_refs(dataset, ckpt: str, tmp: str, seed: int, kdir: str, batch: int) ->
 
 def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: str,
                 run: dict) -> None:
-    """A spawned rank of phase 11 (``rank_session``): every mesh path
+    """A spawned rank of phase 11 or 16 (``rank_session``): every mesh path
     against the single-card references that the parent wrote to
-    ``run["refs"]``, the halo step's bytes, then the scanned mesh epochs
-    (under gloo: ``scan_epochs=True`` on both store paths; under NCCL every
-    variant of ``SCAN_VARIANTS`` on both, each with the all-reduce captured
-    in the step's graph), the ``"epochs"`` runs against the single card's
-    scanned runs at ``TOL``. Writes its results to ``results/rank<r>.json``."""
+    ``run["refs"]`` (the halo on its own graphs, batch and checkpoint at
+    atomic scale), each path's peak allocated memory on this rank's card,
+    the halo step's bytes and every batch's partition (at atomic scale every
+    shard must have remote edges), then the scanned mesh epochs (the run's
+    ``variants`` on both store paths; under NCCL each with the all-reduce
+    captured in the step's graph), the ``"epochs"`` runs against the single
+    card's scanned runs at ``TOL``. At atomic scale the pooling plans are
+    made once (``plans_once``). Writes its results to
+    ``results/rank<r>.json``."""
     import torch
 
-    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
-
     t0 = time.perf_counter()
-    with rank_session(rank, store, kdir, run):
-        dataset = GraphListDataSet(build_graphs(seed, run["graphs"]))
+    atomic, config = run["atomic"], run["config"]
+    with rank_session(rank, store, kdir, run), (plans_once() if atomic
+                                                else contextlib.nullcontext()):
+        dataset, halo_set = mesh_data(run, seed)
         with open(run["refs"]) as fh:
             refs = json.load(fh)
         out = {"start_s": time.perf_counter() - t0, "device": str(torch.cuda.current_device())}
+        halo_run = dict(run, batch=run["halo_batch"])
         for path, (ref_layout, _s, _t) in MESH_PATHS.items():
             t1 = time.perf_counter()
-            out[path] = mesh_path(path, dataset, run["ckpt"], tmp, seed, refs[ref_layout], run)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            if path == "halo":
+                out[path] = mesh_path(path, halo_set, run["halo_ckpt"], tmp, seed, refs["halo"],
+                                      halo_run)
+            else:
+                out[path] = mesh_path(path, dataset, run["ckpt"], tmp, seed, refs[ref_layout],
+                                      run)
+            out[path]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
             out[path]["phase_s"] = time.perf_counter() - t1
-        out["halo_bytes"] = halo_bytes_check(dataset, seed, tmp, run["batch"])
-        variants = SCAN_VARIANTS if run["nccl"] else ("epochs",)
+        out["halo_bytes"] = halo_bytes_check(halo_set, seed, tmp, halo_run["batch"], config,
+                                             remote=atomic)
         for ops, kind in ((True, "operators"), (False, "k3")):
-            for variant in variants:
+            for variant in run["variants"]:
                 t1 = time.perf_counter()
+                gc.collect()
+                torch.cuda.reset_peak_memory_stats()
                 label = f"scan_{kind}" if variant == "epochs" else f"scan_{variant}_{kind}"
                 res = mesh_scan_check(label, dataset, seed, tmp, kdir, ops, variant,
-                                      batch=run["batch"])
+                                      batch=run["batch"], **config, **run["store"])
                 if run["nccl"] and not res["all_reduce_captured"]:
                     raise AssertionError(f"nccl {label}: the all-reduce ran outside the "
                                          f"graphs: {res['graph_parts']}")
@@ -3617,6 +3770,7 @@ def mesh_worker(rank: int, store: str, kdir: str, tmp: str, seed: int, results: 
                     res["single_card_losses"] = single["losses"]
                     res["single_card_max_abs"] = float(np.abs(np.subtract(
                         res["pred"], single["pred"])).max())
+                res["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
                 res["phase_s"] = time.perf_counter() - t1
                 out[label] = res
         out["worker_s"] = time.perf_counter() - t0
@@ -3681,8 +3835,8 @@ def nccl_group_check(tmp: str, seed: int, kdir: str) -> dict:
 
 def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int, run: dict) -> list:
     """``run["ranks"]`` spawned processes of ``worker(rank, store, kdir, tmp,
-    seed, results, run)``, each exit code checked (all killed after
-    ``MESH_TIMEOUT_S``): each rank's results, the JSON it wrote to
+    seed, results, run)``, each exit code checked (all killed after the
+    run's ``timeout_s``): each rank's results, the JSON it wrote to
     ``results/rank<r>.json``."""
     import torch.multiprocessing as mp
 
@@ -3694,8 +3848,8 @@ def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int, run: dict) ->
                              nprocs=run["ranks"], join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=5):
-            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
-                raise AssertionError(f"{name} workers still running after {MESH_TIMEOUT_S} s")
+            if time.perf_counter() - t0 > run["timeout_s"]:
+                raise AssertionError(f"{name} workers still running after {run['timeout_s']} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -3711,48 +3865,93 @@ def spawn_ranks(worker, name: str, tmp: str, kdir: str, seed: int, run: dict) ->
     return ranks
 
 
-def single_card_rates(dataset, tmp: str, seed: int, kdir: str) -> dict:
-    """The single card's warm graphs/s at the single card's batch of 128,
-    beside which the four cards' rates stand (``--cards 4``): serving from
-    a seeded checkpoint and the engine's training pass in both layouts
-    (a cold pass, then a warm one), and the scanned K3 store epochs (three)."""
+def mesh_checkpoint(path: str, seed: int, run: dict, batch: int) -> str:
+    """A seeded paper-mode GINet checkpoint that serves at ``batch``, with
+    the run's features and target (``ATOMIC_CONFIG``'s at atomic scale)."""
+    kw = {}
+    if run["atomic"]:
+        kw = dict(target=ATOMIC_CONFIG["target"], node=ATOMIC_CONFIG["node_feature"],
+                  width=ATOMIC_WIDTH)
+    write_checkpoint(path, seed, batch_size=batch, **kw)
+    return path
+
+
+def single_card_rates(dataset, tmp: str, seed: int, kdir: str, run: dict) -> dict:
+    """The single card's warm graphs/s at a rank's batch (the global batch
+    over the ranks: 128, or 64 at atomic scale), beside which the four
+    cards' rates stand (``--cards 4``): serving from a seeded checkpoint
+    and the engine's training pass in both layouts (a cold pass, then a
+    warm one), and the scanned store epochs (three) on the K3 path, and at
+    atomic scale on the operator path too."""
     from deeprank_gnn_tpu_torch.models import GINet
 
-    ckpt = os.path.join(tmp, "rates_ginet.pth.tar")
-    write_checkpoint(ckpt, seed)
-    out = {}
+    batch, config = run["batch"] // run["ranks"], run["config"]
+    ckpt = mesh_checkpoint(os.path.join(tmp, "rates_ginet.pth.tar"), seed, run, batch)
+    out = {"batch": batch}
     for layout in ("sparse", "dense"):
         _nn, pred, _loss, walls, _l = serve(dataset, ckpt, "cuda",
                                             os.path.join(tmp, f"rate_serve_{layout}"), 2,
                                             layout, GINet)
         out[f"serve_{layout}"] = [len(pred) / w for w in walls]
-        nn = _train_engine(dataset, layout, seed, os.path.join(tmp, f"rate_train_{layout}"))
+        nn = _train_engine(dataset, layout, seed, os.path.join(tmp, f"rate_train_{layout}"),
+                           batch=batch, config=config)
         out[f"train_{layout}"] = [p["graphs"] / p["wall"]
                                   for p in (run_pass(nn, True), run_pass(nn, True))]
-    nn = scan_engine(dataset, seed, tmp, "rate_scan_k3", kdir, False, percent=(1.0, 0.0),
-                     scan_epochs=True)
-    out["scan_k3"] = [p["graphs"] / p["wall"] for p in (run_pass(nn, True) for _ in range(3))]
+    for ops, kind in ((True, "operators"), (False, "k3")):
+        if ops and not run["atomic"]:
+            continue
+        nn = scan_engine(dataset, seed, tmp, f"rate_scan_{kind}", kdir, ops, percent=(1.0, 0.0),
+                         batch=batch, scan_epochs=True, **config, **run["store"])
+        out[f"scan_{kind}"] = [p["graphs"] / p["wall"]
+                               for p in (run_pass(nn, True) for _ in range(3))]
+        store_built(nn.train_loader, f"rate scan_{kind}")
     return out
 
 
-def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False) -> dict:
-    """Phase 11: the single-card references (``mesh_refs``), then the run's
-    spawned ranks (``mesh_worker``), each exit code checked; by default two
-    gloo ranks on the card and after them the NCCL group of one in this
-    process, with ``cards`` four NCCL ranks, one a card, beside the single
-    card's rates (``single_card_rates``)."""
-    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False, atomic: bool = False,
+               smi: str = "") -> dict:
+    """Phase 11 (or with ``atomic`` phase 16, four cards at atomic scale, in
+    a directory of its own under ``tmp``): the single-card references
+    (``mesh_refs``; at atomic scale also the sparse path at the halo's batch,
+    and their peak allocated memory on cuda:0, logged with the card's name
+    and power limit ``smi``), then the run's spawned ranks (``mesh_worker``),
+    each exit code checked; by default two gloo ranks on the card and after
+    them the NCCL group of one in this process, with ``cards`` four NCCL
+    ranks, one a card, beside the single card's rates
+    (``single_card_rates``)."""
+    import torch
 
     t0 = time.perf_counter()
-    run = mesh_run(cards)
-    dataset = GraphListDataSet(build_graphs(seed, run["graphs"]))
-    run["ckpt"] = os.path.join(tmp, "mesh_ginet.pth.tar")
-    write_checkpoint(run["ckpt"], seed, batch_size=run["batch"])
-    refs = mesh_refs(dataset, run["ckpt"], tmp, seed, kdir, run["batch"])
-    run["refs"] = os.path.join(tmp, "mesh_refs.json")
-    with open(run["refs"], "w") as fh:
-        json.dump(refs, fh)
-    rates = single_card_rates(dataset, tmp, seed, kdir) if cards else None
+    run = mesh_run(cards, atomic)
+    name = "atomic mesh" if atomic else "mesh"
+    if atomic:
+        tmp = os.path.join(tmp, "atomic_mesh")
+        os.makedirs(tmp)
+    with plans_once() if atomic else contextlib.nullcontext():
+        dataset, halo_set = mesh_data(run, seed)
+        run["ckpt"] = mesh_checkpoint(os.path.join(tmp, "mesh_ginet.pth.tar"), seed, run,
+                                      run["batch"])
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        refs = mesh_refs(dataset, run["ckpt"], tmp, seed, kdir, run["batch"],
+                         config=run["config"], store=run["store"])
+        run["halo_ckpt"], refs["halo"] = run["ckpt"], refs[MESH_PATHS["halo"][0]]
+        if atomic:  # the halo's own graphs, batch and checkpoint
+            run["halo_ckpt"] = mesh_checkpoint(os.path.join(tmp, "halo_ginet.pth.tar"), seed,
+                                               run, run["halo_batch"])
+            refs["halo"] = mesh_refs(halo_set, run["halo_ckpt"], os.path.join(tmp, "halo"),
+                                     seed, kdir, run["halo_batch"], layouts=("sparse",),
+                                     scans=False, config=run["config"])["sparse"]
+        refs_peak = torch.cuda.max_memory_allocated()
+        log(f"{name} single-card references on cuda:0 ({smi}): peak allocated {refs_peak} B, "
+            f"{time.perf_counter() - t0:.1f} s")
+        run["refs"] = os.path.join(tmp, "mesh_refs.json")
+        with open(run["refs"], "w") as fh:
+            json.dump(refs, fh)
+        rates = single_card_rates(dataset, tmp, seed, kdir, run) if cards else None
+    del dataset, halo_set
+    gc.collect()  # the references' engines are gone: cuda:0 goes to rank 0 whole
+    torch.cuda.empty_cache()
     refs_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     ranks = spawn_ranks(mesh_worker, "mesh", tmp, kdir, seed, run)
@@ -3762,7 +3961,7 @@ def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False) -> dict:
     for r, res in enumerate(ranks):
         for path in MESH_PATHS:
             s, t = res[path]["serve"], res[path]["train"]
-            log(f"mesh {path} rank {r} ({how}): serve "
+            log(f"{name} {path} rank {r} ({how}): serve "
                 f"{s['graphs']} graphs in {s['batches']} batches, graphs/s {s['graphs_per_s']} "
                 f"(cold, warm), launches {s['launches']}, max abs vs single card "
                 f"{s['max_abs']}, collective bytes {s['collective_bytes']}; train "
@@ -3772,11 +3971,11 @@ def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False) -> dict:
                 f"{t['launches']}, first {PARITY_STEPS} "
                 f"losses {t['parity_losses']} (max abs vs single card "
                 f"{t['parity_max_abs']}), collective bytes {t['collective_bytes']}, run to "
-                f"run {t['run_to_run']}")
-            log(f"mesh {path} rank {r} serve breakdown " + json.dumps(s["where"]))
-            log(f"mesh {path} rank {r} train breakdown " + json.dumps(t["where"]))
-        log(f"mesh halo bytes rank {r}: " + json.dumps(res["halo_bytes"]))
-        log(f"mesh rank {r} on cuda:{res['device']}: start {res['start_s']:.1f} s, worker "
+                f"run {t['run_to_run']}; peak allocated {res[path]['peak_allocated_bytes']} B")
+            log(f"{name} {path} rank {r} serve breakdown " + json.dumps(s["where"]))
+            log(f"{name} {path} rank {r} train breakdown " + json.dumps(t["where"]))
+        log(f"{name} halo bytes rank {r}: " + json.dumps(res["halo_bytes"]))
+        log(f"{name} rank {r} on cuda:{res['device']}: start {res['start_s']:.1f} s, worker "
             f"{res['worker_s']:.1f} s")
     labels = [k for k in ranks[0] if k.startswith("scan_")]
     for r, res in enumerate(ranks):
@@ -3789,18 +3988,19 @@ def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False) -> dict:
                 ok = (not sc["all_reduce_captured"] and ("gradients", True) in parts
                       and ("update", True) in parts)
             if not ok:
-                raise AssertionError(f"mesh {label} rank {r} ({how}): graphs {parts}, "
+                raise AssertionError(f"{name} {label} rank {r} ({how}): graphs {parts}, "
                                      f"all-reduce captured {sc['all_reduce_captured']}")
             steps = ("the all-reduce captured inside the step's graph" if cards else
                      "each training step two graph replays around the host's all-reduce")
-            log(f"mesh {label} rank {r} ({how}; {steps}): "
+            log(f"{name} {label} rank {r} ({how}; {steps}): "
                 + json.dumps({k: v for k, v in sc.items() if k not in ("pred", "profile")}))
             if "profile" in sc:
-                log(f"mesh {label} rank {r} profiled scanned epoch " + json.dumps(sc["profile"]))
-    out = {"ranks": ranks, "run": run, "rates": rates}
+                log(f"{name} {label} rank {r} profiled scanned epoch "
+                    + json.dumps(sc["profile"]))
+    out = {"ranks": ranks, "run": run, "rates": rates, "refs_peak_allocated_bytes": refs_peak}
     if cards:
-        log("single card at batch 128, graphs/s (cold, warm; scanned: three epochs): "
-            + json.dumps(rates))
+        log(f"single card at batch {rates['batch']}, graphs/s (cold, warm; scanned: three "
+            f"epochs): " + json.dumps(rates))
     else:
         t1 = time.perf_counter()
         nccl = out["nccl"] = nccl_group_check(tmp, seed, kdir)
@@ -3815,7 +4015,7 @@ def mesh_phase(tmp: str, kdir: str, seed: int, cards: bool = False) -> dict:
         log("mesh nccl group of one: " + json.dumps(
             {k: v for k, v in nccl.items() if not k.startswith("scan_")}))
         log(f"phase mesh nccl group of one: {time.perf_counter() - t1:.1f} s")
-    log(f"phase mesh: {time.perf_counter() - t0:.1f} s (single card {refs_s:.1f} s, spawned "
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s (single card {refs_s:.1f} s, spawned "
         f"ranks {spawn_s:.1f} s)")
     return out
 
@@ -4169,6 +4369,8 @@ ATOMIC_WIDTH = 48
 # (bench.py's epoch arm has no validation split)
 ATOMIC_CONFIG = dict(node_feature=[f"f{i}" for i in range(ATOMIC_WIDTH)], target="irmsd",
                      batch_size=ATOMIC_BATCH, percent=[1.0, 0.0])
+# the features and target alone, for engines at other batches (phase 16)
+ATOMIC_ENGINE = dict(node_feature=ATOMIC_CONFIG["node_feature"], target=ATOMIC_CONFIG["target"])
 ATOMGRAPH_MODELS = 32  # docking models featurized by AtomGraph on the card
 ATOMGRAPH_CPU_MODELS = 2  # of them also on the CPU path
 ATOMGRAPH_BATCH = 16
@@ -4587,6 +4789,39 @@ def atomic_halo_check(dataset, ckpt: str, tmp: str, seed: int, out: dict) -> dic
     return res
 
 
+# FoutNet and sGAT from the store's operators at the atomic batch: (label,
+# net, the streamed dense path of ``ATOMIC_ZOO`` whose checkpoint it serves
+# and whose predictions it is held to)
+STORE_ZOO = [("foutnet_store", "FoutNet", "foutnet_dense"),
+             ("sgat_store", "sGAT", "sgat_dense")]
+
+
+def atomic_store_zoo(label: str, dataset, tmp: str, seed: int, out: dict) -> dict:
+    """One net of ``STORE_ZOO`` on the operator path
+    (``NeuralNet(..., device_cache=True)``: FoutNet's ``agg_x``, ``deg0``,
+    ``adj1``; sGAT's ``wagg_x``, ``ea_rowsum0``, ``wadj1``, ``ea_rowsum1``)
+    over the first atomic batch of ``dataset`` (one batch: each store
+    engine collates its own operators, as a user's does, ~3 s a batch on
+    the host, and four engines run here), no hand kernel launched: served
+    from the streamed dense path's checkpoint (two passes and a profiled
+    one) within ``TOL`` of that path's card predictions of those graphs in
+    ``out``, and trained (the first 4 Adam steps against the CPU run's at
+    ``TOL``, then one epoch), each engine from its device store
+    (``store_built``)."""
+    import deeprank_gnn_tpu_torch.models as models
+
+    _, name, held = next(z for z in STORE_ZOO if z[0] == label)
+    net = getattr(models, name)
+    ckpt = os.path.join(tmp, f"atomic_{held}.pth.tar")  # written by its ATOMIC_ZOO path
+    first = dataset.subset(range(ATOMIC_BATCH))  # the test loader keeps the dataset's order
+    served = serve_check(f"atomic_{label}", net, first, ckpt, tmp, "dense", {},
+                         lambda ld: {}, sites=False,
+                         ref=out[held]["serve"]["pred"][:ATOMIC_BATCH], device_cache=True)
+    trained = train_phase(f"atomic_{label}", net, first, "dense", seed, tmp, {},
+                          config=ATOMIC_CONFIG, device_cache=True)
+    return {"serve": served, "train": trained, "held_to": held}
+
+
 def atomic_bf16_check(dataset, ckpt: str, tmp: str, seed: int, out: dict) -> dict:
     """``store_pack="bf16"`` on the operator path at the atomic batch:
     served (two passes and a profiled one, no hand kernel) within
@@ -4625,10 +4860,12 @@ def atomic_phase(tmp: str, seed: int, kdir: str, smi: str, cast_kernel: str = ""
     path with its peak of allocated device memory: data, kernels,
     paper-mode GINet sparse and dense, the rest of the model zoo
     (``ATOMIC_ZOO``), the halo layout on one rank, the fast mode, the
-    operator path from the store, the chunked store, bf16 packing and
-    ``AtomGraph``. ``cast_kernel``: the name a cast to bf16 traces as
-    (phase 3's), else traced here before any other trace."""
+    operator path from the store, FoutNet and sGAT on it (``STORE_ZOO``),
+    the chunked store, bf16 packing and ``AtomGraph``. ``cast_kernel``: the
+    name a cast to bf16 traces as (phase 3's), else traced here before any
+    other trace."""
     from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+    from deeprank_gnn_tpu_torch.data.dense_batch import WEIGHTED_OPERATORS
     from deeprank_gnn_tpu_torch.models import GINet
 
     t_start = time.perf_counter()
@@ -4638,9 +4875,7 @@ def atomic_phase(tmp: str, seed: int, kdir: str, smi: str, cast_kernel: str = ""
     write_checkpoint(ckpt, seed, target="irmsd", batch_size=ATOMIC_BATCH,
                      node=ATOMIC_CONFIG["node_feature"], width=ATOMIC_WIDTH)
     sparse_bounds = lambda ld: {K1: sparse_bound_per_batch(ld)}  # noqa: E731
-    engine_kw = dict(batch=ATOMIC_BATCH, percent=ATOMIC_CONFIG["percent"],
-                     node_feature=ATOMIC_CONFIG["node_feature"],
-                     target=ATOMIC_CONFIG["target"])
+    engine_kw = dict(batch=ATOMIC_BATCH, percent=ATOMIC_CONFIG["percent"], **ATOMIC_ENGINE)
     with plans_once():
         with peak_memory("data", smi, memory):
             out["data"], batches = atomic_data_check(dataset)
@@ -4685,11 +4920,16 @@ def atomic_phase(tmp: str, seed: int, kdir: str, smi: str, cast_kernel: str = ""
             if out["fast"]["k3"]["casts"]:
                 raise AssertionError(f"atomic fast: {out['fast']['k3']['casts']} casts traced")
         with peak_memory("operators", smi, memory):
-            # the store's batches bitwise path 1's, and its bytes
+            # the store's batches bitwise path 1's, the weighted operators
+            # (FoutNet's and sGAT's) among the fields, and its bytes
             store = store_batches_check(dataset, True, ATOMIC_BATCH, batches["operators"])
+            store["weighted_operators"] = [
+                f for f in WEIGHTED_OPERATORS if getattr(batches["operators"][0][0], f) is not None]
             del batches
-            if store["packed_bytes"] > store["estimate_bytes"]:
-                raise AssertionError(f"atomic store: over its estimate {store}")
+            if store["packed_bytes"] > store["estimate_bytes"] or (
+                    store["weighted_operators"] != list(WEIGHTED_OPERATORS)):
+                raise AssertionError(f"atomic store: over its estimate, or without the weighted "
+                                     f"operators: {store}")
             out["operators"] = {"store": store, "serve": serve_check(
                 "atomic_operators", GINet, dataset, ckpt, tmp, "dense", {}, lambda ld: {},
                 sites=False, device_cache=True)}
@@ -4703,6 +4943,13 @@ def atomic_phase(tmp: str, seed: int, kdir: str, smi: str, cast_kernel: str = ""
             out["operators"]["scan"] = scan
             if any(scan["ran_per_epoch"]):
                 raise AssertionError(f"atomic scan: hand kernels ran {scan}")
+        for label, *_ in STORE_ZOO:
+            with peak_memory(label, smi, memory):
+                out[label] = atomic_store_zoo(label, dataset, tmp, seed, out)
+            if memory[label]["peak_allocated_bytes"] > DENSE_ZOO_PEAK_BYTES:
+                raise AssertionError(f"atomic {label}: peak allocated "
+                                     f"{memory[label]['peak_allocated_bytes']} B, over "
+                                     f"{DENSE_ZOO_PEAK_BYTES} B")
         with peak_memory("chunked", smi, memory):
             # chunks of one batch: the store's two batches in two chunks
             res = chunked_check(dataset, ckpt, tmp, seed, out["operators"]["serve"]["pred"],
@@ -4732,7 +4979,8 @@ ATOMIC_PASS_KEYS = ("device_idle_share", "device_busy_ms", "index_accumulation_m
                     "fused_gin_conv_ms_per_batch", "fused_gin_conv_bound_ms_per_batch",
                     "index_accumulation_sites")
 # the paths of phase 15 that are served and trained by serve_check and train_phase
-ATOMIC_SERVED = ("sparse", "dense", *[z[0] for z in ATOMIC_ZOO], "halo", "operators")
+ATOMIC_SERVED = ("sparse", "dense", *[z[0] for z in ATOMIC_ZOO], "halo", "operators",
+                 *[z[0] for z in STORE_ZOO])
 
 
 def pass_summary(v: dict, count: int) -> dict:
@@ -4867,10 +5115,12 @@ def main(argv=None) -> int:
                     help="build the kernels and print only each training path's digests "
                          "(phase 14), to compare a checkout with another on one card")
     ap.add_argument("--atomic", action="store_true",
-                    help="build the kernels and run only the atomic-scale phase (15)")
+                    help="build the kernels and run only the atomic-scale phase (15; with "
+                         f"--cards {CARDS}: 16)")
     ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
-                    help=f"{CARDS}: build the kernels and run only the mesh paths, one NCCL "
-                         f"rank a card on cuda:0-{CARDS - 1}, held against one card")
+                    help=f"{CARDS}: build the kernels and run only the mesh paths (phases 11 "
+                         f"and 16), one NCCL rank a card on cuda:0-{CARDS - 1}, held against "
+                         f"one card")
     args = ap.parse_args(argv)
 
     import torch
@@ -4889,27 +5139,38 @@ def cards_summary(mesh: dict) -> dict:
     """The ``--cards`` run in numbers, per rank where they differ: each mesh
     path's warm graphs/s (each rank's share of the graphs over its wall,
     and every graph over the slowest rank's wall: the cards together),
-    device busy time and idle share, NCCL kernel time (and by name on rank
-    0), the hand kernel's time per batch beside its bound, launches and
-    collective bytes per batch, the two runs' agreement; each scanned run's
-    graphs/s, replays, idle share and NCCL time; the single card's rates."""
+    the warm pass's wall over the profiled one's, device busy time and idle
+    share, NCCL kernel time (and by name on rank 0), the hand kernel's time
+    per batch beside its bound, launches and collective bytes per batch,
+    the two runs' agreement, each path's peak allocated memory; each scanned
+    run's graphs/s, replays, idle share and NCCL time; the single card's
+    rates and the references' peak; at atomic scale the halo's partitions
+    (host ms per rank and batch, ``H``, each shard's remote edges) and its
+    step's bytes."""
     ranks, run = mesh["ranks"], mesh["run"]
     out = {"ranks": run["ranks"], "graphs": run["graphs"], "global_batch": run["batch"],
-           "single_card_graphs_per_s_batch_128": mesh["rates"]}
+           f"single_card_graphs_per_s_batch_{mesh['rates']['batch']}": mesh["rates"],
+           "single_card_refs_peak_allocated_bytes": mesh["refs_peak_allocated_bytes"]}
 
     def nccl_ms(where):
         return sum(k["device_ms"] for k in where["nccl_kernels"].values())
 
     for path in MESH_PATHS:
         kernel = "fused_gin_conv" if path == "dense_mesh" else "sorted_segment_sum"
+        out[f"{path}_peak_allocated_bytes"] = [r[path]["peak_allocated_bytes"] for r in ranks]
         for kind in ("serve", "train"):
             per = [r[path][kind] for r in ranks]
             wheres = [p["where"] for p in per]
             warm = [p["walls"][-1] for p in per]
+            # a streaming dense rank serves its slice of each batch; every
+            # other pass covers all the graphs on every rank
+            graphs = (sum(p["graphs"] for p in per) if (path, kind) == ("dense_mesh", "serve")
+                      else per[0]["graphs"])
             cell = out[f"{path}_{kind}"] = {
-                "graphs_per_s_each_rank": [p["graphs"] / run["ranks"] / w
-                                           for p, w in zip(per, warm)],
-                "graphs_per_s_all_cards": per[0]["graphs"] / max(warm),
+                "graphs_per_s_each_rank": [graphs / run["ranks"] / w for w in warm],
+                "graphs_per_s_all_cards": graphs / max(warm),
+                "warm_over_profiled_wall": [1e3 * w / wh["profiled_wall_ms"]
+                                            for w, wh in zip(warm, wheres)],
                 "device_busy_ms": [w["device_busy_ms"] for w in wheres],
                 "device_idle_share": [w["device_idle_share"] for w in wheres],
                 "nccl_ms": [nccl_ms(w) for w in wheres],
@@ -4934,16 +5195,27 @@ def cards_summary(mesh: dict) -> dict:
                                   if "profile" in p],
             "nccl_ms": [nccl_ms(p["profile"]) for p in per if "profile" in p],
             "bytes_per_epoch_rank0": per[0].get("bytes_per_epoch", per[0].get("bytes")),
+            "peak_allocated_bytes": [p["peak_allocated_bytes"] for p in per],
         }
+    if run["atomic"]:
+        halo = [r["halo_bytes"] for r in ranks]
+        out["halo"] = {"graphs": run["halo_graphs"], "global_batch": run["halo_batch"],
+                       "partition_ms_per_rank": [h["partitions"]["partition_ms"] for h in halo],
+                       **{k: halo[0]["partitions"][k] for k in ("H", "local_edges",
+                                                                "remote_edges")},
+                       **{k: halo[0][k] for k in ("Nl", "C0", "counted",
+                                                  "node_all_gather_bytes")}}
     return out
 
 
-def cards_run(args, kdir: str, kind: str, t_start: float) -> int:
+def cards_run(args, kdir: str, kind: str, smi: str, t_start: float) -> int:
     """``--cards 4``: the cards' links (``nvidia-smi topo -m`` or ``nvlink
     --status``, where the machine allows them, and the peer-access matrix) and NCCL's
     version, then phase 11 on four NCCL ranks, one a card, beside the single
-    card on cuda:0 (``mesh_phase(cards=True)``); the last lines are its
-    numbers (``cards_summary``) and the ``{"ok": true, ...}`` line."""
+    card on cuda:0 (``mesh_phase(cards=True)``; not with ``--atomic``), then
+    phase 16, the same at atomic scale (``mesh_phase(cards=True,
+    atomic=True)``); the last lines are their numbers (``cards_summary``,
+    phase 16's under ``atomic``) and the ``{"ok": true, ...}`` line."""
     import torch
 
     # how the cards are linked, from what the machine lets a program read
@@ -4960,9 +5232,12 @@ def cards_run(args, kdir: str, kind: str, t_start: float) -> int:
     log(f"NCCL {torch.cuda.nccl.version()}; NCCL variables set: "
         + json.dumps({k: v for k, v in os.environ.items() if k.startswith("NCCL_")}))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        mesh = mesh_phase(tmp, kdir, args.seed, cards=True)
+        mesh = None if args.atomic else mesh_phase(tmp, kdir, args.seed, cards=True, smi=smi)
+        atomic = mesh_phase(tmp, kdir, args.seed, cards=True, atomic=True, smi=smi)
+    summary = {} if mesh is None else cards_summary(mesh)
+    summary["atomic"] = cards_summary(atomic)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
-    log(f"{CARDS} cards " + json.dumps(cards_summary(mesh)))
+    log(f"{CARDS} cards " + json.dumps(summary))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -5042,14 +5317,14 @@ def run(args, kdir: str) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             digest_phase(tmp, kdir, args.seed)
         return 0
+    if args.cards == CARDS:
+        return cards_run(args, kdir, kind, smi, t_start)
     if args.atomic:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             atomic = atomic_phase(tmp, args.seed, kdir, smi)
         log("atomic " + json.dumps(atomic_summary(atomic)))
         log(f"total: {time.perf_counter() - t_start:.1f} s")
         return 0
-    if args.cards == CARDS:
-        return cards_run(args, kdir, kind, t_start)
 
     # 3. kernels, at the shapes of the paths' first batches
     graphs = build_graphs(args.seed, max(args.graphs, args.zoo_graphs))

@@ -36,6 +36,11 @@ from deeprank_gnn_tpu_torch.data.dataset import GraphSample
 from deeprank_gnn_tpu_torch.ops.dense import TILE_R
 
 
+# the operators weighted by the edge attribute, collated beside the plain
+# ones whenever the edges carry one feature
+WEIGHTED_OPERATORS = ("wagg_x", "ea_rowsum0", "wadj1", "ea_rowsum1")
+
+
 @dataclass(frozen=True)
 class DenseGraphBatch(TensorFields):
     """Per-graph uniformly padded batch; a padding index equals the
@@ -64,7 +69,9 @@ class DenseGraphBatch(TensorFields):
     agg_x: Optional[torch.Tensor] = None  # [G, Ng, F] = P0 @ x
     deg0: Optional[torch.Tensor] = None  # [G, Ng] in-degree (row counts)
     adj1: Optional[torch.Tensor] = None  # [G, C0g, C0g] pooled-edge P1, 0/1 float32
-    # edge-attribute-weighted operators (sGAT; only with one edge feature)
+    # edge-attribute-weighted operators (``WEIGHTED_OPERATORS``: FoutNet
+    # reads ``wagg_x`` and ``wadj1``, sGAT all four; only with one edge
+    # feature)
     wagg_x: Optional[torch.Tensor] = None  # [G, Ng, F] = A_w @ x
     ea_rowsum0: Optional[torch.Tensor] = None  # [G, Ng] sum of edge_attr by row
     wadj1: Optional[torch.Tensor] = None  # [G, C0g, C0g] pe_attr-weighted P1

@@ -25,8 +25,15 @@ FEATURES = ["type", "polarity", "bsa", "pssm"]
 
 
 def _graphs(db):
-    from deeprank_gnn_tpu_torch.data.dataset import HDF5DataSet
+    """The graphs of the HDF5 file ``db``, or with ``db`` a tuple ``("atomic",
+    seed, graphs, nodes, undirected edges)`` ``chip_smoke.build_atomic_graphs``'
+    graphs in memory, row-sorted as a dataset holds them."""
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet, HDF5DataSet
 
+    if isinstance(db, tuple):
+        from chip_smoke import build_atomic_graphs
+
+        return GraphListDataSet(build_atomic_graphs(*db[1:])).graphs
     ds = HDF5DataSet(database=db, node_feature=FEATURES, edge_feature=["dist"],
                      target="fnat", tqdm=False)
     return [ds.get(i) for i in range(len(ds))]
@@ -70,6 +77,27 @@ def _params(out, prefix, model):
         out[f"{prefix}param:{name}"] = p.detach().numpy().copy()
 
 
+def _train(task, out, prefix, model, step, batch, after=lambda i: None):
+    """The task's steps of ``step`` on ``batch`` with dropout off, ``after(i)``
+    following step ``i``; with ``task["record"]`` each step's starting
+    parameters (``{prefix}{i}_param:``) and the gradients it applied,
+    summed over the ranks (``{prefix}{i}_grad:``). Returns the last
+    predictions."""
+    losses = []
+    with _no_dropout():
+        for i in range(task["steps"]):
+            if task.get("record"):
+                _params(out, f"{prefix}{i}_", model)
+            loss, pred = step(batch)
+            losses.append(float(loss))
+            if task.get("record"):
+                for name, p in model.named_parameters():
+                    out[f"{prefix}{i}_grad:{name}"] = p.grad.numpy().copy()
+            after(i)
+    out[f"{prefix}losses"] = np.array(losses)
+    return pred
+
+
 def halo_eval(task, out, rank):
     """Each net's replicated predictions under make_halo_eval_step."""
     from deeprank_gnn_tpu_torch.parallel import halo as H
@@ -86,8 +114,8 @@ def halo_eval(task, out, rank):
 
 
 def halo_train(task, out, rank):
-    """3 Adam steps of paper-mode GINet (dropout off) under the halo
-    layout, with the collective bytes of the first step and the plan's
+    """The task's Adam steps of paper-mode GINet (dropout off) under the
+    halo layout, with the collective bytes of the first step and the plan's
     sizes."""
     from deeprank_gnn_tpu_torch.parallel import collectives as C, halo as H
     from deeprank_gnn_tpu_torch.parallel.mesh import make_halo_mesh
@@ -98,24 +126,22 @@ def halo_train(task, out, rank):
     hb = H.shard_halo_batch(plan, mesh)
     model = _model("GINet", {}, batch.x.shape[1], task["state"])
     step = H.make_halo_train_step(model, _adam(model, task["lr"]), mesh)
-    losses = []
-    with _no_dropout():
-        for i in range(task["steps"]):
-            C.reset_collective_bytes()
-            loss, _ = step(hb)
-            losses.append(float(loss))
-            if i == 0:
-                for k, v in C.collective_bytes().items():
-                    out[f"bytes:{k}"] = np.int64(v)
-    out["halo_losses"] = np.array(losses)
+
+    def first_bytes(i):
+        if i == 0:
+            for k, v in C.collective_bytes().items():
+                out[f"bytes:{k}"] = np.int64(v)
+
+    C.reset_collective_bytes()
+    _train(task, out, "halo_", model, step, hb, first_bytes)
     out["plan"] = np.array([mesh.size, plan.send_idx.shape[-1], plan.nl,
                             plan.num_clusters0], dtype=np.int64)
     _params(out, "halo_", model)
 
 
 def mesh_train(task, out, rank):
-    """3 Adam steps of paper-mode GINet (dropout off) on a graph-parallel
-    mesh of the task's layout and shape."""
+    """The task's Adam steps of paper-mode GINet (dropout off) on a
+    graph-parallel mesh of the task's layout and shape."""
     from deeprank_gnn_tpu_torch.parallel import mesh as M
     from deeprank_gnn_tpu_torch.parallel.step import make_sharded_train_step
 
@@ -127,13 +153,7 @@ def mesh_train(task, out, rank):
         rb = M.shard_batch(_graphs(task["db"]), mesh, g_pad=task["g_pad"])
     model = _model("GINet", {}, rb.batch.x.shape[-1], task["state"])
     step = make_sharded_train_step(model, _adam(model, task["lr"]), mesh)
-    losses = []
-    with _no_dropout():
-        for _ in range(task["steps"]):
-            loss, pred = step(rb)
-            losses.append(float(loss))
-    out[f"{layout}_losses"] = np.array(losses)
-    out[f"{layout}_pred"] = pred.numpy()
+    out[f"{layout}_pred"] = _train(task, out, f"{layout}_", model, step, rb).numpy()
     out[f"{layout}_mesh"] = np.array(mesh.shape + mesh.coords)
     _params(out, f"{layout}_", model)
 
