@@ -1,0 +1,10 @@
+"""Host milliseconds a step spent issuing a scanned scoring pass's steps: the
+engine's own counter ``EpochSteps.last_issue_s`` (``train/scan.py``) over
+the pass's steps, averaged over the passes of the traced run's unprofiled
+stretch."""
+
+MOVES = "score_graphs_per_s"
+
+
+def read(ctx):
+    return ctx.rec["stretch"]["issue_ms"] if ctx.mode == "score" else None
