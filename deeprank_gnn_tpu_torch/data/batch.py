@@ -36,6 +36,7 @@ from typing import Any, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeprank_gnn_tpu_torch import trace
 from deeprank_gnn_tpu_torch.data.dataset import GraphSample
 from deeprank_gnn_tpu_torch.device import resolve_device
 
@@ -673,11 +674,15 @@ class GraphLoader:
         return self._sample_cache[i]
 
     def _get_plan(self, i: int, sample):
-        if not self.cache_samples:
-            return make_graph_plan(sample)
-        if i not in self._plan_cache:
-            self._plan_cache[i] = make_graph_plan(sample)
-        return self._plan_cache[i]
+        """Graph ``i``'s pooling plan, made at first use (the span
+        ``loader.plan``) and cached with ``cache_samples``."""
+        if self.cache_samples and i in self._plan_cache:
+            return self._plan_cache[i]
+        with trace.span("loader.plan"):
+            plan = make_graph_plan(sample)
+        if self.cache_samples:
+            self._plan_cache[i] = plan
+        return plan
 
     def _emit_sparse(self, idx, caps) -> Optional[Tuple[GraphBatch, List[str]]]:
         pairs = [(int(i), self._get_sample(int(i))) for i in idx]
@@ -764,7 +769,10 @@ class GraphLoader:
                 # streamed epoch does not pay their host work unasked
                 self.precompute_ops = False
             return False
-        self._store = build_store_from_loader(self)
+        with trace.span("store.build") as sp:
+            self._store = build_store_from_loader(self)
+            if self._store is not None:
+                sp.add(graphs=self._store.num_graphs, bytes=self._store.nbytes)
         return self._store is not None
 
     def _maybe_build_chunks(self) -> bool:

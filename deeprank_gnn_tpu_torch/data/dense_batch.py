@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeprank_gnn_tpu_torch import trace
 from deeprank_gnn_tpu_torch.data.batch import TensorFields, make_graph_plan
 from deeprank_gnn_tpu_torch.data.dataset import GraphSample
 from deeprank_gnn_tpu_torch.ops.dense import TILE_R
@@ -257,7 +258,8 @@ def collate_dense(
             y[gi] = s.y
             y_mask[gi] = True
         if precompute_ops:
-            _fill_ops(ops, gi, s, plan, pos, srow, padded)
+            with trace.span("store.operators"):
+                _fill_ops(ops, gi, s, plan, pos, srow, padded)
         mols.append(s.mol)
 
     if precompute_ops:

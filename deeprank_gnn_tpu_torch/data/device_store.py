@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from deeprank_gnn_tpu_torch import trace
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch, collate_dense
 
 # collate granularity while building the store: bounds peak host memory
@@ -341,12 +342,13 @@ class DeviceGraphStore:
             precompute_ops=precompute_ops,
         )
         chunks = []
-        for start in range(0, len(samples), _CHUNK):
-            part = list(samples[start: start + _CHUNK])
-            chunks.append(collate_dense(part, g_pad=len(part),
-                                        plans=list(plans[start: start + _CHUNK]), **caps)[0])
-        # trailing all-padding slot: partial batches gather it
-        chunks.append(collate_dense([], g_pad=1, **caps)[0])
+        with trace.span("store.collate"):
+            for start in range(0, len(samples), _CHUNK):
+                part = list(samples[start: start + _CHUNK])
+                chunks.append(collate_dense(part, g_pad=len(part),
+                                            plans=list(plans[start: start + _CHUNK]), **caps)[0])
+            # trailing all-padding slot: partial batches gather it
+            chunks.append(collate_dense([], g_pad=1, **caps)[0])
         host = _concat_batches(chunks)
         self.y_host = host.y.numpy()
         self.y_mask_host = host.y_mask.numpy()
@@ -356,10 +358,12 @@ class DeviceGraphStore:
             ng=ng, eg=eg, pg=pg, c0g=c0g, c1g=c1g,
             num_features=num_features, num_edge_features=num_edge_features,
         )
-        segments, layout = _pack_host(host, pack)
+        with trace.span("store.pack"):
+            segments, layout = _pack_host(host, pack)
         self.nbytes = sum(m.numel() * m.element_size() for m in segments.values())
-        self.store = PackedStore(
-            segments={s: m.to(self.device) for s, m in segments.items()}, layout=layout)
+        with trace.span("store.upload"):
+            segments = {s: m.to(self.device) for s, m in segments.items()}
+        self.store = PackedStore(segments=segments, layout=layout)
 
     @property
     def num_graphs(self) -> int:

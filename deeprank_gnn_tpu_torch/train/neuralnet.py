@@ -60,6 +60,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from deeprank_gnn_tpu_torch import trace
 from deeprank_gnn_tpu_torch.data.batch import GraphLoader, RankBatch
 from deeprank_gnn_tpu_torch.data.dataset import (
     DivideDataSet,
@@ -813,25 +814,30 @@ class NeuralNet:
     def _run_pass_scan(self, loader: GraphLoader, training: bool):
         """One scanned epoch over the loader's store (``train/scan.py``):
         the host plans the slot matrix, the steps run as graph replays and
-        the results are read back once. None when the loader has no store
-        (the caller runs the per-batch loop)."""
+        the results are read back once. ``(result, steps)``, or None when
+        the loader has no store (the caller runs the per-batch loop)."""
         if loader.device_cache == "chunked":
             return self._run_pass_scan_chunked(loader, training)
-        plan = loader.device_epoch_plan()
-        if plan is None:
-            return None
-        slots, mols_per_batch = plan
-        store = loader._store
-        mapped = self._mapped_store_targets(store)
-        y_all = self._store_targets(store, mapped)
-        losses, preds = self._scan_buffers(len(slots))
+        with trace.span("pass.plan"):
+            plan = loader.device_epoch_plan()
+            if plan is None:
+                return None
+            slots, mols_per_batch = plan
+            store = loader._store
+            mapped = self._mapped_store_targets(store)
+            y_all = self._store_targets(store, mapped)
+            losses, preds = self._scan_buffers(len(slots))
+            slots_dev = self._slots_on_device(slots[:, self._scan_cols])
+            y_rows, mask_rows = mapped[slots], store.y_mask_host[slots]
         with self._scan_context(training):
-            self._scan_into(store.store, y_all,
-                            self._slots_on_device(slots[:, self._scan_cols]), training,
-                            mapped[slots], store.y_mask_host[slots], losses, preds)
+            self._scan_into(store.store, y_all, slots_dev, training, y_rows, mask_rows, losses,
+                            preds)
         self.model.eval()
-        return self._collect_scan_pass(store, mapped, slots, mols_per_batch,
-                                       losses.cpu().numpy(), preds.cpu().numpy())
+        with trace.span("pass.readback"):
+            losses, preds = losses.cpu().numpy(), preds.cpu().numpy()
+        with trace.span("pass.collect"):
+            res = self._collect_scan_pass(store, mapped, slots, mols_per_batch, losses, preds)
+        return res, len(slots)
 
     def _chunk_sets(self, cs):
         """Two sets of fixed device buffers (a chunk's matrices and its
@@ -855,29 +861,30 @@ class NeuralNet:
         while the steps over the other set run, and every chunk's steps are
         replays of that set's graphs. The results of the whole epoch are
         read back once. Batch order, dropout stream and numbers are those
-        of the looped chunked epoch. None when the loader has no chunk
-        store."""
-        plan = loader.chunk_epoch_plan()
-        if plan is None:
-            return None
-        cs = loader._chunk_store
-        mapped = self._mapped_store_targets(cs)
-        y_mask = np.asarray(cs.y_mask_host, dtype=bool)
-        sets = self._chunk_sets(cs)
-        counts = [len(slots) for _, slots, _ in plan]
-        # each slot's row of the dataset (a chunk's pad slot: its last
-        # graph's) and whether it holds a target
-        grows = np.concatenate([np.minimum(cs.chunk_ranges[ci][0] + slots, cs.num_graphs - 1)
-                                for ci, slots, _ in plan])
-        valids = np.concatenate([slots < cs.chunk_ranges[ci][1] for ci, slots, _ in plan])
-        valids &= y_mask[grows]
-        slots_all = np.concatenate([slots for _, slots, _ in plan])
-        slots_dev = self._slots_on_device(slots_all[:, self._scan_cols])
-        if self.mesh is None:
-            losses, preds = self._scan_buffers(sum(counts))
-            norms = None
-        else:
-            losses, preds, norms = self._mesh_scan_begin(mapped[grows], valids)
+        of the looped chunked epoch. ``(result, steps)``, or None when the
+        loader has no chunk store."""
+        with trace.span("pass.plan"):
+            plan = loader.chunk_epoch_plan()
+            if plan is None:
+                return None
+            cs = loader._chunk_store
+            mapped = self._mapped_store_targets(cs)
+            y_mask = np.asarray(cs.y_mask_host, dtype=bool)
+            sets = self._chunk_sets(cs)
+            counts = [len(slots) for _, slots, _ in plan]
+            # each slot's row of the dataset (a chunk's pad slot: its last
+            # graph's) and whether it holds a target
+            grows = np.concatenate([np.minimum(cs.chunk_ranges[ci][0] + slots,
+                                               cs.num_graphs - 1) for ci, slots, _ in plan])
+            valids = np.concatenate([slots < cs.chunk_ranges[ci][1] for ci, slots, _ in plan])
+            valids &= y_mask[grows]
+            slots_all = np.concatenate([slots for _, slots, _ in plan])
+            slots_dev = self._slots_on_device(slots_all[:, self._scan_cols])
+            if self.mesh is None:
+                losses, preds = self._scan_buffers(sum(counts))
+                norms = None
+            else:
+                losses, preds, norms = self._mesh_scan_begin(mapped[grows], valids)
         cuda = self.device.type == "cuda"
 
         def upload(pos):
@@ -910,18 +917,20 @@ class NeuralNet:
         self.model.eval()
         if norms is not None:
             losses, preds = self._mesh_steps.scan_finish(losses, norms, preds, self.batch_size)
-        losses, preds = losses.cpu().numpy(), preds.cpu().numpy()
-        out, out_m, raw_outputs, ys = [], [], [], []
-        data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
-        acc = (out, out_m, raw_outputs, ys, data)
-        off = 0
-        for _ci, _slots, mols_per_batch in plan:
-            for bi, mols in enumerate(mols_per_batch):
-                i = off + bi
-                self._collect_batch(acc, preds[i], mols, mapped[grows[i]], valids[i])
-            off += len(mols_per_batch)
-        self._finish_pass_data(data, out, raw_outputs, ys)
-        return out, out_m, ys, _epoch_loss(losses), data
+        with trace.span("pass.readback"):
+            losses, preds = losses.cpu().numpy(), preds.cpu().numpy()
+        with trace.span("pass.collect"):
+            out, out_m, raw_outputs, ys = [], [], [], []
+            data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
+            acc = (out, out_m, raw_outputs, ys, data)
+            off = 0
+            for _ci, _slots, mols_per_batch in plan:
+                for bi, mols in enumerate(mols_per_batch):
+                    i = off + bi
+                    self._collect_batch(acc, preds[i], mols, mapped[grows[i]], valids[i])
+                off += len(mols_per_batch)
+            self._finish_pass_data(data, out, raw_outputs, ys)
+        return (out, out_m, ys, _epoch_loss(losses), data), sum(counts)
 
     def _full_scan_plans(self, loader: GraphLoader, nepoch: int):
         """``nepoch`` successive epoch plans, drawn as ``nepoch`` iterated
@@ -1060,14 +1069,19 @@ class NeuralNet:
         (``training``) or a forward pass, under deterministic algorithms.
         With ``scan_epochs`` and a store, the scanned epoch instead.
         Returns ``(out, out_m, ys, loss, data)``; ``loss`` sums the
-        batches' losses."""
-        if self.scan_epochs:
-            res = self._run_pass_scan(loader, training)
-            if res is not None:
-                return res
+        batches' losses. Recorded as the span ``pass``, with its graphs and
+        steps (``trace.py``)."""
+        with trace.span("pass") as sp:
+            scanned = self._run_pass_scan(loader, training) if self.scan_epochs else None
+            res, steps = scanned or self._run_pass_looped(loader, training)
+            sp.add(graphs=len(res[4]["mol"]), steps=steps)
+        return res
+
+    def _run_pass_looped(self, loader: GraphLoader, training: bool):
+        """The per-batch pass of :meth:`_run_pass`: ``(result, steps)``."""
         out, out_m, raw_outputs, ys = [], [], [], []
         data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
-        running_loss = 0.0
+        running_loss, batches = 0.0, 0
 
         steps = self._mesh_steps
 
@@ -1093,13 +1107,14 @@ class NeuralNet:
                 else:
                     loss, pred = self._loss_and_pred(batch)
                 running_loss += float(loss)
+                batches += 1
                 self._collect_batch(
                     (out, out_m, raw_outputs, ys, data),
                     pred.cpu().numpy(), mols, y_host, mask_host,
                 )
         self.model.eval()
         self._finish_pass_data(data, out, raw_outputs, ys)
-        return out, out_m, ys, running_loss, data
+        return (out, out_m, ys, running_loss, data), batches
 
     def train(
         self,
@@ -1119,7 +1134,11 @@ class NeuralNet:
         the last). ``profile``: a directory; the second epoch's training
         pass is recorded with ``torch.profiler`` (host activity, and the
         card's on a card) and written there as a Chrome trace that
-        TensorBoard reads (JAX ``train/neuralnet.py:1078-1110``). With
+        TensorBoard reads (JAX ``train/neuralnet.py:1078-1110``); the
+        engine's spans (``pass``, ``pass.plan``, ``pass.issue``,
+        ``pass.readback``, ``pass.collect``) are ranges in it, on the
+        kernels' clock. In a running process ``trace.passes()`` gives the
+        newest passes' spans (``trace.py``). With
         ``scan_epochs="full"`` and no ``profile`` the whole call runs as
         one scanned run (:meth:`_train_full_scan`)."""
         import h5py

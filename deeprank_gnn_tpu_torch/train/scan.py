@@ -52,11 +52,11 @@ from __future__ import annotations
 
 import dataclasses
 from collections import Counter
-from time import perf_counter
 from typing import Optional
 
 import torch
 
+from deeprank_gnn_tpu_torch import trace
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 from deeprank_gnn_tpu_torch.data.device_store import PackedStore, gather_packed
 from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
@@ -120,7 +120,7 @@ class EpochSteps:
         self._warm: set = set()
         self._stream = None
         # the last run: its steps per replay (the warm-up step counted as
-        # one) and the seconds the host spent issuing them
+        # one) and the seconds the host spent issuing them (its span's)
         self.last_groups: list = []
         self.last_issue_s = 0.0
 
@@ -131,30 +131,35 @@ class EpochSteps:
         device), batch ``i``'s loss and predictions into ``losses[i]`` and
         ``preds[i]``, with ``aux[i]`` passed on to the step when ``aux``
         (``[B]``) is given. Reads nothing back. On the CPU each group of
-        steps that a card replays as one graph runs eagerly."""
-        t0 = perf_counter()
-        cuda = slots.device.type == "cuda"
-        split = training and self.split is not None
-        inputs = (tuple((m.data_ptr(), tuple(m.shape)) for m in store.segments.values())
-                  + ((y_all.data_ptr(), tuple(y_all.shape)),))
-        groups, pos = [], 0
-        if (inputs, training) not in self._warm:
-            self._warm_up(store, y_all, slots, training, losses, preds, aux)
-            self._warm.add((inputs, training))
-            groups, pos = [1], 1
-        while pos < slots.shape[0]:
-            n = 1 if split else min(self.unroll, slots.shape[0] - pos)
-            if cuda:
-                replay = self._replay_split if split else self._replay
-                replay(store, y_all, slots, training, losses, preds, aux, inputs, pos, n)
-            else:
-                for i in range(pos, pos + n):
-                    losses[i], preds[i] = self._step(store, y_all, slots[i], training,
-                                                     *_aux_at(aux, i))
-            groups.append(n)
-            pos += n
+        steps that a card replays as one graph runs eagerly. Recorded as the
+        span ``pass.issue``, with the replays, the graphs captured and the
+        eager warm-up steps it ran."""
+        with trace.span("pass.issue") as sp:
+            cuda = slots.device.type == "cuda"
+            split = training and self.split is not None
+            inputs = (tuple((m.data_ptr(), tuple(m.shape)) for m in store.segments.values())
+                      + ((y_all.data_ptr(), tuple(y_all.shape)),))
+            groups, pos, graphs = [], 0, len(self._graphs)
+            if (inputs, training) not in self._warm:
+                self._warm_up(store, y_all, slots, training, losses, preds, aux)
+                self._warm.add((inputs, training))
+                groups, pos = [1], 1
+            warmups = pos
+            while pos < slots.shape[0]:
+                n = 1 if split else min(self.unroll, slots.shape[0] - pos)
+                if cuda:
+                    replay = self._replay_split if split else self._replay
+                    replay(store, y_all, slots, training, losses, preds, aux, inputs, pos, n)
+                else:
+                    for i in range(pos, pos + n):
+                        losses[i], preds[i] = self._step(store, y_all, slots[i], training,
+                                                         *_aux_at(aux, i))
+                groups.append(n)
+                pos += n
+            sp.add(replays=(len(groups) - warmups) if cuda else 0,
+                   captures=len(self._graphs) - graphs, warmups=warmups)
         self.last_groups = groups
-        self.last_issue_s = perf_counter() - t0
+        self.last_issue_s = sp.seconds
 
     def _replay(self, store, y_all, slots, training, losses, preds, aux, inputs, pos, n) -> None:
         """Steps ``pos .. pos + n - 1`` as one replay of the graph of ``n``
