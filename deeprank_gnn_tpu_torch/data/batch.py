@@ -826,24 +826,44 @@ class GraphLoader:
     def _iter_device(self):
         """Epoch of batches gathered from the resident store, in the
         streamed epoch's order."""
+        rows, counts, _ = self._store_epoch()
+        for row, n in zip(rows, counts.tolist()):
+            batch, mols = self._store.batch(row[:n], self.batch_size)
+            yield batch, mols
+        self._finish_epoch_stats()
+
+    def _store_epoch(self):
+        """The batches of one epoch over the resident store, in the
+        streamed epoch's order (one draw of the loader's RNG when it
+        shuffles): ``(rows, counts, slots)``. Row ``b`` of ``rows
+        [B, batch_size]`` (int64) holds the store slots of batch ``b``'s
+        graphs that the store holds, ``counts[b]`` of them, then the store's
+        pad slot; a batch with none is left out, and ``slots`` are the real
+        slots in batch order. Adds the batches to the padding statistics."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(order)
-        store = self._store
-        for start in range(0, len(order), self.batch_size):
-            idx = order[start: start + self.batch_size]
-            if self.drop_last and len(idx) < self.batch_size:
-                break
-            slots = np.asarray(
-                [store.slot_of_index[int(i)] for i in idx if int(i) in store.slot_of_index],
-                dtype=np.int64,
-            )
-            if len(slots) == 0:
-                continue
-            batch, mols = store.batch(slots, self.batch_size)
-            self._count_store_batch(store, slots)
-            yield batch, mols
-        self._finish_epoch_stats()
+        store, size = self._store, self.batch_size
+        num = len(order) // size if self.drop_last else -(-len(order) // size)
+        # each batch's positions as store slots, -1 where the store leaves
+        # the index out or past the end of the last batch
+        table = np.full(num * size, -1, dtype=np.int64)
+        table[: min(len(order), num * size)] = store.slot_table[order[: num * size]]
+        present = table.reshape(num, size) >= 0
+        slots = table[present.reshape(-1)]
+        counts = present.sum(axis=1)
+        counts = counts[counts > 0]
+        # each batch's slots to the front of its row, in their order
+        real = np.arange(size) < counts[:, None]
+        rows = np.full(real.shape, store.pad_slot, dtype=np.int64)
+        rows[real] = slots
+        st = self._epoch_stats
+        st["valid_edges"] += int(store.edge_counts[slots].sum())
+        st["padded_edges"] += len(rows) * size * store.caps["eg"]
+        st["valid_nodes"] += int(store.node_counts[slots].sum())
+        st["padded_nodes"] += len(rows) * size * store.caps["ng"]
+        st["num_batches"] += len(rows)
+        return rows, counts, slots
 
     def _new_epoch_stats(self) -> None:
         self._epoch_stats = {
@@ -866,31 +886,15 @@ class GraphLoader:
         ``data/batch.py:728-781``)."""
         if not (self.device_cache is True and self._maybe_build_store()):
             return None
-        order = np.arange(len(self.dataset))
-        if self.shuffle:
-            self._rng.shuffle(order)
         self._new_epoch_stats()
-        store = self._store
-        rows, mols_per_batch = [], []
-        for start in range(0, len(order), self.batch_size):
-            idx = order[start: start + self.batch_size]
-            if self.drop_last and len(idx) < self.batch_size:
-                break
-            slots = np.asarray(
-                [store.slot_of_index[int(i)] for i in idx if int(i) in store.slot_of_index],
-                dtype=np.int32,
-            )
-            if len(slots) == 0:
-                continue
-            row = np.full(self.batch_size, store.pad_slot, dtype=np.int32)
-            row[: len(slots)] = slots
-            rows.append(row)
-            mols_per_batch.append([store.mols[int(s)] for s in slots])
-            self._count_store_batch(store, slots)
+        rows, counts, slots = self._store_epoch()
         self._finish_epoch_stats()
-        if not rows:
+        if not len(rows):
             return None
-        return np.stack(rows), mols_per_batch
+        mols = self._store.mol_array[slots].tolist()
+        ends = np.cumsum(counts).tolist()
+        mols_per_batch = [mols[end - n: end] for end, n in zip(ends, counts.tolist())]
+        return rows.astype(np.int32), mols_per_batch
 
     def chunk_epoch_plan(self):
         """The plan of one epoch over the rotating chunk store: a list of

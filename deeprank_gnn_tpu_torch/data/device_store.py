@@ -334,6 +334,10 @@ class DeviceGraphStore:
             raise ValueError("samples/plans length mismatch")
         self.device = torch.device(device)
         self.mols: List[str] = [s.mol for s in samples]
+        # the same names as one array, for a scanned epoch's plan to take
+        # a pass's names with one gather
+        self.mol_array = np.empty(len(self.mols), dtype=object)
+        self.mol_array[:] = self.mols
         self.pad_slot = len(samples)
         caps = dict(
             ng=ng, eg=eg, pg=pg, c0g=c0g, c1g=c1g, m0g=m0g, m1g=m1g,
@@ -607,4 +611,7 @@ def build_store_from_loader(loader) -> Optional[DeviceGraphStore]:
         precompute_ops=loader.precompute_ops, pack=loader.store_pack, **caps,
     )
     store.slot_of_index = slot_of_index
+    # the same map as a dense table, -1 where the store leaves an index out
+    store.slot_table = np.full(len(loader.dataset), -1, dtype=np.int64)
+    store.slot_table[list(slot_of_index)] = list(slot_of_index.values())
     return store

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 from time import time
 from typing import Optional, Sequence
@@ -503,6 +504,7 @@ class NeuralNet:
             self._scan_step, unroll=self.scan_unroll,
             generator=self._dropout_generator if self.device.type == "cuda" else None)
         self._scan_targets = {}
+        self._scan_mapped = {}
         self._chunk_buffers = {}
         self._mesh_steps = None
         # the columns of a batch's slots that a scanned step gathers: on a
@@ -699,25 +701,37 @@ class NeuralNet:
     # passes
 
     def _collect_batch(self, acc, pred, mols, y_host, mask_host) -> None:
-        """Per-batch host bookkeeping: predictions, aligned (pred, target)
-        pairs for metrics, raw outputs, molecule names."""
+        """Per-batch host bookkeeping of the looped passes: one batch's
+        real graphs, the first ``len(mols)`` of ``pred``, ``y_host`` and
+        ``mask_host``, through :meth:`_collect_batches`."""
+        g = len(mols)
+        self._collect_batches(acc, pred[None, :g], [mols], y_host[None, :g],
+                              mask_host[None, :g])
+
+    def _collect_batches(self, acc, preds, mols_per_batch, y_rows, mask_rows) -> None:
+        """Host bookkeeping of batches ``preds [B, width(, classes)]`` with
+        their targets and masks ``[B, width]``, batch ``b``'s real graphs the
+        first ``len(mols_per_batch[b])`` of its row: predictions, aligned
+        (pred, target) pairs for metrics, raw outputs, molecule names, in
+        batch order, with one array operation each for all ``B``."""
         out, out_m, raw_outputs, ys, data = acc
-        g_real = len(mols)
-        valid = mask_host[:g_real]
+        counts = np.fromiter(map(len, mols_per_batch), np.int64, len(mols_per_batch))
+        real = np.arange(preds.shape[1]) < counts[:, None]
+        pred = preds[real]
         if self.task == "class":
             probs = torch.softmax(torch.from_numpy(pred), dim=1).numpy()
-            raw_outputs += probs[:g_real].tolist()
-            labels = np.argmax(probs[:g_real], axis=1)
-            batch_out = labels.tolist()
+            raw_outputs += probs.tolist()
+            batch_out = np.argmax(probs, axis=1).tolist()
         else:
-            raw_outputs += pred[:g_real].tolist()
-            batch_out = pred[:g_real].tolist()
+            batch_out = pred.tolist()
+            raw_outputs += batch_out
         out += batch_out
         # metrics need aligned (prediction, target) pairs: keep only
         # graphs that actually carry the target (y_mask)
-        out_m += [o for o, v in zip(batch_out, valid) if v]
-        ys += y_host[:g_real][valid].tolist()
-        data["mol"] += mols
+        valid = np.asarray(mask_rows, dtype=bool)[real]
+        out_m += itertools.compress(batch_out, valid.tolist())
+        ys += y_rows[real][valid].tolist()
+        data["mol"] += itertools.chain.from_iterable(mols_per_batch)
 
     def _finish_pass_data(self, data, out, raw_outputs, ys) -> None:
         if self.task == "class":
@@ -730,12 +744,17 @@ class NeuralNet:
 
     def _mapped_store_targets(self, store) -> np.ndarray:
         """The store's targets, slot by slot, with the class remap applied
-        (host numpy; the store keeps the file's targets)."""
-        mapped = np.asarray(store.y_host, dtype=np.float32)
-        if self.task == "class":
-            mapped = np.array([self.classes_to_idx.get(int(v), 0) for v in mapped],
-                              dtype=np.float32)
-        return mapped
+        (host numpy; the store keeps the file's targets), made once per
+        store."""
+        kept = self._scan_mapped.get(id(store))
+        if kept is None or kept[0] is not store:
+            mapped = np.asarray(store.y_host, dtype=np.float32)
+            if self.task == "class":
+                mapped = np.array([self.classes_to_idx.get(int(v), 0) for v in mapped],
+                                  dtype=np.float32)
+            kept = (store, mapped)
+            self._scan_mapped[id(store)] = kept
+        return kept[1]
 
     def _store_targets(self, store, mapped: np.ndarray) -> torch.Tensor:
         """``mapped`` on the device, uploaded once per store: the captured
@@ -799,15 +818,13 @@ class NeuralNet:
 
     def _collect_scan_pass(self, store, mapped, slots, mols_per_batch, losses, preds):
         """The host's bookkeeping of a scanned pass from its read-back
-        losses and predictions, as ``_run_pass`` does per batch (the epoch's
-        loss sums the batches' losses in order, as there)."""
+        losses and predictions: the looped pass's per-batch lists, built for
+        all batches at once (:meth:`_collect_batches`); the epoch's loss sums
+        the batches' losses in order, as there."""
         out, out_m, raw_outputs, ys = [], [], [], []
         data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
-        acc = (out, out_m, raw_outputs, ys, data)
-        for bi, mols in enumerate(mols_per_batch):
-            row = slots[bi]
-            self._collect_batch(acc, preds[bi], mols, mapped[row],
-                                np.asarray(store.y_mask_host[row], dtype=bool))
+        self._collect_batches((out, out_m, raw_outputs, ys, data), preds, mols_per_batch,
+                              mapped[slots], store.y_mask_host[slots])
         self._finish_pass_data(data, out, raw_outputs, ys)
         return out, out_m, ys, _epoch_loss(losses), data
 

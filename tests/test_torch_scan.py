@@ -3,7 +3,12 @@
 - epoch plans: ``device_epoch_plan`` and ``chunk_epoch_plan`` give JAX's
   slot matrices (bitwise, int32), molecules and padding statistics over two
   shuffled epochs, and the next iterated epoch's order is JAX's; an empty
-  chunk plan restores the loader's RNG as JAX's does;
+  chunk plan restores the loader's RNG as JAX's does; the resident plan's
+  array operations give what a per-graph loop gives (slots, molecules,
+  padding statistics, the RNG after the draw), with graphs the store
+  leaves out, shuffled or not, with and without ``drop_last``; the
+  pass-wide collect gives the per-batch lists, element for element and
+  type for type;
 - ``scan_epochs=True``: losses, predictions, epoch data, parameters, Adam
   state and the dropout generator's state bitwise the port's looped store
   epochs, with dropout off and on, for the regression and class tasks;
@@ -110,6 +115,161 @@ def test_empty_chunk_plan_restores_rng(db):
     np.testing.assert_array_equal(tl._rng.get_state()[1], jl._rng.get_state()[1])
     assert list(tl) == [] and list(jl) == []
     np.testing.assert_array_equal(tl._rng.get_state()[1], jl._rng.get_state()[1])
+
+
+def loop_plan(loader):
+    """The resident epoch plan as a per-graph loop over the epoch's order:
+    the form the array plan replaced, kept as its oracle."""
+    if not (loader.device_cache is True and loader._maybe_build_store()):
+        return None
+    order = np.arange(len(loader.dataset))
+    if loader.shuffle:
+        loader._rng.shuffle(order)
+    loader._new_epoch_stats()
+    store = loader._store
+    rows, mols_per_batch = [], []
+    for start in range(0, len(order), loader.batch_size):
+        idx = order[start: start + loader.batch_size]
+        if loader.drop_last and len(idx) < loader.batch_size:
+            break
+        slots = np.asarray(
+            [store.slot_of_index[int(i)] for i in idx if int(i) in store.slot_of_index],
+            dtype=np.int32,
+        )
+        if len(slots) == 0:
+            continue
+        row = np.full(loader.batch_size, store.pad_slot, dtype=np.int32)
+        row[: len(slots)] = slots
+        rows.append(row)
+        mols_per_batch.append([store.mols[int(s)] for s in slots])
+        loader._count_store_batch(store, slots)
+    loader._finish_epoch_stats()
+    if not rows:
+        return None
+    return np.stack(rows), mols_per_batch
+
+
+@pytest.mark.parametrize("left_out", [(), (1, 4, 5, 6, 7), tuple(range(NUM_GRAPHS))],
+                         ids=["whole", "some-left-out", "all-left-out"])
+@pytest.mark.parametrize("drop_last", [False, True], ids=["keep-last", "drop-last"])
+@pytest.mark.parametrize("shuffle", [False, True], ids=["ordered", "shuffled"])
+def test_device_plan_matches_per_graph_loop(db, shuffle, drop_last, left_out):
+    """Two loaders from one seed, one planning with the array operations
+    and one with the per-graph loop, over three epochs of 10 graphs in
+    batches of 4 (a last batch of 2): the same slot matrices (bitwise,
+    int32), molecules, padding statistics and RNG state after each draw.
+    Graphs the dataset cannot read are left out of the store; in order,
+    graphs 4-7 fill a batch of their own, which both leave out."""
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+
+    _, tds = datasets(db)
+    tds = copy.copy(tds)
+    read = tds.get
+    tds.get = lambda i: None if i in left_out else read(i)
+    kw = dict(batch_size=4, layout="dense", shuffle=shuffle, seed=7, drop_last=drop_last,
+              device_cache=True, device="cpu")
+    array, loop = GraphLoader(tds, **kw), GraphLoader(tds, **kw)
+    for _epoch in range(3):
+        got, want = array.device_epoch_plan(), loop_plan(loop)
+        if want is None:
+            assert got is None
+        else:
+            assert got[0].dtype == np.int32 == want[0].dtype
+            np.testing.assert_array_equal(got[0], want[0])
+            assert got[1] == want[1]
+            assert all(type(m) is str for ms in got[1] for m in ms)
+        assert array.padding_stats == loop.padding_stats
+        assert [type(v) for v in array.padding_stats.values()] == [
+            type(v) for v in loop.padding_stats.values()]
+        for a, b in zip(array._rng.get_state(), loop._rng.get_state()):
+            np.testing.assert_array_equal(a, b)
+    if len(left_out) < NUM_GRAPHS:
+        assert len(array._store.slot_of_index) == NUM_GRAPHS - len(left_out)
+        assert array.padding_stats["num_batches"] > 0
+    if not shuffle and len(left_out) == 5 and not drop_last:
+        # batch 1 is left out whole; the last batch holds graphs 8 and 9
+        assert [len(m) for m in got[1]] == [3, 2]
+
+
+def collect_fold(nn, store, mapped, slots, mols_per_batch, losses, preds):
+    """A scanned pass's bookkeeping as the per-batch fold the pass-wide
+    collect replaced, kept as its oracle: ``(out, out_m, ys, loss,
+    data)``."""
+    out, out_m, raw_outputs, ys = [], [], [], []
+    data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
+    for bi, mols in enumerate(mols_per_batch):
+        pred, y_host = preds[bi], mapped[slots[bi]]
+        g_real = len(mols)
+        valid = np.asarray(store.y_mask_host[slots[bi]], dtype=bool)[:g_real]
+        if nn.task == "class":
+            probs = torch.softmax(torch.from_numpy(pred), dim=1).numpy()
+            raw_outputs += probs[:g_real].tolist()
+            batch_out = np.argmax(probs[:g_real], axis=1).tolist()
+        else:
+            raw_outputs += pred[:g_real].tolist()
+            batch_out = pred[:g_real].tolist()
+        out += batch_out
+        out_m += [o for o, v in zip(batch_out, valid) if v]
+        ys += y_host[:g_real][valid].tolist()
+        data["mol"] += mols
+    nn._finish_pass_data(data, out, raw_outputs, ys)
+    total = 0.0
+    for loss in losses:
+        total += float(loss)
+    return out, out_m, ys, total, data
+
+
+def assert_same_values(a, b):
+    """Equal element for element and type for type, through nested lists
+    and dicts."""
+    assert type(a) is type(b)
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert_same_values(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert_same_values(x, y)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("target", ["fnat", "bin_class"], ids=["reg", "class"])
+def test_collect_scan_pass_matches_per_batch_fold(db, tmp_path, target):
+    """The pass-wide ``_collect_scan_pass`` against the per-batch fold,
+    and against the looped path's ``_collect_batch`` folded batch by batch:
+    three batches of 4 with 4, 2 and 3 real graphs, targets masked out
+    among them and in the pad slot."""
+    from types import SimpleNamespace
+
+    nn = port_engine(db, str(tmp_path / "e"), target=target, batch_size=4, layout="dense",
+                     class_weights=target == "bin_class")
+    rng = np.random.default_rng(5)
+    num, pad = 9, 9
+    y = (rng.integers(0, 2, num + 1) if target == "bin_class" else rng.random(num + 1))
+    mask = np.ones(num + 1, dtype=bool)
+    mask[[2, 6, pad]] = False
+    store = SimpleNamespace(y_host=y.astype(np.float32), y_mask_host=mask)
+    slots = np.array([[3, 0, 6, 8], [5, 2, pad, pad], [7, 1, 4, pad]], dtype=np.int32)
+    mols_per_batch = [[f"mol_{s:03d}" for s in row if s != pad] for row in slots]
+    shape = (3, 4, 2) if target == "bin_class" else (3, 4)
+    preds = rng.standard_normal(shape).astype(np.float32)
+    losses = rng.random(3).astype(np.float32)
+    mapped = nn._mapped_store_targets(store)
+    assert nn._mapped_store_targets(store) is mapped
+
+    got = nn._collect_scan_pass(store, mapped, slots, mols_per_batch, losses, preds)
+    want = collect_fold(nn, store, mapped, slots, mols_per_batch, losses, preds)
+    assert_same_values(got, want)
+    out, out_m, raw_outputs, ys = [], [], [], []
+    data = {"outputs": [], "raw_outputs": [], "targets": [], "mol": []}
+    for bi, mols in enumerate(mols_per_batch):
+        nn._collect_batch((out, out_m, raw_outputs, ys, data), preds[bi], mols,
+                          mapped[slots[bi]], mask[slots[bi]])
+    nn._finish_pass_data(data, out, raw_outputs, ys)
+    assert_same_values((out, out_m, ys, data), (want[0], want[1], want[2], want[4]))
+    assert len(out) == 9 and len(out_m) == len(ys) == 7
 
 
 def engines(db, tmp_path, scans, **kw):
