@@ -21,6 +21,7 @@ the weights after it are kept for the output check.
 
 from __future__ import annotations
 
+import functools
 import gc
 import time
 
@@ -46,13 +47,24 @@ def sync_of(device):
     return lambda: None
 
 
+def model_class(cell):
+    """What the engine builds its model from: the port's class of the cell's
+    ``port_net``, bound to its options as ``functools.partial(cls,
+    **options)`` (the form ``NeuralNet`` takes publicly), or the class
+    itself where the net file names no options."""
+    import deeprank_gnn_tpu_torch as port
+
+    name, options = cell.port_net
+    cls = getattr(port, name)
+    return functools.partial(cls, **options) if options else cls
+
+
 def build_engine(cell, graphs: list, seed: int, device, outdir: str, kdir: str,
                  dense_fast: bool = False):
-    """The engine on the cell's configuration and ``graphs``, running the
-    port's class that the configuration's ``model.net`` names, and the loader
-    the window drives: a training loader over every graph (shuffled, seeded),
-    or a scoring loader in the graphs' order, as ``test()`` builds one."""
-    import deeprank_gnn_tpu_torch as port
+    """The engine on the cell's configuration and ``graphs``, running
+    :func:`model_class` of the cell, and the loader the window drives: a
+    training loader over every graph (shuffled, seeded), or a scoring loader
+    in the graphs' order, as ``test()`` builds one."""
     from deeprank_gnn_tpu_torch import GraphListDataSet, NeuralNet
     from deeprank_gnn_tpu_torch.data.dataset import GraphSample
 
@@ -62,7 +74,7 @@ def build_engine(cell, graphs: list, seed: int, device, outdir: str, kdir: str,
                            internal_edge_attr=g["internal_edge_attr"], cluster0=g["cluster0"],
                            cluster1=g["cluster1"], y=g["y"]) for g in graphs]
     eng = cfg["engine"]
-    nn = NeuralNet(GraphListDataSet(samples), getattr(port, cfg["model"]["net"]),
+    nn = NeuralNet(GraphListDataSet(samples), model_class(cell),
                    node_feature=[f"f{i}" for i in range(cfg["model"]["node_features"])],
                    edge_feature=eng["edge_feature"], target=eng["target"], lr=cfg["model"]["lr"],
                    batch_size=mix["batch"], percent=[1.0, 0.0], layout=eng["layout"],

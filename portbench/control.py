@@ -17,6 +17,11 @@ window of ``--seconds``) and then, for every ``--control`` named:
   (``NeuralNet(dense_fast=True)``: bf16 operands in K3 and ``adj_conv``),
   from a second run of the cell.
 
+``tf32`` must fail every cell. ``fast`` must fail a cell unless its net
+file's ``PROGRAM_CONTROLS`` leaves it out (``spec.controls``), as a net that
+reads no paper-mode dense aggregation does: ``fast`` leaves its numbers as
+they are.
+
 One JSON line a seed and control. The benchmark's runs (``run.py``) never
 run this; it needs the card the cell asks for.
 """

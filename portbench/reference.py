@@ -2,16 +2,17 @@
 
 The net itself (its leaves and its forward pass) is ``nets/<net>.py``, found
 by the configuration's ``model.net`` (``spec.load_net``); this module holds
-what every net shares: the initial weights from the seed, the dropout
-masks, a batch of raw graphs with every index worked out again, TF32
-products for the control, and the scoring and training loops.
+what every net shares: the initial weights from the seed, the dropout masks,
+a batch of raw graphs with every index and edge attribute worked out again,
+TF32 products for the control, and the scoring and training loops.
 
 It imports nothing of the program and takes no array the program made: it
-works the aggregations, the pooled edges and the pools out again from the
-raw edge lists and cluster arrays of ``graphs.py``. It runs in float64 by
-default; ``tf32=True`` runs it in float32 with the operands of every matrix
-product rounded to TF32 (10 explicit mantissa bits, to nearest even), the
-precision just below the configuration's, for the control.
+works the aggregations, the pooled edges, their attributes and the pools
+out again from the raw edge lists, edge attributes and cluster arrays of
+``graphs.py``. It runs in float64 by default; ``tf32=True`` runs it in
+float32 with the operands of every matrix product rounded to TF32 (10
+explicit mantissa bits, to nearest even), the precision just below the
+configuration's, for the control.
 """
 
 from __future__ import annotations
@@ -55,7 +56,12 @@ def dropout_masks(seed: int, skip: int, steps: int, rows: int, width: int, rate:
 
 class Batch:
     """Graphs laid end to end on ``device``, with every index the model
-    needs worked out from their raw arrays."""
+    needs worked out from their raw arrays, and the edge attributes in
+    ``dtype``: ``ea [E, fe]``, each graph's ``edge_attr`` in the order of
+    ``row`` and ``col``, and ``pea [P, fe]``, a pooled edge's attributes in
+    the order of ``prow`` and ``pcol``: the sum of ``ea`` over the edges
+    between distinct level-0 clusters that map to it (torch-sparse's
+    coalesce in the reference, ``community_pooling.py:204-205``)."""
 
     def __init__(self, graphs: list, device, dtype=torch.float64):
         off_n = np.cumsum([0] + [g["x"].shape[0] for g in graphs])
@@ -75,12 +81,16 @@ class Batch:
                        .astype(np.int64))
         self.num_c0, self.num_c1 = int(off_c0[-1]), int(off_c1[-1])
         self.c1_graph = as_t(np.repeat(np.arange(len(graphs)), k1))
+        self.ea = as_t(np.concatenate([g["edge_attr"] for g in graphs])).to(dtype)
         # edges between level-0 clusters: each distinct (source, target)
-        # pair once, no self-loops (torch-sparse's coalesce in the reference)
+        # pair once, no self-loops, their attributes summed (torch-sparse's
+        # coalesce in the reference)
         pr, pc = self.c0[self.row], self.c0[self.col]
         keep = pr != pc
-        key = torch.unique(pr[keep] * self.num_c0 + pc[keep])
+        key, to_pooled = torch.unique(pr[keep] * self.num_c0 + pc[keep], return_inverse=True)
         self.prow, self.pcol = key // self.num_c0, key % self.num_c0
+        self.pea = self.ea.new_zeros((key.shape[0], self.ea.shape[1])).index_add(
+            0, to_pooled, self.ea[keep])
         self.y = as_t(np.array([g["y"] for g in graphs])).to(dtype)
 
 

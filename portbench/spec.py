@@ -6,10 +6,13 @@ window runs: train or score, how many graphs, the batch, the store),
 ``limits/<cell>.json`` (the limit of each number the output check compares)
 and, for each per-layer metric the cell reports, ``metrics/<metric>.py`` (a
 ``read(ctx)`` and the end-to-end metric it ``MOVES``). The configuration's
-``model.net`` names both the port's class the engine runs and
-``nets/<net>.py``, the net's plain forward pass, leaves and work counts.
-Adding a cell, a configuration, a net or a metric adds files; no file here
-names one.
+``model.net`` names ``nets/<net>.py``, the yardstick's own file of the net:
+its plain forward pass, leaves and work counts, and, optionally, the port's
+class it mirrors (``PORT``, the net's own name by default), the keyword
+arguments the engine builds that class with (``OPTIONS``, none by default)
+and the controls of the program's own paths that must fail on it
+(``PROGRAM_CONTROLS``, :data:`PROGRAM_CONTROLS` by default). Adding a
+cell, a configuration, a net or a metric adds files; no file here names one.
 """
 
 from __future__ import annotations
@@ -25,6 +28,13 @@ ROOT = HERE.parent
 # package with its scripts (the port's own name starts with the JAX
 # package's, so names are compared whole)
 FORBIDDEN = {"jax", "jaxlib", "flax", "deeprank_gnn_tpu", "chip_smoke", "bench"}
+# the controls of the output check (``control.py``) that must fail on every
+# net: the reference in TF32 in the program's place
+REFERENCE_CONTROLS = ("tf32",)
+# the program's own paths that a net file may name as controls, and that
+# must fail on a net whose file names none: the bf16 path, which changes
+# only paper mode's dense aggregations
+PROGRAM_CONTROLS = ("fast",)
 
 
 def forbidden_loaded(modules=None) -> list:
@@ -61,8 +71,26 @@ def load_reader(name: str):
 
 
 def load_net(name: str):
-    """The net ``name`` of a configuration's ``model.net``, ``nets/<name>.py``."""
+    """The yardstick's net ``name``, ``nets/<name>.py``."""
     return _load("nets", name)
+
+
+def port_net(net, name: str) -> tuple:
+    """The name of the port's class that the net file ``nets/<name>.py``
+    (loaded as ``net``) mirrors, and the keyword arguments the engine builds
+    it with: the file's ``PORT`` and ``OPTIONS``, or else ``name`` and none."""
+    return getattr(net, "PORT", name), dict(getattr(net, "OPTIONS", {}))
+
+
+def controls(net) -> tuple:
+    """The controls that must fail the output check of a cell on the net
+    file ``net``: :data:`REFERENCE_CONTROLS`, then the file's
+    ``PROGRAM_CONTROLS`` (or :data:`PROGRAM_CONTROLS`), which may name only
+    those."""
+    extra = tuple(getattr(net, "PROGRAM_CONTROLS", PROGRAM_CONTROLS))
+    if not set(extra) <= set(PROGRAM_CONTROLS):
+        raise ValueError(f"PROGRAM_CONTROLS {extra} names other than {PROGRAM_CONTROLS}")
+    return REFERENCE_CONTROLS + extra
 
 
 class Cell:
@@ -87,6 +115,18 @@ class Cell:
     @property
     def training(self) -> bool:
         return self.mix["mode"] == "train"
+
+    @property
+    def port_net(self) -> tuple:
+        """The port's class the engine runs, by name, and its keyword
+        arguments (:func:`port_net`)."""
+        return port_net(self.net, self.config["model"]["net"])
+
+    @property
+    def controls(self) -> tuple:
+        """The controls that must fail this cell's output check
+        (:func:`controls`)."""
+        return controls(self.net)
 
 
 class Ctx:

@@ -25,20 +25,50 @@ def half_batch():
     neuralnet.mse_loss = lambda pred, y, mask: full(pred, y, first_half(mask))
 
 
-def answer_altered():
-    """The first graph's score is moved where the model produces it."""
-    from deeprank_gnn_tpu_torch.models.ginet import GINet
-
-    forward = GINet.forward
+def answer_altered(net):
+    """The first graph's score is moved where the model produces it, in the
+    port's class ``net``."""
+    forward = net.forward
 
     def altered(self, *args, **kwargs):
         out = forward(self, *args, **kwargs)
         return out + (torch_arange_like(out) == 0) * 0.05
 
-    GINet.forward = altered
+    net.forward = altered
+
+
+def half_scores(net):
+    """Scoring has no loss to shorten: half of each batch's scores are lost
+    (zero) where the port's class ``net`` produces them."""
+    forward = net.forward
+
+    def half(self, *args, **kwargs):
+        out = forward(self, *args, **kwargs)
+        return out * (torch_arange_like(out) < out.shape[0] // 2)
+
+    net.forward = half
 
 
 def torch_arange_like(out):
     import torch
 
     return torch.arange(out.shape[0], device=out.device).reshape(-1, *[1] * (out.dim() - 1))
+
+
+# the faults each kind of cell can have: scoring has no state to leave
+# unchanged
+BY_MODE = {"train": ("state_unchanged", "half_batch", "answer_altered"),
+           "score": ("half_batch", "answer_altered")}
+
+
+def plant(fault: str, net, training: bool) -> None:
+    """Plant ``fault`` of :data:`BY_MODE` in a training or a scoring run of
+    the port's class ``net``."""
+    if fault == "state_unchanged":
+        state_unchanged()
+    elif fault == "half_batch" and training:
+        half_batch()
+    elif fault == "half_batch":
+        half_scores(net)
+    else:
+        answer_altered(net)

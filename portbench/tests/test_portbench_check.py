@@ -3,8 +3,10 @@ passes it, and its controls and planted faults fail it.
 
 Each test drives the rest of a run (``run.execute``: set-up, a short
 window, the output check) on the CPU in place of the card, with the
-cell's own limits, on a few small graphs. ``python -m pytest
-portbench/tests`` from the root of the repo.
+cell's own limits, on a few small graphs. The cells, their faults and their
+controls come from ``BENCHMARK.json`` and the files it names, so that a cell
+added there is tested here too. ``python -m pytest portbench/tests`` from
+the root of the repo.
 """
 
 from __future__ import annotations
@@ -33,7 +35,16 @@ def small(name: str):
     return c
 
 
-ONE_CARD = ["ginet_atomic.train_ops", "ginet_atomic.train_k3", "ginet_residue.score_scan"]
+BENCH = spec.benchmark()
+ONE_CARD = [w["name"] for w in BENCH["workloads"] if w["chips"] == 1]
+
+
+def port_class(cell):
+    """The port's class that the cell's net file mirrors (its options left
+    out): where a fault is planted."""
+    import deeprank_gnn_tpu_torch as port
+
+    return getattr(port, cell.port_net[0])
 
 
 @pytest.mark.parametrize("name", ONE_CARD)
@@ -46,42 +57,31 @@ def test_program_passes(name, tmp_path):
 @pytest.mark.parametrize("name", ONE_CARD)
 @pytest.mark.parametrize("seed", SEEDS)
 def test_controls_fail(name, seed):
-    """The reference in TF32 in the program's place, and the program's own
-    bf16 path, each fail one of the cell's numbers on every seed."""
+    """Each control that the cell's net names (by default the reference in
+    TF32 in the program's place, and the program's own bf16 path) fails one
+    of the cell's numbers on every seed."""
     cell = small(name)
-    for line in control.readings(cell, seed, 0.2, ["tf32", "fast"], "cpu", log=lambda m: None):
+    for line in control.readings(cell, seed, 0.2, cell.controls, "cpu", log=lambda m: None):
         numbers = {k: v for k, v in line.items() if k in cell.limits}
         ok, checks = run.judge.verdict(numbers, cell.limits)
         assert not ok, (line["control"], checks)
 
 
-FAULTS = {"ginet_atomic.train_ops": ["state_unchanged", "half_batch", "answer_altered"],
-          "ginet_atomic.train_k3": ["state_unchanged", "half_batch", "answer_altered"],
-          "ginet_residue.score_scan": ["half_batch", "answer_altered"]}
+FAULTS = [(n, f) for n in ONE_CARD for f in faults.BY_MODE[spec.Cell(n, BENCH).mix["mode"]]]
 
 
-@pytest.mark.parametrize("name,fault", [(n, f) for n, fs in FAULTS.items() for f in fs])
+@pytest.mark.parametrize("name,fault", FAULTS)
 def test_fault_fails(name, fault, tmp_path, monkeypatch):
     import deeprank_gnn_tpu_torch.train.neuralnet as neuralnet
     import torch.optim.adam as adam
 
-    from deeprank_gnn_tpu_torch.models.ginet import GINet
-
+    cell = small(name)
+    net = port_class(cell)
     # the planted patches are undone after the test
-    for obj, attr in ((adam, "adam"), (neuralnet, "mse_loss"), (GINet, "forward")):
+    for obj, attr in ((adam, "adam"), (neuralnet, "mse_loss"), (net, "forward")):
         monkeypatch.setattr(obj, attr, getattr(obj, attr))
-    if name.endswith("score_scan") and fault == "half_batch":
-        # scoring has no loss to shorten: half of each batch's scores are lost
-        forward = GINet.forward
-
-        def half(self, *a, **k):
-            out = forward(self, *a, **k)
-            return out * (faults.torch_arange_like(out) < out.shape[0] // 2)
-
-        monkeypatch.setattr(GINet, "forward", half)
-    else:
-        getattr(faults, fault)()
-    res = run.execute(small(name), SEEDS[1], 0.3, False, "cpu", str(tmp_path))
+    faults.plant(fault, net, cell.training)
+    res = run.execute(cell, SEEDS[1], 0.3, False, "cpu", str(tmp_path))
     assert not res["correct"], res["checks"]
 
 
@@ -123,14 +123,14 @@ def test_traced_run_reports_every_metric(name, tmp_path):
 @pytest.mark.parametrize("name", ONE_CARD)
 def test_controls_fail_on_card(name):
     """At the cell's own size on the card: the program passes, each control
-    fails. The limits' readings come from ``control.py`` on three seeds or
-    more (PERF.md); this is one seed of them."""
+    of the cell's net fails. The limits' readings come from ``control.py``
+    on three seeds or more (PERF.md); this is one seed of them."""
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the cell's own size)")
     cell = spec.Cell(name)
-    for line in control.readings(cell, SEEDS[0], 1.0, ["program", "tf32", "fast"], "cuda",
+    for line in control.readings(cell, SEEDS[0], 1.0, ["program", *cell.controls], "cuda",
                                  log=lambda m: None):
         ok, checks = run.judge.verdict({k: line[k] for k in cell.limits}, cell.limits)
         assert ok is (line["control"] == "program"), (line["control"], checks)

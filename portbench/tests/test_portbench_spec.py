@@ -6,12 +6,14 @@ CPU only: ``python -m pytest portbench/tests`` from the root of the repo.
 from __future__ import annotations
 
 import ast
+import copy
 import json
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -23,6 +25,8 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+NETS = sorted({json.loads((ROOT / c["file"]).read_text())["model"]["net"]
+               for c in BENCH["configs"]})
 
 
 def test_keys_and_names():
@@ -101,19 +105,138 @@ def test_config_files(config):
     assert any(w["config"] == config["name"] for w in BENCH["workloads"])
 
 
-@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
-def test_net_found_by_name(config):
-    """A configuration's ``model.net`` names the port's class the engine
-    runs and the net's own file of the yardstick."""
+# what the engine passes the model's class itself (``NeuralNet.build_model``):
+# an option may not name one of these
+ENGINE_ARGS = {"input_shape", "output_shape", "input_shape_edge", "device", "generator"}
+
+
+def check_net(name: str, net) -> None:
+    """The net file ``nets/<name>.py``, loaded as ``net``: its ``PORT`` (or
+    ``name``) is a class of the port, its ``OPTIONS`` are keywords that
+    class's constructor takes (and the engine does not pass), it has what
+    the yardstick reads, and its controls start with the reference's."""
+    import inspect
+
     import deeprank_gnn_tpu_torch as port
 
-    model = json.loads((ROOT / config["file"]).read_text())["model"]
-    net = spec.load_net(model["net"])
-    assert isinstance(getattr(port, model["net"]), type)
+    cls_name, options = spec.port_net(net, name)
+    cls = getattr(port, cls_name)
+    assert isinstance(cls, type)
+    assert not set(options) & ENGINE_ARGS, options
+    inspect.signature(cls).bind_partial(**options)
     for fn in ("param_table", "forward", "dropout_width", "work"):
         assert callable(getattr(net, fn)), fn
+    assert spec.controls(net)[:1] == spec.REFERENCE_CONTROLS
+
+
+def _net_copy(name: str, **attrs):
+    """A fresh copy of ``nets/<name>.py`` (``load_net`` runs the file anew
+    each call), with ``attrs`` set on it: a net file a later cell could
+    bring, without a file."""
+    net = spec.load_net(name)
+    for k, v in attrs.items():
+        setattr(net, k, v)
+    return net
+
+
+@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
+def test_net_found_by_name(config):
+    """A configuration's ``model.net`` names the yardstick's file of the
+    net, which names the port's class the engine runs and the options its
+    constructor accepts."""
+    name = json.loads((ROOT / config["file"]).read_text())["model"]["net"]
+    check_net(name, spec.load_net(name))
     with pytest.raises(KeyError):
         spec.load_net("NoSuchNet")
+
+
+def test_net_file_port_options_and_controls_checked():
+    """A net file's ``PORT`` names the port's class under another name of
+    its own; options the class's constructor takes pass, others fail; the
+    TF32 control stays first whatever ``PROGRAM_CONTROLS`` names, and that
+    names nothing but the program's own paths."""
+    attention = _net_copy("GINet", PORT="GINet", OPTIONS={"attention": True},
+                          PROGRAM_CONTROLS=())
+    assert spec.port_net(attention, "GINetAttention") == ("GINet", {"attention": True})
+    check_net("GINetAttention", attention)
+    assert spec.port_net(spec.load_net("GINet"), "GINet") == ("GINet", {})
+    assert spec.controls(spec.load_net("GINet")) == ("tf32", "fast")
+    assert spec.controls(attention) == ("tf32",)
+    with pytest.raises(AttributeError):
+        check_net("GINetAttention", _net_copy("GINet"))
+    with pytest.raises(TypeError):
+        check_net("GINet", _net_copy("GINet", OPTIONS={"no_such_option": True}))
+    with pytest.raises(AssertionError):
+        check_net("GINet", _net_copy("GINet", OPTIONS={"device": "cpu"}))
+    for extra in (("tf32",), ("ref:answer_altered",), ("program",)):
+        with pytest.raises(ValueError):
+            spec.controls(_net_copy("GINet", PROGRAM_CONTROLS=extra))
+
+
+def _small_cell(name: str, net=None):
+    """The cell at a test's size (as ``test_portbench_check.small``), on the
+    net file ``net`` (default: a fresh copy of its own)."""
+    c = spec.Cell(name, BENCH)
+    c.config = copy.deepcopy(c.config)
+    c.net = net or spec.load_net(c.config["model"]["net"])
+    if c.config["graphs"]["generator"] == "atomic":
+        c.config["graphs"].update(nodes=256, edges_undirected=1000)
+    c.mix = dict(c.mix, graphs=8, batch=4)
+    return c
+
+
+def _engine(c, tmp_path, seed=2**31 + 7):
+    from portbench import cell as cell_mod
+    from portbench import graphs, reference
+
+    gs = graphs.generate(c.config, seed, c.mix["graphs"])
+    nn, loader = cell_mod.build_engine(c, gs, seed, "cpu", str(tmp_path / "engine"),
+                                       str(tmp_path / "kernels"))
+    table = c.net.param_table(c.config["model"])
+    weights = reference.draw_weights(table, seed, "cpu")
+    cell_mod.set_weights(nn, weights, table)
+    return nn, loader
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_no_options_builds_the_bare_class(name, tmp_path):
+    """A net file without ``OPTIONS`` (each cell's own, with any taken off)
+    gives the engine its port class itself, as before options existed."""
+    import deeprank_gnn_tpu_torch as port
+
+    from portbench import cell as cell_mod
+
+    c = _small_cell(name)
+    if hasattr(c.net, "OPTIONS"):
+        del c.net.OPTIONS
+    cls = getattr(port, c.port_net[0])
+    assert cell_mod.model_class(c) is cls
+    nn, loader = _engine(c, tmp_path)
+    assert nn.Net is cls and type(nn.model) is cls
+    assert loader.precompute_ops is c.mix["precompute_ops"]
+
+
+def test_options_reach_the_port_class(tmp_path):
+    """A net file with ``PORT = "GINet"`` and ``OPTIONS = {"attention":
+    True}``, on a copy of ``ginet_atomic``, builds ``GINet(attention=True)``,
+    unfused, through ``build_engine``; ``nets/GINet.py``'s leaves fit it
+    (the attention weights are leaves of paper mode too, dead there by quirk
+    Q1), and its scores differ from paper mode's under the same weights."""
+    import deeprank_gnn_tpu_torch as port
+
+    from portbench import cell as cell_mod
+
+    c = _small_cell("ginet_atomic.train_ops",
+                    _net_copy("GINet", PORT="GINet", OPTIONS={"attention": True}))
+    bound = cell_mod.model_class(c)
+    assert bound.func is port.GINet and bound.keywords == {"attention": True}
+    nn, loader = _engine(c, tmp_path)
+    assert type(nn.model) is port.GINet
+    assert nn.model.attention and not nn.model.fuse
+    paper, paper_loader = _engine(_small_cell("ginet_atomic.train_ops"), tmp_path / "paper")
+    got = nn.eval(nn._loader(loader.dataset))[0]
+    want = paper.eval(paper._loader(paper_loader.dataset))[0]
+    assert np.isfinite(got).all() and not np.allclose(got, want)
 
 
 def test_idle_share_from_the_unprofiled_passes():
@@ -167,9 +290,9 @@ def test_nothing_forbidden_loaded_in_a_run_process():
     fresh process, loads no forbidden module."""
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import portbench.run, portbench.cell, portbench.control\n"
-            "from portbench import spec; [spec.load_net(n) for n in ('GINet',)]\n"
+            "from portbench import spec; [spec.load_net(n) for n in %r]\n"
             "import deeprank_gnn_tpu_torch.train.neuralnet\n"
-            "from portbench import spec; print(spec.forbidden_loaded())" % str(ROOT))
+            "from portbench import spec; print(spec.forbidden_loaded())" % (str(ROOT), NETS))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"})
     assert res.returncode == 0, res.stderr

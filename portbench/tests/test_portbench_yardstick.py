@@ -115,10 +115,12 @@ def _model():
 
 def _toy_graph():
     """4 nodes, clusters {0, 1} and {2, 3}, one level-1 cluster; edges
-    0->1, 1->0, 1->2, 2->1, 2->3, 3->2, 3->0 (directed)."""
+    0->1, 1->0, 1->2, 2->1, 2->3, 3->2, 3->0 (directed), with the
+    attributes 1 to 7."""
     row = np.array([0, 1, 1, 2, 2, 3, 3], np.int32)
     col = np.array([1, 0, 2, 1, 3, 2, 0], np.int32)
     return {"x": np.ones((4, 48), np.float32), "edge_index": np.stack([row, col]),
+            "edge_attr": np.arange(1, 8, dtype=np.float32)[:, None],
             "cluster0": np.array([0, 0, 1, 1], np.int32), "cluster1": np.array([0, 0], np.int32)}
 
 
@@ -179,6 +181,9 @@ def test_reference_on_toy_graph_by_hand():
     # (0,1), (1,0): each cluster sums the other's 2 -> 2, 2; level-1 max 2;
     # mean 2; fc1 relu 2; fc2 2
     assert GINET.forward(w, b, _model()).tolist() == [2.0]
+    # pooled edges (0, 1) from 1->2, and (1, 0) from 2->1 and 3->0
+    assert b.prow.tolist() == [0, 1] and b.pcol.tolist() == [1, 0]
+    assert b.pea[:, 0].tolist() == [3.0, 4.0 + 7.0]
     assert reference.scores(GINET, w, b, _model(), fault="answer_altered").tolist() == [
         pytest.approx(2.05)]
 
@@ -200,3 +205,94 @@ def test_every_seed_the_same_shapes(generator):
         assert np.array_equal(g["internal_edge_attr"], g["edge_attr"][:250])
     assert not np.array_equal(a[0]["x"], b[0]["x"])
     assert _digest(graphs.generate(config, 9, 6)) == _digest(graphs.generate(config, 9, 6))
+
+
+def _edge_graphs(generator: str) -> list:
+    """A few small graphs of each generator, with edge attributes."""
+    if generator == "atomic":
+        return graphs.atomic(2**31 + 5, 3, 256, 1000, 48)
+    return graphs.residue(2**31 + 5, 3, 130, 250, 48)
+
+
+@pytest.mark.parametrize("generator", ["atomic", "residue"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+def test_batch_edge_attributes_are_the_graphs(generator, dtype):
+    """``Batch.ea`` holds each graph's own ``edge_attr``, bit for bit, in
+    the raw order of ``row`` and ``col``."""
+    gs = _edge_graphs(generator)
+    b = reference.Batch(gs, "cpu", dtype)
+    assert b.ea.dtype == dtype and b.ea.shape == (sum(len(g["edge_attr"]) for g in gs), 1)
+    want = np.concatenate([g["edge_attr"] for g in gs])
+    assert np.array_equal(b.ea.float().numpy(), want)
+    rows = np.concatenate([g["edge_index"][0] + o for g, o in
+                           zip(gs, np.cumsum([0] + [g["x"].shape[0] for g in gs]))])
+    assert np.array_equal(b.row.numpy(), rows)
+
+
+def _pooled_by_hand(gs: list) -> dict:
+    """(source, target) level-0 cluster pair, offset by graph -> [sum of the
+    float64 edge attributes of the edges between them, count of edges]."""
+    out, off = {}, 0
+    for g in gs:
+        c0 = g["cluster0"].astype(np.int64) + off
+        for e, (r, c) in enumerate(g["edge_index"].T):
+            pr, pc = int(c0[r]), int(c0[c])
+            if pr != pc:
+                acc = out.setdefault((pr, pc), [np.zeros(g["edge_attr"].shape[1]), 0])
+                acc[0] = acc[0] + g["edge_attr"][e].astype(np.float64)
+                acc[1] += 1
+        off += len(g["cluster1"])
+    return out
+
+
+@pytest.mark.parametrize("generator", ["atomic", "residue"])
+def test_pooled_edge_attributes_by_hand(generator):
+    """``Batch.pea`` is, for each pooled edge in ``(prow, pcol)`` order, the
+    float64 sum of the attributes of the edges that map to it, grouped here
+    by hand; the index fields are the ones ``torch.unique`` gave before the
+    attributes were added."""
+    gs = _edge_graphs(generator)
+    b = reference.Batch(gs, "cpu")
+    hand = _pooled_by_hand(gs)
+    keys = sorted(hand)
+    assert list(zip(b.prow.tolist(), b.pcol.tolist())) == keys
+    sums = np.stack([hand[k][0] for k in keys])
+    terms = max(n for _, n in hand.values())
+    # both sum the same float64 values of [0, 2], in edge order here and in
+    # index_add's order there: apart by float64 rounding of sums of `terms`
+    np.testing.assert_allclose(b.pea.numpy(), sums, rtol=terms * 2.0**-52, atol=0)
+    pr, pc = b.c0[b.row], b.c0[b.col]
+    key = torch.unique(pr[pr != pc] * b.num_c0 + pc[pr != pc])
+    assert torch.equal(b.prow, key // b.num_c0) and torch.equal(b.pcol, key % b.num_c0)
+
+
+@pytest.mark.parametrize("generator", ["atomic", "residue"])
+def test_pooled_edge_attributes_match_the_port(generator):
+    """``Batch.pea`` agrees with the port's pooled attributes: its CPU
+    ``collate`` (edges row-sorted, as ``GraphListDataSet`` sorts them), then
+    ``segment_sum(edge_attr, edge_to_pe)`` as its attention conv sums them;
+    the pooled edges are the same pairs in the same order."""
+    from deeprank_gnn_tpu_torch import GraphListDataSet
+    from deeprank_gnn_tpu_torch.data.batch import collate
+    from deeprank_gnn_tpu_torch.data.dataset import GraphSample
+    from deeprank_gnn_tpu_torch.ops.segment import segment_sum
+
+    gs = _edge_graphs(generator)
+    samples = GraphListDataSet([GraphSample(
+        mol=g["mol"], x=g["x"], pos=g["pos"], edge_index=g["edge_index"],
+        edge_attr=g["edge_attr"], internal_edge_index=g["internal_edge_index"],
+        internal_edge_attr=g["internal_edge_attr"], cluster0=g["cluster0"],
+        cluster1=g["cluster1"], y=g["y"]) for g in gs])
+    batch, _ = collate([samples.get(i) for i in range(len(gs))])
+    p = int(batch.pe_mask.sum())
+    got = segment_sum(batch.edge_attr, batch.edge_to_pe.long(), batch.pe_index.shape[1])[:p]
+    b = reference.Batch(gs, "cpu")
+    assert torch.equal(batch.pe_index[0, :p].long(), b.prow)
+    assert torch.equal(batch.pe_index[1, :p].long(), b.pcol)
+    terms = max(n for _, n in _pooled_by_hand(gs).values())
+    # the port sums float32 values of [0, 2] in float32, at most `terms` of
+    # them a pooled edge (in another order for the residue graphs, whose
+    # edges it row-sorts): each partial sum rounds once, to within 2**-24 of
+    # itself, so the whole is within `terms` such roundings of the float64 sum
+    np.testing.assert_allclose(got.double().numpy(), b.pea.numpy(), rtol=terms * 2.0**-24,
+                               atol=0)
