@@ -65,7 +65,7 @@ def fused_gin_conv_plain(xw: torch.Tensor, row: torch.Tensor, col: torch.Tensor)
     src = torch.where(valid, col + goff, g * s).reshape(-1)
     rows = torch.cat([xw.reshape(g * s, f), xw.new_zeros((1, f))])
     out = index_add_rows(rows.index_select(0, src), (row + goff).reshape(-1), g * s,
-                         valid.reshape(-1))
+                         valid.reshape(-1), counted=False)
     return out.reshape(g, s, f)
 
 

@@ -49,7 +49,7 @@ def sorted_segment_sum_plain(
     n = row_ptr.shape[0] - 1
     if rows is None:
         rows = rows_from_row_ptr(row_ptr, data.shape[0])
-    return index_add_rows(data, rows, n)
+    return index_add_rows(data, rows, n, counted=False)
 
 
 def check_csr(data: torch.Tensor, row_ptr: torch.Tensor) -> None:

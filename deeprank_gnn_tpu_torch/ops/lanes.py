@@ -16,13 +16,24 @@ inside a captured CUDA graph. The real rows receive the same values in the
 same order as before (a stable sort keeps the lanes' order within a run, and
 the padding lanes sort after every real row either way), so their sums are
 bitwise unchanged.
+
+``ACCUMULATED`` counts what :func:`index_add_rows` accumulates: per call its
+``lanes`` (``L``) and its ``elements`` (``L`` times the columns). The counts
+come from shapes alone, with no host sync, so a call counts while a CUDA
+graph is captured too; ``train/scan.py`` moves a captured call's counts to
+its graph and adds them again at each replay, so the counter holds what ran.
+A hand kernel's plain version does not count: on a card the kernel runs in
+its place and accumulates nothing here.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
+
+ACCUMULATED: Counter = Counter()
 
 
 def lane_rows(index: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -36,10 +47,15 @@ def lane_rows(index: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None)
 
 
 def index_add_rows(values: torch.Tensor, index: torch.Tensor, n: int,
-                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   valid: Optional[torch.Tensor] = None, counted: bool = True) -> torch.Tensor:
     """``out[r] = sum of values[l] over the valid lanes l with index[l] == r``,
     for ``r`` in ``[0, n)``, in lane order; ``values [L, ...]``, ``index
-    [L]``. An invalid lane (see :func:`lane_rows`) drops out."""
+    [L]``. An invalid lane (see :func:`lane_rows`) drops out. Counted in
+    :data:`ACCUMULATED` unless ``counted`` is False (a kernel's plain
+    version)."""
+    if counted:
+        ACCUMULATED["lanes"] += values.shape[0]
+        ACCUMULATED["elements"] += values.numel()
     out = values.new_zeros((n + values.shape[0],) + tuple(values.shape[1:]))
     out.index_add_(0, lane_rows(index, n, valid), values)
     return out[:n]

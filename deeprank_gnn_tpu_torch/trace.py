@@ -23,7 +23,9 @@ the kernels they wait on. Without a profiler no range is entered.
 
 The spans the port records:
 
-- ``pass`` (counts ``graphs``, ``steps``): one ``NeuralNet._run_pass``
+- ``pass`` (counts ``graphs``, ``steps``, ``accumulated``: the elements
+  its steps summed in ``ops/lanes.py``'s index accumulation, replays
+  included): one ``NeuralNet._run_pass``
   (a training epoch or an ``eval``/``test`` pass); a scanned pass holds
   ``pass.plan`` (the epoch's slot matrix, the targets and the buffers on
   the device), ``pass.issue`` (``EpochSteps.run``, counts ``replays``,

@@ -75,6 +75,7 @@ from deeprank_gnn_tpu_torch.device import (
     resolve_device,
     set_fp32_numerics,
 )
+from deeprank_gnn_tpu_torch.ops.lanes import ACCUMULATED
 from deeprank_gnn_tpu_torch.train import checkpoint as ckpt
 from deeprank_gnn_tpu_torch.train.aot import use_executable_cache
 from deeprank_gnn_tpu_torch.train.losses import cross_entropy_loss, mse_loss
@@ -1086,12 +1087,16 @@ class NeuralNet:
         (``training``) or a forward pass, under deterministic algorithms.
         With ``scan_epochs`` and a store, the scanned epoch instead.
         Returns ``(out, out_m, ys, loss, data)``; ``loss`` sums the
-        batches' losses. Recorded as the span ``pass``, with its graphs and
-        steps (``trace.py``)."""
+        batches' losses. Recorded as the span ``pass``, with its graphs,
+        its steps and the elements its steps accumulated (``accumulated``:
+        ``ops/lanes.py`` ``ACCUMULATED``, eager steps and replays alike;
+        ``trace.py``)."""
         with trace.span("pass") as sp:
+            before = ACCUMULATED["elements"]
             scanned = self._run_pass_scan(loader, training) if self.scan_epochs else None
             res, steps = scanned or self._run_pass_looped(loader, training)
-            sp.add(graphs=len(res[4]["mol"]), steps=steps)
+            sp.add(graphs=len(res[4]["mol"]), steps=steps,
+                   accumulated=ACCUMULATED["elements"] - before)
         return res
 
     def _run_pass_looped(self, loader: GraphLoader, training: bool):

@@ -42,7 +42,10 @@ captures in the global mode); gloo stages CUDA tensors through the host,
 which no graph can hold, so the step runs split (``split``): a graph up to
 the flat gradients, the host's all-reduce, a graph of the update. Each
 graph records the collective bytes counted while it was captured, beside
-its launches. A graph that captured a collective keeps NCCL from
+its launches and the index accumulation counted meanwhile
+(``ops/lanes.py`` ``ACCUMULATED``, whose counts a capture takes back and
+each replay adds again: the counter holds what the steps ran, replayed or
+eager). A graph that captured a collective keeps NCCL from
 finalizing its communicator, so :class:`EpochSteps` then registers with
 ``parallel.distributed.hold_graphs`` and gives its graphs up
 (:meth:`EpochSteps.release_graphs`) when the process leaves the group.
@@ -60,6 +63,7 @@ from deeprank_gnn_tpu_torch import trace
 from deeprank_gnn_tpu_torch.data.dense_batch import DenseGraphBatch
 from deeprank_gnn_tpu_torch.data.device_store import PackedStore, gather_packed
 from deeprank_gnn_tpu_torch.ops.kernels import LAUNCHES
+from deeprank_gnn_tpu_torch.ops.lanes import ACCUMULATED
 from deeprank_gnn_tpu_torch.parallel import distributed
 from deeprank_gnn_tpu_torch.parallel.collectives import BYTES
 
@@ -87,6 +91,8 @@ class _Captured:
     collective_bytes: Counter  # collective bytes counted while capturing
     inputs: tuple  # the store and targets the graph reads, kept alive
     replays: int = 0
+    # index accumulation (lanes, elements) counted while capturing
+    accumulated: Counter = dataclasses.field(default_factory=Counter)
 
 
 class EpochSteps:
@@ -171,8 +177,7 @@ class EpochSteps:
                                       self._step, "step")
             self._graphs[key] = cap
         self._feed(cap, slots, aux, pos, n)
-        cap.graph.replay()
-        cap.replays += 1
+        _run_replay(cap)
         losses[pos: pos + n].copy_(cap.loss)
         preds[pos: pos + n].copy_(cap.pred)
 
@@ -192,11 +197,9 @@ class EpochSteps:
             upd = self._graphs["update"] = self._capture(update, 1, True, "update", None,
                                                          None, (), register=False)
         self._feed(cap, slots, aux, pos, 1)
-        cap.graph.replay()
-        cap.replays += 1
+        _run_replay(cap)
         reduce()
-        upd.graph.replay()
-        upd.replays += 1
+        _run_replay(upd)
         losses[pos: pos + 1].copy_(cap.loss)
         preds[pos: pos + 1].copy_(cap.pred)
 
@@ -242,30 +245,38 @@ class EpochSteps:
     def _capture(self, body, n: int, training: bool, part: str, idx, aux_buf, inputs,
                  register: bool) -> _Captured:
         """Capture ``body()`` (``(loss, pred)``, or None); records the
-        hand-kernel launches and the collective bytes counted meanwhile
-        (each runs at every replay)."""
+        hand-kernel launches, the collective bytes and the index
+        accumulation counted meanwhile (each runs at every replay); the
+        accumulation is taken back out of ``ACCUMULATED``, as a capture
+        runs nothing."""
         graph = torch.cuda.CUDAGraph()
         if register and self._generator is not None:
             graph.register_generator_state(self._generator)
         launches_before, bytes_before = Counter(LAUNCHES), Counter(BYTES)
+        accumulated_before = Counter(ACCUMULATED)
         with torch.cuda.graph(graph, stream=self._capture_stream()):
             loss, pred = body() or (None, None)
         launches, nbytes = Counter(LAUNCHES), Counter(BYTES)
         launches.subtract(launches_before)
         nbytes.subtract(bytes_before)
+        accumulated = Counter(ACCUMULATED)
+        accumulated.subtract(accumulated_before)
+        ACCUMULATED.subtract(accumulated)
         if +nbytes:
             distributed.hold_graphs(self)
         return _Captured(graph=graph, steps=n, training=training, part=part, idx=idx,
                          aux=aux_buf, loss=loss, pred=pred, launches=+launches,
-                         collective_bytes=+nbytes, inputs=inputs)
+                         collective_bytes=+nbytes, accumulated=+accumulated, inputs=inputs)
 
     def graph_stats(self) -> list:
         """Per captured graph: its steps, whether it trains, its part of
-        the step, the hand-kernel launches and collective bytes of one
-        replay, and its replays so far."""
+        the step, the hand-kernel launches, collective bytes and index
+        accumulation (``lanes``, ``elements``) of one replay, and its
+        replays so far."""
         return [{"steps": cap.steps, "training": cap.training, "part": cap.part,
                  "launches": dict(cap.launches),
-                 "collective_bytes": dict(cap.collective_bytes), "replays": cap.replays}
+                 "collective_bytes": dict(cap.collective_bytes),
+                 "accumulated": dict(cap.accumulated), "replays": cap.replays}
                 for cap in self._graphs.values()]
 
     def reset_replays(self) -> None:
@@ -279,6 +290,14 @@ class EpochSteps:
         a live graph's collectives still reference."""
         self._graphs.clear()
         self._warm.clear()
+
+
+def _run_replay(cap: _Captured) -> None:
+    """One replay of ``cap``, counted: its replays, and the index
+    accumulation it runs into ``ACCUMULATED``."""
+    cap.graph.replay()
+    cap.replays += 1
+    ACCUMULATED.update(cap.accumulated)
 
 
 def _aux_at(aux, i: int) -> tuple:

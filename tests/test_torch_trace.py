@@ -2,7 +2,8 @@
 
 - a scanned scoring pass and a scanned training epoch each record one
   ``pass`` holding ``pass.plan``, ``pass.issue``, ``pass.readback`` and
-  ``pass.collect`` in that order, with the pass's graphs and steps; the
+  ``pass.collect`` in that order, with the pass's graphs, steps and
+  accumulated elements; the
   first pass builds the store inside ``pass.plan`` and runs the eager
   warm-up step; ``EpochSteps.last_issue_s`` is ``pass.issue``'s duration;
 - a store built with the operators records one ``store.operators`` a graph
@@ -62,9 +63,12 @@ def test_scanned_pass_records_its_phases(db, tmp_path, mode):
     run_pass(nn, loader, mode)
     second = newest_pass()
     steps = -(-NUM_GRAPHS // BATCH)
+    # the elements the steps accumulated: the same for two passes of the store
+    accumulated = first.span.counts["accumulated"]
     for p in (first, second):
         root = p.span
-        assert root.name == "pass" and root.counts == {"graphs": NUM_GRAPHS, "steps": steps}
+        assert root.name == "pass" and root.counts == {"graphs": NUM_GRAPHS, "steps": steps,
+                                                       "accumulated": accumulated}
         assert not p.profiled and not p.captured
         phases = [s for s in p.spans if s.parent == root.id]
         assert [s.name for s in phases] == PHASES
