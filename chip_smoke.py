@@ -2,7 +2,7 @@
 """Drive the PyTorch port's serving and training paths on one CUDA card and
 check them.
 
-    python3 chip_smoke.py [--seed N] [--graphs N] [--digests] [--atomic]
+    python3 chip_smoke.py [--seed N] [--graphs N] [--digests] [--atomic] [--k4]
     python3 chip_smoke.py --cards 4 [--atomic]
 
 Run from the root of a checkout; it needs one CUDA device and ``nvcc``
@@ -96,7 +96,8 @@ come early in the process):
    per training batch: K2's backward is K2 on the ``d2`` cotangent), with
    every check of both;
 7. the other new paths on 768 graphs (4 or more training batches): the dense attention GINet (also
-   against the sparse one), the internal-tower GINet (sparse only, K1 4
+   against the sparse one; K4: 2 CSR builds and 4 forward calls per served
+   batch, 4, 4 and 8 backward passes per training batch), the internal-tower GINet (sparse only, K1 4
    per batch), FoutNet and sGAT in both layouts (K1 2 per sparse batch;
    their dense aggregations are plain torch), each served against its CPU
    run (one of two passes profiled) and trained 4 Adam steps against the
@@ -304,7 +305,24 @@ come early in the process):
    peer) and each shard's local and remote edges; the halo step's bytes
    are checked against ``halo_step_bytes`` at C0 ~161,700. The spawn's
    limit, ``ATOMIC_MESH_TIMEOUT_S``, follows from the ranks' host work. The
-   ``4 cards {...}`` line carries its numbers under ``atomic``.
+   ``4 cards {...}`` line carries its numbers under ``atomic``;
+17. K4, the dense attention conv (``--k4`` runs phases 1, 2 and 17 alone;
+   the default run right after phase 3b): at the atomic cell's shapes (the
+   first batch of 64 atomic graphs, conv1 ``[64, 5,200, 16]`` over unsorted
+   rows, conv2 ``[64, 640, 32]`` over sorted pooled-edge rows, random
+   values) the CSR builds bitwise their plain version on the CPU, two runs
+   bitwise equal, each output within ``K4_TOL`` of the plain version run on
+   the card (1e-6 of the largest element for out, alpha and dxw, 1e-5 for
+   dp, dq and db) and bitwise it at the rows of fewer than 32 lanes, and
+   both against the plain version in float64, the launch plan, L2-flushed
+   and L2-warm times beside the plain version's and the byte bounds
+   (``K4 {...}`` lines); then
+   attention GINet on ``train_store``'s path, 128 atomic graphs at batch
+   64 on the store without the operators in scanned epochs, dropout off:
+   two epochs' losses within ``TOL`` of the CPU's, and each captured
+   step's launches a replay, read from its ``graph_stats()``, 4 CSR
+   builds, 4 forward calls and 8 backward passes (``K4 store {...}``). The
+   ``kernels`` line's ``fused_attention_conv`` entry carries its numbers.
 
 Phase 3b holds the padding rule (no accumulating op sees a run of padding
 lanes, ``ops/lanes.py``): each repaired op at the first batches' shapes,
@@ -377,7 +395,14 @@ KERNELS = {
         "source": "deeprank_gnn_tpu_torch/ops/csrc/sorted_scatter_gather.cu",
         "replaces": "deeprank_gnn_tpu/ops/pallas/segment.py:326",
     },
+    "fused_attention_conv": {
+        "route": "cuda",
+        "source": "deeprank_gnn_tpu_torch/ops/csrc/fused_attention_conv.cu",
+        "replaces": None,  # the JAX package leaves the attention conv to XLA
+    },
 }
+# K4's launch counter names: the CSR build, the forward, the backward's passes
+K4_CSR, K4, K4_BWD = "attention_csr", "fused_attention_conv", "fused_attention_conv_bwd"
 
 
 def log(msg: str) -> None:
@@ -1243,6 +1268,200 @@ def k3_phase(first_dense_batch, seed: int):
 # K2: sorted scatter-gather
 
 
+# ---------------------------------------------------------------------------
+# K4: the dense attention conv
+
+
+def k4_bound_ms(xw, row, col, what: str) -> float:
+    """Least time of one K4 call at these shapes: bytes over the HBM rate
+    (a few flops a lane and column). A lane is kept when its row and col lie
+    in ``[0, S)``. ``"csr"``: ``key`` and ``other`` read, ``ptr`` and
+    ``perm`` written. ``"fwd"``: the ``xw`` rows kept lanes read (each
+    distinct (graph, col) once), ``p`` and ``q``, the kept lanes' ``b``,
+    ``col`` and ``perm``, and ``ptr`` read once; ``out`` and ``alpha``
+    written. ``"bwd"`` (both passes): the ``dout`` rows and ``xw`` rows kept
+    lanes read, ``p``, ``q``, the kept lanes' ``b``, ``row``, ``col``,
+    ``alpha`` and both CSRs read once; ``dxw``, ``dp``, ``dq`` and ``db``
+    written."""
+    import torch
+
+    g, s, f = xw.shape
+    e = row.shape[1]
+    kept = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    goff = torch.arange(g, device=row.device)[:, None] * s
+    sources = int(torch.unique((col.long() + goff)[kept]).numel())
+    targets = int(torch.unique((row.long() + goff)[kept]).numel())
+    k, ptr = int(kept.sum()), g * (s + 1)
+    if what == "csr":
+        moved = 3 * g * e + ptr
+    elif what == "fwd":
+        moved = sources * f + 2 * g * s + 3 * k + ptr + g * s * f + g * e
+    else:
+        moved = (targets + sources) * f + 2 * g * s + 4 * k + 2 * (ptr + k) \
+            + g * s * f + 2 * g * s + g * e
+    return 1e3 * 4 * moved / HBM_BYTES_PER_S
+
+
+# K4 against its plain version on the card: the largest error over the
+# tensor's largest element, for out, alpha and dxw, and for dp, dq and db
+# (``tests/test_torch_attention_conv.py::test_k4_cuda_matches_plain`` gives
+# the reasons)
+K4_TOL = dict(out=1e-6, alpha=1e-6, dxw=1e-6, dp=1e-5, dq=1e-5, db=1e-5)
+
+
+def k4_case(name, xw, p, q, b, row, col, dout) -> dict:
+    """K4 at one conv's shapes: the two CSRs bitwise their plain version on
+    the CPU; the forward and the backward twice (bitwise equal) and against
+    the plain version run on the card (bitwise flags, the largest error over
+    the tensor's largest element within ``K4_TOL``, and ``out`` and
+    ``alpha`` bitwise at the rows of fewer than 32 lanes, where both sides
+    add in the same order) and against the plain version in float64 on the
+    CPU beside the card's plain version; the launch plan; L2-flushed and
+    L2-warm times of the CSR build, the forward and the backward, the plain
+    version's flushed times and the bounds. Raises where a check fails."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.device import deterministic
+    from deeprank_gnn_tpu_torch.ops.kernels import attention_conv as A
+
+    g, s, f = xw.shape
+    e = row.shape[1]
+    by_row, by_col = A.attention_csr(row, col, s), A.attention_csr(col, row, s)
+    csr_ok = all(torch.equal(got.ptr.cpu(), want.ptr) and torch.equal(got.perm.cpu(), want.perm)
+                 for got, want in ((by_row, A.attention_csr_plain(row.cpu(), col.cpu(), s)),
+                                   (by_col, A.attention_csr_plain(col.cpu(), row.cpu(), s))))
+
+    def kernel():
+        out, alpha = A.fused_attention_conv_forward(xw, p, q, b, row, col, by_row)
+        return (out, alpha, *A.fused_attention_conv_backward(dout, xw, p, q, b, row, col, alpha,
+                                                             by_row, by_col))
+
+    def plain():
+        with deterministic():
+            out, alpha = A.fused_attention_conv_plain(xw, p, q, b, row, col)
+            return (out, alpha,
+                    *A.fused_attention_conv_plain_bwd(dout, xw, p, q, b, row, col, alpha))
+
+    got, again, card = kernel(), kernel(), plain()
+    d = lambda t: t.double().cpu()  # noqa: E731
+    t_out, t_alpha = A.fused_attention_conv_plain(d(xw), d(p), d(q), d(b), row.cpu(), col.cpu())
+    truth = (t_out, t_alpha, *A.fused_attention_conv_plain_bwd(
+        d(dout), d(xw), d(p), d(q), d(b), row.cpu(), col.cpu(), t_alpha))
+    torch.cuda.synchronize()
+    kept = (row >= 0) & (row < s) & (col >= 0) & (col < s)
+    res = {"case": name, "G": g, "S": s, "F": f, "E": e, "kept": int(kept.sum()),
+           **A.launch_plan(xw.device, s, f), "csr_bitwise_cpu_plain": csr_ok,
+           "runs_bitwise": all(torch.equal(a, c) for a, c in zip(got, again))}
+    rel = lambda a, w: float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))  # noqa: E731
+    for key, k, c, t in zip(K4_TOL, got, card, truth):
+        res[key] = {"bitwise_card_plain": torch.equal(k, c), "vs_card_plain": rel(k, c),
+                    "kernel_vs_f64": rel(d(k), t), "card_plain_vs_f64": rel(d(c), t)}
+    # the rows of fewer than 32 lanes, and their lanes and the dropped ones
+    short = by_row.ptr[:, 1:] - by_row.ptr[:, :-1] < 32  # [G, S]
+    short_lanes = torch.cat([short, torch.ones_like(short[:, :1])], dim=1).gather(
+        1, torch.where(kept, row.long(), s))
+    res["short_rows"] = int(short.sum())
+    res["short_rows_bitwise"] = (torch.equal(got[0][short], card[0][short])
+                                 and torch.equal(got[1][short_lanes], card[1][short_lanes]))
+    over = {k: res[k]["vs_card_plain"] for k, tol in K4_TOL.items()
+            if not res[k]["vs_card_plain"] <= tol}
+    if over or not (csr_ok and res["runs_bitwise"] and res["short_rows_bitwise"]
+                    and res["short_rows"]):
+        raise AssertionError(f"K4 {name}: over K4_TOL {over}; {res}")
+    alpha = got[1]
+    fwd = lambda: A.fused_attention_conv_forward(xw, p, q, b, row, col, by_row)  # noqa: E731
+    bwd = lambda: A.fused_attention_conv_backward(  # noqa: E731
+        dout, xw, p, q, b, row, col, alpha, by_row, by_col)
+    csr = lambda: A.attention_csr(row, col, s)  # noqa: E731
+    with deterministic():
+        plain_fwd = cold_ms(lambda: A.fused_attention_conv_plain(xw, p, q, b, row, col), reps=10)
+        plain_bwd = cold_ms(lambda: A.fused_attention_conv_plain_bwd(
+            dout, xw, p, q, b, row, col, alpha), reps=10)
+    res.update(
+        ms_csr=cold_ms(csr), ms_fwd=cold_ms(fwd), ms_bwd=cold_ms(bwd),
+        l2_warm_ms_csr=l2_warm_ms(csr), l2_warm_ms_fwd=l2_warm_ms(fwd),
+        l2_warm_ms_bwd=l2_warm_ms(bwd), plain_ms_fwd=plain_fwd, plain_ms_bwd=plain_bwd,
+        bound_ms_csr=k4_bound_ms(xw, row, col, "csr"),
+        bound_ms_fwd=k4_bound_ms(xw, row, col, "fwd"),
+        bound_ms_bwd=k4_bound_ms(xw, row, col, "bwd"))
+    return res
+
+
+def k4_phase(seed: int, kdir: str) -> dict:
+    """K4 at the atomic cell's shapes: on the first batch of 64 of
+    ``ATOMIC_GRAPHS`` atomic graphs (``build_atomic_graphs``, the dense
+    layout without the operators) with random values, conv1 ``[64, 5,200,
+    16]`` over the batch's unsorted ``row``, ``col`` and conv2 ``[64, 640,
+    32]`` over its sorted ``pe_row``, ``pe_col`` (``k4_case``); then
+    attention GINet's scanned store epochs on all of them
+    (``k4_store_check``)."""
+    import torch
+
+    from deeprank_gnn_tpu_torch.data.batch import GraphLoader
+    from deeprank_gnn_tpu_torch.data.dataset import GraphListDataSet
+
+    dataset = GraphListDataSet(build_atomic_graphs(seed, ATOMIC_GRAPHS))
+    batch, _ = next(iter(GraphLoader(dataset, batch_size=ATOMIC_BATCH, layout="dense")))
+    dev = torch.device("cuda")
+    d = batch.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    rand = lambda *shape, scale=1.0: scale * torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    g, s, c0g = d.x.shape[0], d.x.shape[1], d.pool0_mask.shape[1]
+    results = []
+    for name, n, f, row, col in (("atomic-conv1", s, 16, d.row, d.col),
+                                 ("atomic-conv2", c0g, 32, d.pe_row, d.pe_col)):
+        res = k4_case(name, rand(g, n, f), rand(g, n, scale=0.3), rand(g, n, scale=0.3),
+                      rand(g, row.shape[1], scale=0.05), row, col, rand(g, n, f))
+        log("K4 " + json.dumps(res))
+        results.append(res)
+    return {"cases": results, "store": k4_store_check(dataset, seed, kdir)}
+
+
+def k4_store_check(dataset, seed: int, kdir: str) -> dict:
+    """Attention GINet on ``train_store``'s path at the atomic shapes: the
+    device store without the operators and scanned epochs (a step warmed up
+    and captured once, then replayed), ``ATOMIC_GRAPHS`` graphs
+    (``dataset``) at batch ``ATOMIC_BATCH``, dropout off. Two training
+    epochs (``run_pass``: the counts and replays zeroed just before each),
+    their losses within
+    ``TOL`` of a CPU engine's two epochs from the same seed; the second
+    epoch all replays, and each graph's launches a replay (its own
+    ``graph_stats()``) K4's 4 CSR builds, 4 forward calls and 8 backward
+    passes a step, and no other hand kernel."""
+    import functools
+
+    from deeprank_gnn_tpu_torch.models import GINet
+
+    net = functools.partial(GINet, attention=True)
+    kw = dict(percent=(1.0, 0.0), batch=ATOMIC_BATCH, net=net, **ATOMIC_ENGINE)
+    rate, GINet.dropout_rate = GINet.dropout_rate, 0.0
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_k4_") as tmp:
+            card = scan_engine(dataset, seed, tmp, "k4_card", kdir, ops=False, scan_epochs=True,
+                               **kw)
+            epochs = [run_pass(card, True) for _ in range(2)]
+            stats = card._scan.graph_stats()
+            cpu = scan_engine(dataset, seed, tmp, "k4_cpu", kdir, ops=False, device="cpu", **kw)
+            cpu_losses = [cpu._run_pass(cpu.train_loader, training=True)[3] for _ in range(2)]
+    finally:
+        GINet.dropout_rate = rate
+    losses = [t["loss"] for t in epochs]
+    per_replay = [{k: v for k, v in st["launches"].items() if v} for st in stats]
+    want = [{K4_CSR: 4 * st["steps"], K4: 4 * st["steps"], K4_BWD: 8 * st["steps"]}
+            for st in stats]
+    res = {"graphs": len(dataset), "batches": epochs[-1]["batches"], "losses": losses,
+           "cpu_losses": cpu_losses, "replays": [t["replays"] for t in epochs],
+           "launches_per_replay": per_replay, "steps_per_graph": [st["steps"] for st in stats],
+           "accumulated_per_replay": [st["accumulated"] for st in stats],
+           "ran_per_epoch": [t["ran"] for t in epochs], "walls": [t["wall"] for t in epochs]}
+    log("K4 store " + json.dumps(res))
+    if not stats or per_replay != want or res["replays"][-1] != res["batches"]:
+        raise AssertionError(f"K4 store: launches a replay {per_replay}, want {want}; replays "
+                             f"{res['replays']} over {res['batches']} batches")
+    np.testing.assert_allclose(losses, cpu_losses, **TOL)
+    return res
+
+
 def k2_bound_ms(e_valid: int, e: int, n: int, f: int) -> float:
     """Least time of one sorted scatter-gather: its bytes (valid input rows
     and row pointers read once, ``out [N,F]`` and ``d2 [E,F]`` written
@@ -1645,10 +1864,8 @@ OLD_FORMS = [
     ("ops.kernels.scatter_gather", "sorted_segment_sum_plain", old_k1_plain),
     ("ops.kernels.gin_conv", "fused_gin_conv_plain", old_k3_plain),
     ("models.ginet", "gather", old_gather),
-    ("models.ginet", "gather_nodes", old_gather_nodes),
     ("models.ginet", "segment_softmax", old_segment_softmax),
     ("models.ginet", "segment_sum", old_segment_sum),
-    ("models.ginet", "dense_segment_softmax", old_dense_segment_softmax),
     ("models.foutnet", "gather", old_gather),
     ("models.foutnet", "gather_nodes", old_gather_nodes),
     ("models.foutnet", "segment_mean", old_segment_mean),
@@ -1774,7 +1991,10 @@ def padding_phase(dataset, seed: int) -> dict:
     and gradient, bitwise its old form (and the counts bitwise); then one
     training step of each path with the new ops and with the old forms
     swapped in: loss and every gradient bitwise (``torch.equal``, which
-    holds across the sign of a zero)."""
+    holds across the sign of a zero). On the card the dense attention conv
+    runs as K4 and calls none of the repaired ops (only its plain version,
+    on the CPU, does), so the ``dense-attention`` step holds only the rest
+    of that path (its pools) to their old forms."""
     import torch
 
     from deeprank_gnn_tpu_torch.data.batch import GraphLoader
@@ -2348,7 +2568,8 @@ def zoo_phase(dataset, tmp: str, seed: int) -> dict:
 
     attention = functools.partial(GINet, attention=True)
     paths = [
-        ("attention_dense", attention, "dense", {}, {}),
+        ("attention_dense", attention, "dense", {K4_CSR: 2, K4: 4},
+         {K4_CSR: 4, K4: 4, K4_BWD: 8}),
         ("attention_sparse_small", attention, "sparse",
          {"sorted_segment_sum": 4, "sorted_scatter_gather": 4},
          {"sorted_segment_sum": 4, "sorted_scatter_gather": 8}),
@@ -2652,21 +2873,21 @@ def store_phase(dataset, zoo, tmp: str, seed: int, dense_parity: list, served_de
 
 
 def scan_engine(dataset, seed: int, tmp: str, name: str, kdir: str, ops: bool = True,
-                percent=(0.8, 0.2), batch: int = BATCH, **kw):
-    """Paper-mode GINet on the device store at batch ``batch`` from
-    ``seed``; ``ops=False`` gives it store loaders without the precomputed
-    operators, whose batches feed K3. ``kw``: ``scan_epochs``,
-    ``dense_fast``, ``mesh``, ``device_cache`` (default True),
-    ``device_cache_bytes``, and the features and target (default those of
-    ``fold6`` and ``fnat``)."""
+                percent=(0.8, 0.2), batch: int = BATCH, net=None, device: str = "cuda", **kw):
+    """``net`` (default paper-mode GINet) on the device store of
+    ``device`` at batch ``batch`` from ``seed``; ``ops=False`` gives it
+    store loaders without the precomputed operators, whose batches feed K3
+    (and the attention conv). ``kw``: ``scan_epochs``, ``dense_fast``,
+    ``mesh``, ``device_cache`` (default True), ``device_cache_bytes``, and
+    the features and target (default those of ``fold6`` and ``fnat``)."""
     from deeprank_gnn_tpu_torch.models import GINet
     from deeprank_gnn_tpu_torch.train.neuralnet import NeuralNet
 
     args = dict(node_feature=FOLD6_FEATURES, edge_feature=["dist"], target="fnat",
                 device_cache=True)
     args.update(kw)
-    nn = NeuralNet(dataset, GINet, batch_size=batch, percent=list(percent), layout="dense",
-                   seed=seed, device="cuda", executable_cache_dir=kdir,
+    nn = NeuralNet(dataset, net or GINet, batch_size=batch, percent=list(percent),
+                   layout="dense", seed=seed, device=device, executable_cache_dir=kdir,
                    outdir=os.path.join(tmp, f"scan_{name}"), **args)
     if not ops:
         for attr in ("train_loader", "valid_loader"):
@@ -4685,8 +4906,8 @@ K1, K2 = "sorted_segment_sum", "sorted_scatter_gather"
 ATOMIC_ZOO = [
     ("attention_sparse", "GINet", {"attention": True}, "sparse", {K1: 4, K2: 4},
      {K1: 4, K2: 8}, "cpu", ((False, False), True)),
-    ("attention_dense", "GINet", {"attention": True}, "dense", {}, {}, "attention_sparse",
-     None),
+    ("attention_dense", "GINet", {"attention": True}, "dense", {K4_CSR: 2, K4: 4},
+     {K4_CSR: 4, K4: 4, K4_BWD: 8}, "attention_sparse", None),
     ("internal_tower", "GINet", {"internal_tower": True}, "sparse", {K1: 4}, {K1: 4}, "cpu",
      ((False, True), False)),
     ("attention_internal", "GINet", {"attention": True, "internal_tower": True}, "sparse",
@@ -5117,6 +5338,9 @@ def main(argv=None) -> int:
     ap.add_argument("--atomic", action="store_true",
                     help="build the kernels and run only the atomic-scale phase (15; with "
                          f"--cards {CARDS}: 16)")
+    ap.add_argument("--k4", action="store_true",
+                    help="build the kernels and run only K4's checks and timings at the "
+                         "atomic shapes (phase 17)")
     ap.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
                     help=f"{CARDS}: build the kernels and run only the mesh paths (phases 11 "
                          f"and 16), one NCCL rank a card on cuda:0-{CARDS - 1}, held against "
@@ -5319,6 +5543,10 @@ def run(args, kdir: str) -> int:
         return 0
     if args.cards == CARDS:
         return cards_run(args, kdir, kind, smi, t_start)
+    if args.k4:
+        k4_phase(args.seed, kdir)
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.atomic:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             atomic = atomic_phase(tmp, args.seed, kdir, smi)
@@ -5340,6 +5568,8 @@ def run(args, kdir: str) -> int:
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     # 3b. the padding rule: the repaired ops against their old forms
     padding = padding_phase(dataset, args.seed)
+    # 17. K4 at the atomic shapes
+    k4 = k4_phase(args.seed, kdir)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 15. atomic scale, early: its passes are profiled, and late in a
@@ -5615,6 +5845,42 @@ def run(args, kdir: str) -> int:
                                           "unroll", "exact_rows_per_block",
                                           "exact_blocks_per_graph", "exact_smem_bytes")}
                        for r in k3_fast_main],
+        },
+        {
+            "name": "fused_attention_conv",
+            **KERNELS["fused_attention_conv"],
+            # phase 17: a captured training step of attention GINet on the
+            # store (train_store's path), its launches a replay (CSR builds,
+            # forward calls, backward passes), its epoch losses and the CPU's
+            "launches": k4["store"]["launches_per_replay"],
+            "store_losses": k4["store"]["losses"],
+            "store_cpu_losses": k4["store"]["cpu_losses"],
+            # phase 7: the dense attention path's first epoch on the card
+            "zoo_serve_launches": zoo_out["attention_dense"]["serve"]["launches"],
+            "zoo_train_launches": zoo_out["attention_dense"]["train"]["launches"],
+            # phase 17's calls against the plain version on the card: the
+            # largest error over the tensor's largest element, of the
+            # forward's and of the backward's outputs
+            "max_rel_err_fwd": max(r[k]["vs_card_plain"] for r in k4["cases"]
+                                   for k in ("out", "alpha")),
+            "max_rel_err_bwd": max(r[k]["vs_card_plain"] for r in k4["cases"]
+                                   for k in ("dxw", "dp", "dq", "db")),
+            # one CSR build, forward and backward at each conv's atomic
+            # shape (conv1, conv2), L2 flushed before each call; the plain
+            # version's forward and backward
+            "ms": sum(r["ms_csr"] + r["ms_fwd"] + r["ms_bwd"] for r in k4["cases"]),
+            "plain_ms": sum(r["plain_ms_fwd"] + r["plain_ms_bwd"] for r in k4["cases"]),
+            "bound_ms": sum(r["bound_ms_csr"] + r["bound_ms_fwd"] + r["bound_ms_bwd"]
+                            for r in k4["cases"]),
+            "bound_by": "bytes",
+            "l2_warm_ms": sum(r["l2_warm_ms_csr"] + r["l2_warm_ms_fwd"] + r["l2_warm_ms_bwd"]
+                              for r in k4["cases"]),
+            "shapes": [{k: r[k] for k in ("case", "G", "S", "F", "E", "kept", "ms_csr", "ms_fwd",
+                                          "ms_bwd", "l2_warm_ms_csr", "l2_warm_ms_fwd",
+                                          "l2_warm_ms_bwd", "plain_ms_fwd", "plain_ms_bwd",
+                                          "bound_ms_csr", "bound_ms_fwd", "bound_ms_bwd",
+                                          "short_rows", "lanes_per_row", "rows_per_block")}
+                       for r in k4["cases"]],
         },
     ]}
     passes = {f"serve_{k}": v for k, v in served.items()}

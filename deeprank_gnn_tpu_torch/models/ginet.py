@@ -25,9 +25,10 @@ only builds row-sorted batches): two launches per batch on the fused path,
 four unfused. The attention softmax takes its denominator from the sorted
 scatter-gather kernel (K2), once per conv and tower. On a
 ``DenseGraphBatch`` the paper-mode aggregations run as the per-graph GIN
-aggregation kernel (K3), twice per batch fused; the attention conv runs the
-dense edge-to-slot ops (``ops/dense.py``), and pooling is the
-``cluster_max_pool`` dispatch. A dense batch with precomputed operators
+aggregation kernel (K3), twice per batch fused; the attention conv runs as
+the fused attention conv kernel (K4) over per-graph CSRs that a batch builds
+once for all four convs, and pooling is the ``cluster_max_pool`` dispatch. A
+dense batch with precomputed operators
 (``collate_dense(precompute_ops=True)``, the device store) takes the
 operator path in paper mode: level 1 is one product of the stored
 aggregation with both towers' weights and a tiled pool, level 2 the stored
@@ -43,7 +44,7 @@ bf16 operands and fp32 accumulation: K3's fast variant and
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -62,11 +63,14 @@ from deeprank_gnn_tpu_torch.models.common import (
 from deeprank_gnn_tpu_torch.ops.dense import (
     adj_conv,
     cluster_max_pool,
-    dense_segment_softmax,
     edge_sum_to_slots,
-    gather_nodes,
     masked_mean,
     tiled_cluster_max_pool,
+)
+from deeprank_gnn_tpu_torch.ops.kernels.attention_conv import (
+    AttentionCSR,
+    attention_csr,
+    fused_attention_conv,
 )
 from deeprank_gnn_tpu_torch.ops.kernels.gin_conv import fused_gin_conv
 from deeprank_gnn_tpu_torch.ops.pooling import (
@@ -132,19 +136,55 @@ def ginet_conv_dense(
     row: torch.Tensor,
     col: torch.Tensor,
     edge_attr: torch.Tensor,
-    size: int,
+    by_row: Optional[AttentionCSR] = None,
+    by_col: Optional[AttentionCSR] = None,
 ) -> torch.Tensor:
     """The attention conv in the dense layout (the JAX package's
     ``conv_att``, ``models/ginet.py:314-327``): the same numbers as
     :func:`ginet_conv` with ``attention``; pad edges (sentinel row or col)
-    drop out of the softmax and the sum."""
+    drop out of the softmax and the sum. The logit ``[xw_r | xw_c | e W_e] .
+    a`` is taken apart into ``p[r] + q[c] + b_e`` (``p = xw . a[:F]``, ``q =
+    xw . a[F:2F]``, ``b = (e W_e) . a[2F:] = e . (W_e^T a[2F:])``, the last an
+    elementwise product and a sum over the few edge features, whose backward
+    is a reduction rather than a product of inner size G * E), and K4
+    computes the softmax and the weighted sum, on a card over the CSRs
+    ``by_row`` and (for a backward) ``by_col``."""
     xw = linear(x, conv.fc.weight)
-    msg = gather_nodes(xw, col)  # [G,E,F]
-    xrow = gather_nodes(xw, row)
-    ed = linear(edge_attr, conv.fc_edge_attr.weight)
-    logits = linear(torch.cat([xrow, msg, ed], dim=-1), conv.fc_attention.weight)
-    alpha = dense_segment_softmax(F.leaky_relu(logits[..., 0]), row, size)
-    return edge_sum_to_slots(msg * alpha[..., None], row, size)
+    f = xw.shape[-1]
+    a = conv.fc_attention.weight[0]
+    p = torch.matmul(xw, a[:f])
+    q = torch.matmul(xw, a[f:2 * f])
+    b = (edge_attr * torch.matmul(conv.fc_edge_attr.weight.t(), a[2 * f:])).sum(dim=-1)
+    return fused_attention_conv(xw, p, q, b, row, col, by_row, by_col)
+
+
+class DenseAttention(NamedTuple):
+    """What the dense attention convs of one batch share: the pooled edge
+    attributes (``edge_attr`` summed onto the pooled edges, the same in both
+    towers) and, on a card, the CSRs of conv1's edges and of the pooled
+    edges, by row and, for a backward, by col (``None`` without one, and
+    all four on the CPU, whose plain version reads none)."""
+
+    pe_attr: torch.Tensor
+    rows: Optional[AttentionCSR]
+    cols: Optional[AttentionCSR]
+    pe_rows: Optional[AttentionCSR]
+    pe_cols: Optional[AttentionCSR]
+
+    @classmethod
+    def of(cls, batch: DenseGraphBatch) -> "DenseAttention":
+        """Built once a batch: the CSRs on a card only, the col ones only
+        where autograd records."""
+        s, c0g = batch.x.shape[1], batch.pool0_mask.shape[1]
+        card = batch.x.device.type == "cuda"
+        backward = card and torch.is_grad_enabled()
+        return cls(
+            pe_attr=edge_sum_to_slots(batch.edge_attr, batch.edge_to_pe, batch.pe_row.shape[1]),
+            rows=attention_csr(batch.row, batch.col, s) if card else None,
+            cols=attention_csr(batch.col, batch.row, s) if backward else None,
+            pe_rows=attention_csr(batch.pe_row, batch.pe_col, c0g) if card else None,
+            pe_cols=attention_csr(batch.pe_col, batch.pe_row, c0g) if backward else None,
+        )
 
 
 class GINet(nn.Module):
@@ -288,17 +328,19 @@ class GINet(nn.Module):
         return masked_mean(hq, batch.pool1_mask)
 
     def _tower_dense(
-        self, conv1: GINetConvLayer, conv2: GINetConvLayer, batch: DenseGraphBatch
+        self, conv1: GINetConvLayer, conv2: GINetConvLayer, batch: DenseGraphBatch,
+        att: Optional[DenseAttention] = None,
     ) -> torch.Tensor:
         """One dense tower (the JAX package's ``_tower_dense``): the same
-        numbers as :meth:`_tower`."""
+        numbers as :meth:`_tower`. With attention, ``att`` is the batch's
+        :class:`DenseAttention`."""
         c0g, c1g = batch.pool0_mask.shape[1], batch.pool1_mask.shape[1]
         if self.attention:
-            pe_attr = edge_sum_to_slots(batch.edge_attr, batch.edge_to_pe, batch.pe_row.shape[1])
             h = torch.relu(ginet_conv_dense(
-                conv1, batch.x, batch.row, batch.col, batch.edge_attr, batch.x.shape[1]))
+                conv1, batch.x, batch.row, batch.col, batch.edge_attr, att.rows, att.cols))
             hp = cluster_max_pool(h, batch.assign0, c0g, batch.mem0_idx)
-            h2 = torch.relu(ginet_conv_dense(conv2, hp, batch.pe_row, batch.pe_col, pe_attr, c0g))
+            h2 = torch.relu(ginet_conv_dense(
+                conv2, hp, batch.pe_row, batch.pe_col, att.pe_attr, att.pe_rows, att.pe_cols))
         else:
             exact = not self.dense_fast
             xw = linear(batch.x, conv1.fc.weight)
@@ -337,8 +379,9 @@ class GINet(nn.Module):
             if self.fuse:
                 h = self._towers_dense_fused(batch)
             else:
-                t1 = self._tower_dense(self.conv1, self.conv2, batch)
-                t2 = self._tower_dense(self.conv1_ext, self.conv2_ext, batch)
+                att = DenseAttention.of(batch) if self.attention else None
+                t1 = self._tower_dense(self.conv1, self.conv2, batch, att)
+                t2 = self._tower_dense(self.conv1_ext, self.conv2_ext, batch, att)
                 h = torch.cat([t1, t2], dim=1)
         elif self.fuse:
             h = self._towers_fused(batch)

@@ -81,6 +81,23 @@ _SIGNATURES = {
             [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
         ),
     },
+    "fused_attention_conv": {
+        "fused_attention_conv_plan": (
+            ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+        ),
+        "attention_csr": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        ),
+        "fused_attention_conv_f32": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ),
+        "fused_attention_conv_bwd_f32": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -22,18 +22,33 @@ bitwise unchanged.
 come from shapes alone, with no host sync, so a call counts while a CUDA
 graph is captured too; ``train/scan.py`` moves a captured call's counts to
 its graph and adds them again at each replay, so the counter holds what ran.
-A hand kernel's plain version does not count: on a card the kernel runs in
-its place and accumulates nothing here.
+A hand kernel's plain version does not count (``counted=False``, or its calls
+inside :func:`not_counted`): on a card the kernel runs in its place and
+accumulates nothing here.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 from typing import Optional
 
 import torch
 
 ACCUMULATED: Counter = Counter()
+_counting = True
+
+
+@contextlib.contextmanager
+def not_counted():
+    """:func:`index_add_rows` counts nothing inside the block (a hand
+    kernel's plain version built from the counted ops)."""
+    global _counting
+    was, _counting = _counting, False
+    try:
+        yield
+    finally:
+        _counting = was
 
 
 def lane_rows(index: torch.Tensor, n: int, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -53,7 +68,7 @@ def index_add_rows(values: torch.Tensor, index: torch.Tensor, n: int,
     [L]``. An invalid lane (see :func:`lane_rows`) drops out. Counted in
     :data:`ACCUMULATED` unless ``counted`` is False (a kernel's plain
     version)."""
-    if counted:
+    if counted and _counting:
         ACCUMULATED["lanes"] += values.shape[0]
         ACCUMULATED["elements"] += values.numel()
     out = values.new_zeros((n + values.shape[0],) + tuple(values.shape[1:]))

@@ -2,8 +2,10 @@
 ``ACCUMULATED``), as the benchmark's ``accum_mb.train`` reads it.
 
 On the CPU: a dense attention training step counts the lanes and elements
-its shapes give; a paper-mode K3 step on the same batch counts its pools
-alone (K3's plain version stands in for a kernel and counts nothing); a
+its shapes give, its pools and its pooled edge attributes once (the
+attention conv is kernel K4, whose plain version counts nothing); a
+paper-mode K3 step on the same batch counts its pools alone (K3's plain
+version stands in for a kernel and counts nothing); a
 captured graph keeps its step's counts, which leave the counter at capture
 and come back at each replay; and a scanned training pass carries its total
 on its ``pass`` span.
@@ -63,26 +65,18 @@ def _pools(b) -> Counter:
     return Counter(lanes=lanes, elements=lanes)
 
 
-def _attention_conv(lanes: int, width: int) -> Counter:
-    """One attention conv over ``lanes`` edge slots at ``width`` columns in
-    training: forward, the softmax's denominator (one column) and the
-    weighted sum; backward, the gathers of ``x W`` at the rows and at the
-    columns (``width`` each) and of the row's max and denominator (one
-    column each)."""
-    return Counter(lanes=6 * lanes, elements=lanes * (1 + width + 2 * width + 2))
-
-
 def test_dense_attention_step_counts_its_shapes():
+    """Both towers' pools, and the pooled edge attributes once a step (both
+    towers read the same sum); the four attention convs, forward and
+    backward, count nothing."""
     from deeprank_gnn_tpu_torch import GINet
 
     b = _batch()
     g, eg = b.row.shape
-    pg = b.pe_row.shape[1]
     model = GINet(48, 1, 1, attention=True, device="cpu").train()
     got = _step_counts(model, b)
-    tower = _pools(b) + Counter(lanes=g * eg, elements=g * eg * FE)  # the pooled attributes
-    tower += _attention_conv(g * eg, 16) + _attention_conv(g * pg, 32)
-    assert got == tower + tower
+    pooled_attributes = Counter(lanes=g * eg, elements=g * eg * FE)
+    assert got == _pools(b) + _pools(b) + pooled_attributes
 
 
 def test_k3_step_counts_none_of_the_attention_sums():
